@@ -1,0 +1,160 @@
+"""Public inference API with the reference's output contract.
+
+Counterpart of cerberusdet_tpu/infer/inference.py: forward over all heads ->
+per-task NMS -> global class-id remap -> cross-task suppression -> boxes
+scaled to the original shapes -> [{box, score, label, label_name, task}] per
+image. Everything up to the formatting runs on the device; `predict` syncs
+once, to copy the fixed-shape result to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from cerberusdet_tpu_torch import resolve_device
+from cerberusdet_tpu_torch.manager.weights import load_jax_params
+from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
+from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, non_max_suppression
+
+DTYPES = (torch.bfloat16, torch.float32, torch.float64)
+
+
+def build_category_map(names: Dict[str, Sequence[str]]):
+    """{task: [names]} -> ({task: {local_id: global_id}}, all_names)."""
+    categories_map: Dict[str, Dict[int, int]] = {}
+    all_names: List[str] = []
+    offset = 0
+    for task, task_names in names.items():
+        categories_map[task] = {i: i + offset for i in range(len(task_names))}
+        all_names.extend(task_names)
+        offset += len(task_names)
+    return categories_map, all_names
+
+
+class CerberusDetInference:
+    """Multi-task detector inference on one device.
+
+    Construct from `model` (a CerberusModel; it is fused in place and cast to
+    `dtype`) with `params` = None (the model's own weights) or a JAX-layout
+    parameter tree of arrays (manager/weights.py); or from `weights`, a
+    `.ckpt.npz` written by either package. `device` None means the card.
+    `dtype` is bfloat16 by default (the JAX package's half=True), or float32
+    or float64; the decode and NMS run in float32 as in the JAX package.
+    """
+
+    def __init__(self, model: Optional[CerberusModel] = None, params=None,
+                 weights: Optional[str] = None,
+                 names: Optional[Dict[str, Sequence[str]]] = None,
+                 conf_thres: float = 0.25, iou_thres: float = 0.45,
+                 iou_thres_between_tasks: float = 0.8, img_size: int = 640,
+                 max_det: int = 300, dtype: torch.dtype = torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
+        if model is None:
+            if weights is None:
+                raise ValueError("provide (model, params) or a weights path")
+            from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint
+
+            ckpt = load_checkpoint(weights)
+            meta = ckpt["meta"]
+            model = CerberusModel(meta["cfg"], meta["task_ids"], meta["nc"],
+                                  device=self.device)
+            params = ckpt["ema"] if ckpt.get("ema") else ckpt["params"]
+            names = names or dict(zip(meta["task_ids"], meta["names"]))
+        if names is None:
+            raise ValueError("names required when passing (model, params)")
+        if params is not None:
+            load_jax_params(model, params)
+        # always fused at inference (exact; the reference fuses in attempt_load),
+        # in the weights' own precision before the cast to the compute dtype
+        self.model = model.fuse().to(device=self.device, dtype=dtype).eval()
+        self.dtype = dtype
+        self.names = dict(names)
+        self.conf_thres = conf_thres
+        self.iou_thres = iou_thres
+        self.iou_thres_between_tasks = iou_thres_between_tasks
+        self.max_det = max_det
+        self.img_size = img_size
+        self.stride = int(max(model.strides))
+        self.categories_map, self.all_class_names = build_category_map(self.names)
+        self.task_order = list(self.names.keys())
+
+    @torch.no_grad()
+    def predict_device(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,
+                       iou_bt: float, agnostic: bool, max_det: int,
+                       use_kernel: Optional[bool] = None):
+        """The device part: batch (B, H, W, 3) on the device -> merged
+        (B, T*max_det, 6), task_idx (B, T*max_det), keep (B, T*max_det)."""
+        x = batch.permute(0, 3, 1, 2).to(self.dtype)
+        out = self.model(x)
+        dets_all, task_idx_all = [], []
+        for ti, task in enumerate(self.task_order):
+            pred, _ = out[task]
+            dets, _ = non_max_suppression(
+                pred, nc=len(self.names[task]), conf_thres=float(conf_thres),
+                iou_thres=float(iou_thres), agnostic=agnostic, max_det=max_det,
+                use_kernel=use_kernel)
+            offset = self.categories_map[task][0]
+            cls_global = torch.where(dets[..., 4:5] > 0, dets[..., 5:6] + offset, 0.0)
+            dets_all.append(torch.cat([dets[..., :5], cls_global], dim=-1))
+            task_idx_all.append(torch.full(dets.shape[:2], ti, dtype=torch.int32,
+                                           device=dets.device))
+        merged = torch.cat(dets_all, dim=1)
+        task_idx = torch.cat(task_idx_all, dim=1)
+        # task-major with max_det rows per task: the last task's rows never act
+        scan_rows = (len(self.task_order) - 1) * max_det
+        keep = cross_task_suppress(merged, task_idx, float(iou_bt), scan_rows=scan_rows)
+        return merged, task_idx, keep
+
+    def predict(self, batch,
+                original_shape: Union[Tuple[int, int], List[Tuple[int, int]], None] = None,
+                max_det: Optional[int] = None, agnostic_nms: bool = False,
+                conf_thres: Optional[float] = None, iou_thres: Optional[float] = None,
+                iou_thres_between_tasks: Optional[float] = None,
+                use_kernel: Optional[bool] = None) -> List[List[Dict]]:
+        """batch: (B, H, W, 3) float NHWC in [0, 1], numpy or tensor
+        (CerberusPreprocessor's output). Returns per image a list of
+        {box, score, label, label_name, task} dicts, by descending score.
+        use_kernel=False runs the plain NMS loop instead of the kernel (a test
+        hook; see ops/nms.py)."""
+        conf_thres = self.conf_thres if conf_thres is None else conf_thres
+        iou_thres = self.iou_thres if iou_thres is None else iou_thres
+        iou_bt = (self.iou_thres_between_tasks if iou_thres_between_tasks is None
+                  else iou_thres_between_tasks)
+        max_det = self.max_det if max_det is None else max_det
+        batch = torch.as_tensor(batch, device=self.device)
+        merged, task_idx, keep = self.predict_device(
+            batch, conf_thres, iou_thres, iou_bt, bool(agnostic_nms), int(max_det),
+            use_kernel)
+        merged = merged.cpu().numpy()
+        task_idx = task_idx.cpu().numpy()
+        keep = keep.cpu().numpy()
+
+        net_shape = tuple(batch.shape[1:3])
+        results: List[List[Dict]] = []
+        for i in range(len(merged)):
+            det = merged[i][keep[i]]
+            tidx = task_idx[i][keep[i]]
+            order = np.argsort(-det[:, 4])
+            det, tidx = det[order], tidx[order]
+            if len(det) and original_shape is not None:
+                shape = (original_shape[i] if isinstance(original_shape, list)
+                         else original_shape)
+                det[:, :4] = scale_boxes_np(net_shape, det[:, :4], shape).round()
+            image_results = []
+            for row, ti in zip(det, tidx):
+                c = int(row[5])
+                image_results.append({
+                    "box": [int(v) for v in row[:4]],
+                    "score": float(row[4]),
+                    "label": c,
+                    "label_name": self.all_class_names[c],
+                    "task": self.task_order[int(ti)],
+                })
+            results.append(image_results)
+        return results

@@ -1,0 +1,84 @@
+"""Weight bridge: a JAX parameter tree of numpy arrays -> the port's modules.
+
+The JAX package keeps parameters as nested dicts keyed by block uid
+(cerberusdet_tpu/models/cerberus.py), NHWC/HWIO. The port's state_dict has
+the same nesting (nn/layers.py keeps the JAX names), so the mapping is by key:
+  <uid>/.../w          -> blocks.<uid>. ... .w   (HWIO -> OIHW for 4-D)
+  <uid>/.../b          -> ... .b
+  <uid>/.../bn/scale   -> ... .bn.weight
+  <uid>/.../bn/bias    -> ... .bn.bias
+  <uid>/.../bn/mean    -> ... .bn.running_mean (buffer)
+  <uid>/.../bn/var     -> ... .bn.running_var  (buffer)
+A fused tree ({w, b} convs, no `bn` anywhere) fuses the model first.
+Parameterless blocks (Upsample, Concat) may be absent from the tree.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from cerberusdet_tpu_torch.models.cerberus import module_key
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+def _torch_key(path: Tuple[str, ...]) -> str:
+    rest = list(path)
+    if len(rest) >= 2 and rest[-2] == "bn":
+        if rest[-1] not in _BN:
+            raise KeyError(f"unknown BatchNorm leaf {'/'.join(path)}")
+        rest[-1] = _BN[rest[-1]]
+    return ".".join(rest)
+
+
+def _has_bn(tree: Mapping[str, Any]) -> bool:
+    return any("bn" in path for path, _ in _leaves(tree))
+
+
+@torch.no_grad()
+def load_jax_tree(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a JAX parameter tree into `module` (any layer of nn/layers.py, or
+    a container of them keyed as the tree is) in place and return it.
+    Raises KeyError on a missing or an extra key, ValueError on a shape
+    mismatch. Values are cast to each parameter's dtype and device."""
+    state = module.state_dict()
+    src: Dict[str, np.ndarray] = {}
+    for path, v in _leaves(tree):
+        a = np.asarray(v)
+        if path[-1] == "w" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        src[_torch_key(path)] = a
+    missing = sorted(set(state) - set(src))
+    extra = sorted(set(src) - set(state))
+    if missing or extra:
+        raise KeyError(f"parameter trees differ: missing {missing[:8]} "
+                       f"({len(missing)}), extra {extra[:8]} ({len(extra)})")
+    for k, a in src.items():
+        dst = state[k]
+        if tuple(dst.shape) != a.shape:
+            raise ValueError(f"{k}: shape {a.shape} does not fit {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(a)))  # a writable copy
+    return module
+
+
+@torch.no_grad()
+def load_jax_params(model, tree: Mapping[str, Any]):
+    """Copy a JAX CerberusModel parameter tree (keyed by block uid) into the
+    port's CerberusModel `model` in place and return it; fuses the model
+    first when the tree is fused. Errors as `load_jax_tree`."""
+    if not _has_bn(tree) and not model.fused:
+        model.fuse()
+    load_jax_tree(model.blocks, {module_key(uid): sub for uid, sub in tree.items()})
+    return model

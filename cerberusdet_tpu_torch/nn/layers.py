@@ -1,0 +1,235 @@
+"""YOLOv8 layers of the flagship configs, as NCHW nn.Modules.
+
+Counterpart of cerberusdet_tpu/nn/layers.py, restricted to the layers that
+configs/models/yolov8{n,x}*.yaml use: Conv, PlainConv, Seq, Bottleneck, C2f,
+SPPF, Concat, Upsample and Detect. Parameter names follow the JAX tree
+(Conv: `w` + `bn`, or `w` + `b` once fused; Detect: `box{i}`/`cls{i}`, each a
+Seq with children 0/1/2), so a JAX tree maps onto `state_dict` key by key
+(manager/weights.py). The rest of the layer zoo is a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from cerberusdet_tpu_torch.nn.module import (
+    BatchNorm,
+    autopad,
+    fuse_conv_bn,
+    kaiming_uniform_,
+    silu,
+    uniform_,
+)
+from cerberusdet_tpu_torch.ops.anchors import dfl_expectation, dist2bbox, make_anchors
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class Conv(nn.Module):
+    """Conv2d + BatchNorm + SiLU; after `fuse()`, Conv2d with bias + SiLU."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
+        super().__init__()
+        self.c2, self.g, self.d, self.act = c2, g, d, act
+        kh, kw = _pair(k)
+        self.s = _pair(s)
+        self.p = _pair(autopad((kh, kw), p, d))
+        self.w = nn.Parameter(torch.empty(c2, c1 // g, kh, kw))
+        self.bn = BatchNorm(c2)
+
+    def reset(self, gen: torch.Generator) -> None:
+        kaiming_uniform_(self.w, self.w[0].numel(), gen)
+        self.bn.reset()
+
+    def forward(self, x):
+        bn = getattr(self, "bn", None)
+        y = F.conv2d(x, self.w, None if bn is not None else self.b, self.s, self.p,
+                     self.d, self.g)
+        if bn is not None:
+            y = bn(y)
+        return silu(y) if self.act else y
+
+    @torch.no_grad()
+    def fuse(self) -> None:
+        """Fold the BatchNorm into `w` and a new bias `b`."""
+        if not hasattr(self, "bn"):
+            return
+        w, b = fuse_conv_bn(self.w, self.bn)
+        del self.bn
+        self.w.copy_(w)
+        self.b = nn.Parameter(b)
+
+
+class PlainConv(nn.Module):
+    """Bare Conv2d with bias (the last 1x1 of each Detect tower)."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None):
+        super().__init__()
+        self.c2 = c2
+        self.s, self.p = _pair(s), _pair(autopad(k, p))
+        self.w = nn.Parameter(torch.empty(c2, c1, k, k))
+        self.b = nn.Parameter(torch.empty(c2))
+
+    def reset(self, gen: torch.Generator) -> None:
+        fan_in = self.w[0].numel()
+        kaiming_uniform_(self.w, fan_in, gen)
+        bound = 1.0 / math.sqrt(fan_in)
+        uniform_(self.b, -bound, bound, gen)
+
+    def forward(self, x):
+        return F.conv2d(x, self.w, self.b, self.s, self.p)
+
+
+class Seq(nn.Sequential):
+    """Sequential container; children named '0', '1', ... as in the JAX tree."""
+
+    def __init__(self, *layers):
+        super().__init__(*layers)
+        self.c2 = layers[-1].c2
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c1, c2, shortcut=True, g=1, k=(3, 3), e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+        self.c2 = c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """CSP bottleneck with 2 convs, the main YOLOv8 block. The split and the
+    concat are on channels, dim 1 in NCHW."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n))
+        self.c2 = c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, : self.c], y[:, self.c:]]
+        for b in self.m:
+            ys.append(b(ys[-1]))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
+class SPPF(nn.Module):
+    """Fast SPP: three chained k-pools, padded with -inf."""
+
+    def __init__(self, c1, c2, k=5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1)
+        self.k = k
+        self.c2 = c2
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = F.max_pool2d(x, self.k, 1, self.k // 2)
+        y2 = F.max_pool2d(y1, self.k, 1, self.k // 2)
+        y3 = F.max_pool2d(y2, self.k, 1, self.k // 2)
+        return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+
+
+class Concat(nn.Module):
+    """Concatenate NCHW tensors on `dimension` (1 = channels)."""
+
+    def __init__(self, dimension: int = 1):
+        super().__init__()
+        self.dim = dimension
+        self.c2 = 0  # filled by the config parser
+
+    def forward(self, xs):
+        return torch.cat(xs, dim=self.dim)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour integer upsample."""
+
+    def __init__(self, size=None, scale_factor: int = 2, mode: str = "nearest"):
+        super().__init__()
+        if size is not None or mode != "nearest":
+            raise ValueError("only integer nearest upsample is supported")
+        self.f = int(scale_factor)
+        self.c2 = 0
+
+    def forward(self, x):
+        return x.repeat_interleave(self.f, dim=2).repeat_interleave(self.f, dim=3)
+
+
+class Detect(nn.Module):
+    """YOLOv8 anchor-free decoupled head. forward(xs) -> (preds, feats):
+    feats are the per-level (B, 4*reg_max + nc, H, W) maps; preds is
+    (B, N, 4 + nc) float32, xywh boxes in input pixels + sigmoid scores, with
+    the N anchors flattened level-major, then row-major over (h, w)."""
+
+    def __init__(self, nc: int, ch: Sequence[int] = ()):
+        super().__init__()
+        self.nc = nc
+        self.reg_max = 16
+        self.no = nc + self.reg_max * 4
+        self.nl = len(ch)
+        c2 = max(16, ch[0] // 4, self.reg_max * 4)
+        # the reference's cls width (yolo.py:79), not ultralytics' min(nc, 100)
+        c3 = max(ch[0], nc)
+        for i, c in enumerate(ch):
+            self.add_module(f"box{i}", Seq(Conv(c, c2, 3), Conv(c2, c2, 3),
+                                           PlainConv(c2, 4 * self.reg_max, 1)))
+            self.add_module(f"cls{i}", Seq(Conv(c, c3, 3), Conv(c3, c3, 3),
+                                           PlainConv(c3, nc, 1)))
+        self.stride: Tuple[float, ...] = tuple(2 ** (3 + i) for i in range(self.nl))
+        self.c2 = self.no
+
+    @torch.no_grad()
+    def bias_init(self) -> None:
+        """Prior-aware bias init of the last conv of each tower."""
+        for i, s in enumerate(self.stride):
+            getattr(self, f"box{i}")[2].b.fill_(1.0)
+            getattr(self, f"cls{i}")[2].b.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+    def forward(self, xs: List[torch.Tensor]):
+        feats = [torch.cat([getattr(self, f"box{i}")(x), getattr(self, f"cls{i}")(x)], 1)
+                 for i, x in enumerate(xs)]
+        return self.decode(feats), feats
+
+    def decode(self, feats: List[torch.Tensor]):
+        """Flatten levels and decode boxes; float32 as in the JAX package."""
+        shapes = [(f.shape[2], f.shape[3]) for f in feats]
+        anchors, strides = make_anchors(shapes, self.stride, device=feats[0].device)
+        b = feats[0].shape[0]
+        flat = torch.cat([f.reshape(b, self.no, -1) for f in feats], 2).transpose(1, 2)
+        distri, cls = flat[..., : 4 * self.reg_max], flat[..., 4 * self.reg_max:]
+        dist = dfl_expectation(distri.float(), self.reg_max)
+        boxes = dist2bbox(dist, anchors[None], xywh=True) * strides[None]
+        return torch.cat([boxes, torch.sigmoid(cls.float())], dim=-1)
+
+
+# Registry used by the model-config interpreter (models/config.py).
+LAYERS = {
+    "Conv": Conv,
+    "Bottleneck": Bottleneck,
+    "C2f": C2f,
+    "SPPF": SPPF,
+    "Concat": Concat,
+    "nn.Upsample": Upsample,
+    "Upsample": Upsample,
+    "Detect": Detect,
+}

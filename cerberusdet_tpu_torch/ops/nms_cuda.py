@@ -1,0 +1,156 @@
+"""Batched greedy NMS: the plain PyTorch loop and its CUDA kernel for Hopper.
+
+The kernel (csrc/nms.cu) replaces cerberusdet_tpu/ops/nms_pallas.py:_nms_kernel.
+On this card it is bound by the chain of max_det dependent steps, not by
+bytes: each step is a block-wide argmax and a suppression pass, and the
+candidates (K * 20 B an image) come from L2 on every step. Its design: one
+thread block per image, the live scores in shared memory, a warp-shuffle
+argmax with lowest-index ties, a suppression pass that skips candidates
+already at 0, and an early end once every live score is 0. The IoU follows
+the plain loop's operation order with FMA contraction off, so both select
+the same indices bit for bit.
+
+The kernel is built with nvcc from the package's sources at first use, into
+cerberusdet_tpu_torch/build/, as a shared library with a plain C interface
+loaded through ctypes. `greedy_nms_cuda` launches it for tensors on the card
+(or raises) and runs the plain loop for tensors on the CPU; its attribute
+`launches` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from cerberusdet_tpu_torch.ops.boxes import box_area
+
+MAX_K = 16384  # live scores in shared memory: 16384 * 4 B = 64 KB
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "nms.cu"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
+    """Exact greedy NMS, batched; the plain version of the kernel.
+
+    boxes (B, K, 4) xyxy (class offsets applied by the caller), scores (B, K)
+    with <= 0 meaning invalid. Each of max_det steps takes the argmax of the
+    live scores (lowest index on ties), records it with valid = score > 0 and
+    zeroes the pick and every box with IoU > iou_thres.
+    Returns (idx (B, max_det) int32, valid (B, max_det) bool)."""
+    b = scores.shape[0]
+    rows = torch.arange(b, device=scores.device)
+    live = scores.clone()
+    area = box_area(boxes)
+    idx = torch.zeros((b, max_det), dtype=torch.int32, device=scores.device)
+    valid = torch.zeros((b, max_det), dtype=torch.bool, device=scores.device)
+    for i in range(max_det):
+        j = live.argmax(dim=1)
+        s = live[rows, j]
+        p = boxes[rows, j][:, None, :]                                  # (B, 1, 4)
+        iw = (torch.minimum(p[..., 2], boxes[..., 2])
+              - torch.maximum(p[..., 0], boxes[..., 0])).clamp(min=0.0)
+        ih = (torch.minimum(p[..., 3], boxes[..., 3])
+              - torch.maximum(p[..., 1], boxes[..., 1])).clamp(min=0.0)
+        inter = iw * ih
+        iou = inter / (area[rows, j][:, None] + area - inter + 1e-7)
+        live = torch.where(iou > iou_thres, 0.0, live)
+        live[rows, j] = 0.0
+        idx[:, i] = j.to(torch.int32)
+        valid[:, i] = s > 0.0
+    return idx, valid
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the NMS kernel is built with the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return nvcc
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/nms.cu into build/ (once per source and flag set) and
+    return the library's path."""
+    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"libcerberus_nms_{key[:12]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, end="")
+    os.replace(tmp, lib)
+    return lib
+
+
+_LIB = {}
+
+
+def _load():
+    if "nms" not in _LIB:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.cerberus_nms_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB["nms"] = fn
+    return _LIB["nms"]
+
+
+def greedy_nms_cuda(boxes, scores, iou_thres: float, max_det: int):
+    """Greedy NMS through the CUDA kernel for tensors on the card; the plain
+    `greedy_nms` for tensors on the CPU. Same contract as `greedy_nms`;
+    on the card boxes must be float32 (B, K, 4) and scores float32 (B, K),
+    contiguous, with 1 <= K <= MAX_K."""
+    if boxes.device.type == "cpu" and scores.device.type == "cpu":
+        return greedy_nms(boxes, scores, iou_thres, max_det)
+    if boxes.device.type != "cuda" or boxes.device != scores.device:
+        raise ValueError(f"NMS kernel needs both tensors on one CUDA device, got "
+                         f"{boxes.device} and {scores.device}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"NMS kernel takes float32, got {boxes.dtype}/{scores.dtype}")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"NMS kernel shapes: boxes {tuple(boxes.shape)} must be "
+                         f"(B, K, 4) and scores {tuple(scores.shape)} (B, K)")
+    b, k = scores.shape
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"NMS kernel supports 1..{MAX_K} candidates, got {k}")
+    if max_det < 1:
+        raise ValueError(f"max_det must be positive, got {max_det}")
+    if not (boxes.is_contiguous() and scores.is_contiguous()) or boxes.data_ptr() % 16:
+        raise ValueError("NMS kernel needs contiguous inputs and 16-byte aligned boxes")
+    fn = _load()
+    idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
+    valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
+    if b == 0:
+        return idx, valid
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(boxes.data_ptr(), scores.data_ptr(), b, k, max_det, float(iou_thres),
+                 idx.data_ptr(), valid.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"NMS kernel launch failed: CUDA error {err}")
+    greedy_nms_cuda.launches += 1
+    return idx, valid
+
+
+greedy_nms_cuda.launches = 0

@@ -1,0 +1,54 @@
+"""The port stands alone: no module of cerberusdet_tpu_torch, nor
+chip_smoke.py, imports jax or the JAX package (cerberusdet_tpu)."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "cerberusdet_tpu_torch")
+IMPORT_RE = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|cerberusdet_tpu)(?!\w)"
+    r"|import_module\(\s*['\"](?:jax|cerberusdet_tpu)(?!\w)", re.M)
+
+
+def _port_modules():
+    import cerberusdet_tpu_torch
+
+    names = ["cerberusdet_tpu_torch"]
+    for m in pkgutil.walk_packages(cerberusdet_tpu_torch.__path__, "cerberusdet_tpu_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu"))]
+    return sorted(out)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _port_modules()
+    assert len(mods) >= 15, mods
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'cerberusdet_tpu' or m.startswith('cerberusdet_tpu.'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", [os.path.relpath(p, ROOT) for p in _sources()])
+def test_source_has_no_jax_import(path):
+    with open(os.path.join(ROOT, path)) as f:
+        hits = IMPORT_RE.findall(f.read())
+    assert not hits, (path, hits)

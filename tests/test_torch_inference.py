@@ -1,0 +1,146 @@
+"""The port's serving path as a whole against the JAX package's.
+
+CerberusDetInference.predict of cerberusdet_tpu_torch against
+cerberusdet_tpu's on yolov8n_2task at 64 px, in float64 on both sides (JAX
+under enable_x64, as tests/test_golden_640.py runs it): the result lists must
+be identical — same length, task, label, label_name; score rtol 1e-9; boxes
+within 1 px. Both decode and NMS in float32 (nn/layers.py Detect.decode), so
+the scores are the same float32 values."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cerberusdet_tpu.infer.inference import CerberusDetInference as JaxInference
+from cerberusdet_tpu.infer.preprocessor import CerberusPreprocessor as JaxPreprocessor
+from cerberusdet_tpu.manager.checkpoint import save_checkpoint
+from cerberusdet_tpu.models.cerberus import CerberusModel as JaxModel
+from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
+from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+
+CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "configs", "models", "yolov8n_2task.yaml")
+TASKS, NCS = ["a", "b"], [3, 5]
+NAMES = {"a": ["c0", "c1", "c2"], "b": ["k0", "k1", "k2", "k3", "k4"]}
+SHAPES = [(96, 128), (64, 64), (50, 80), (128, 96)]
+
+
+def _assert_same(ours, ref):
+    assert len(ours) == len(ref)
+    for ro, rr in zip(ours, ref):
+        assert len(ro) == len(rr)
+        for o, r in zip(ro, rr):
+            assert (o["task"], o["label"], o["label_name"]) == \
+                (r["task"], r["label"], r["label_name"]), (o, r)
+            np.testing.assert_allclose(o["score"], r["score"], rtol=1e-9)
+            assert max(abs(a - b) for a, b in zip(o["box"], r["box"])) <= 1, (o, r)
+
+
+def _distinct_heads(params, seed):
+    """Random box-tower biases. With the prior bias (all bins 1.0) a
+    random-init model draws the same box at every anchor in every task, and
+    cross-task suppression then leaves one task only."""
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    for t in TASKS:
+        for i in range(3):
+            last = params[f"head_{t}"][f"box{i}"]["2"]
+            last["b"] = rng.normal(0, 3, last["b"].shape).astype(np.float32)
+    return params
+
+
+@pytest.fixture(scope="module")
+def f64_pair():
+    """(jax params tree as numpy float64, JAX f64 results, input batch)."""
+    x = np.random.default_rng(3).uniform(0, 1, (4, 64, 64, 3))
+    model = JaxModel(CFG, TASKS, NCS)
+    with jax.enable_x64():
+        params = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64),
+            _distinct_heads(model.init(jax.random.PRNGKey(0)), seed=1))
+        ref = JaxInference(model=model, params=params, names=NAMES, conf_thres=1e-4,
+                           img_size=64, half=False, dtype=jnp.float64)
+        dets = ref.predict(x, original_shape=SHAPES)
+    return jax.tree_util.tree_map(np.asarray, params), dets, x
+
+
+def test_predict_float64_matches_jax(f64_pair):
+    params, ref, x = f64_pair
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu")
+    ours = CerberusDetInference(model=model, params=params, names=NAMES, conf_thres=1e-4,
+                                img_size=64, dtype=torch.float64, device="cpu")
+    dets = ours.predict(x, original_shape=SHAPES)
+    _assert_same(dets, ref)
+    for task in TASKS:  # both tasks really detect something
+        assert sum(d["task"] == task for r in dets for d in r) > 0
+
+
+def test_predict_from_checkpoint(tmp_path, f64_pair):
+    """weights=: the .ckpt.npz route gives the same results as (model, params)."""
+    params, _, x = f64_pair
+    params32 = jax.tree_util.tree_map(lambda a: a.astype(np.float32), params)
+    path = tmp_path / "w.ckpt.npz"
+    save_checkpoint(path, params32, {"cfg": CFG, "task_ids": TASKS, "nc": NCS,
+                                     "names": [NAMES[t] for t in TASKS]}, half=False)
+    common = dict(conf_thres=1e-3, img_size=64, dtype=torch.float32, device="cpu")
+    a = CerberusDetInference(weights=str(path), **common).predict(x, SHAPES)
+    b = CerberusDetInference(model=CerberusModel(CFG, TASKS, NCS, device="cpu"),
+                             params=params32, names=NAMES, **common).predict(x, SHAPES)
+    assert a == b and sum(map(len, a)) > 0
+
+
+def test_seeded_model_predicts_on_cpu():
+    """params=None serves the model's own (seeded) weights; contract checks."""
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu").init(0)
+    inf = CerberusDetInference(model=model, names=NAMES, conf_thres=1e-4, img_size=64,
+                               dtype=torch.float32, device="cpu")
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    out = inf.predict(x, original_shape=[(320, 240), (100, 100)])
+    assert len(out) == 2 and sum(map(len, out)) > 0
+    for image_results, (h, w) in zip(out, [(320, 240), (100, 100)]):
+        scores = [d["score"] for d in image_results]
+        assert scores == sorted(scores, reverse=True)
+        for d in image_results:
+            assert set(d) == {"box", "score", "label", "label_name", "task"}
+            assert d["label_name"] == (NAMES["a"] + NAMES["b"])[d["label"]]
+            x1, y1, x2, y2 = d["box"]
+            assert 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (100, 50), (37, 90), (64, 64)])
+def test_device_preprocessor_matches_jax(shape):
+    """Device letterbox: F.interpolate(bilinear, antialias) against
+    jax.image.resize("linear"), which antialiases when it shrinks. Measured
+    agreement is float32 rounding (<= 3e-7 on [0, 1]); the bound is 1e-6."""
+    imgs = np.random.default_rng(0).integers(0, 256, (2, *shape, 3), dtype=np.uint8)
+    ref, ref_shapes = JaxPreprocessor(img_size=64).preprocess_device(imgs)
+    ours, shapes = CerberusPreprocessor(img_size=64, device="cpu").preprocess(list(imgs))
+    assert shapes == ref_shapes
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+
+
+def test_host_preprocessor_matches_jax():
+    """Ragged inputs take the cv2 host path: bit-identical."""
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, s, dtype=np.uint8) for s in [(240, 320, 3), (100, 50, 3)]]
+    ref, ref_shapes = JaxPreprocessor(img_size=64).preprocess(imgs)
+    ours, shapes = CerberusPreprocessor(img_size=64, device="cpu").preprocess(imgs)
+    assert shapes == ref_shapes
+    np.testing.assert_array_equal(ours, np.asarray(ref))
+
+
+def test_default_device_is_the_card():
+    """Entry points default to the card and raise when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CerberusModel(CFG, TASKS, NCS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CerberusPreprocessor(img_size=64)
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CerberusDetInference(model=model, names=NAMES)
