@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX parameter tree of numpy arrays -> the port's modules.
+"""Weight bridge between a JAX parameter tree of numpy arrays and the port's
+modules, both ways.
 
 The JAX package keeps parameters as nested dicts keyed by block uid
 (cerberusdet_tpu/models/cerberus.py), NHWC/HWIO. The port's state_dict has
@@ -11,6 +12,9 @@ the same nesting (nn/layers.py keeps the JAX names), so the mapping is by key:
   <uid>/.../bn/var     -> ... .bn.running_var  (buffer)
 A fused tree ({w, b} convs, no `bn` anywhere) fuses the model first.
 Parameterless blocks (Upsample, Concat) may be absent from the tree.
+export_jax_tree / export_jax_params go the other way, so that a state trained
+by the port can be held against the JAX package's and checkpoints move both
+ways.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from cerberusdet_tpu_torch.models.cerberus import module_key
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_BN_BACK = {v: k for k, v in _BN.items()}
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -82,3 +87,31 @@ def load_jax_params(model, tree: Mapping[str, Any]):
         model.fuse()
     load_jax_tree(model.blocks, {module_key(uid): sub for uid, sub in tree.items()})
     return model
+
+
+@torch.no_grad()
+def export_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of load_jax_tree: `module`'s parameters and buffers as a
+    nested dict of numpy arrays in the JAX layout (OIHW -> HWIO; BatchNorm
+    weight/bias/running_mean/running_var -> scale/bias/mean/var)."""
+    tree: Dict[str, Any] = {}
+    for key, t in module.state_dict().items():
+        path = key.split(".")
+        if len(path) >= 2 and path[-2] == "bn":
+            path[-1] = _BN_BACK[path[-1]]
+        a = t.detach().cpu().numpy()
+        if path[-1] == "w" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def export_jax_params(model) -> Dict[str, Any]:
+    """The port's CerberusModel as a JAX CerberusModel parameter tree keyed by
+    block uid (parameterless blocks left out); load_jax_params reads it."""
+    uids = list(model.block_nodes) + [model.head_uid(t) for t in model.task_ids]
+    by_key = export_jax_tree(model.blocks)
+    return {uid: by_key[module_key(uid)] for uid in uids if module_key(uid) in by_key}

@@ -20,6 +20,7 @@ import torch.nn as nn
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.models.config import ParsedModel, parse_model_cfg
 from cerberusdet_tpu_torch.nn.layers import Conv, Detect, PlainConv
+from cerberusdet_tpu_torch.nn.module import BatchNorm
 
 Label = Tuple[Tuple[int, int], ...]  # ((split_layer, group_idx), ...)
 
@@ -128,6 +129,7 @@ class CerberusModel(nn.Module):
                 head.stride = self.strides
                 blocks[module_key(self.head_uid(t))] = head
         self.blocks = nn.ModuleDict(blocks)
+        self._bn_of: Dict[str, List[BatchNorm]] = {}  # uid -> its BatchNorms
 
     # ------------------------------------------------------------------ uids
     def _uid_for(self, task_idx: int, node_idx: int) -> str:
@@ -180,12 +182,51 @@ class CerberusModel(nn.Module):
             self.block(self.head_uid(t)).bias_init()
         return self
 
+    # ---------------------------------------------------------- training aids
+    def grad_scale(self, tasks: Optional[Sequence[str]] = None) -> Dict[str, float]:
+        """{uid: 1 / serving count} over the active `tasks` (all when None):
+        the gradient averaging of the reference (averaging.py:211-217)."""
+        if tasks is None:
+            counts = self.serving_counts
+        else:
+            counts = {}
+            for t in tasks:
+                ti = self.task_ids.index(t)
+                for j in range(len(self.parsed.nodes)):
+                    uid = self._task_node_uid[(ti, j)]
+                    counts[uid] = counts.get(uid, 0) + 1
+                counts[self.head_uid(t)] = 1
+        uids = list(self.block_nodes) + [self.head_uid(t) for t in self.task_ids]
+        return {uid: 1.0 / float(max(counts.get(uid, 1), 1)) for uid in uids}
+
+    def shared_uids(self) -> List[str]:
+        """Blocks serving more than one task (every backbone/neck block when
+        there is a single task): the freeze_shared target set."""
+        if len(self.task_ids) == 1:
+            return list(self.block_nodes)
+        return [u for u, n in self.serving_counts.items() if n > 1]
+
+    def _batch_norms(self, uid: str) -> List[BatchNorm]:
+        if uid not in self._bn_of:
+            self._bn_of[uid] = [m for m in self.block(uid).modules()
+                                if isinstance(m, BatchNorm)]
+        return self._bn_of[uid]
+
     # --------------------------------------------------------------- forward
-    def forward(self, x, tasks: Optional[Sequence[str]] = None):
-        """x: (B, 3, H, W). Returns {task: (preds, feats)}."""
+    def forward(self, x, tasks: Optional[Sequence[str]] = None, img_mask=None,
+                freeze_bn_uids: Sequence[str] = ()):
+        """x: (B, 3, H, W) in the compute dtype. Returns {task: (preds, feats)}
+        in eval mode, {task: feats} in training mode. In training, the
+        BatchNorms of blocks in `freeze_bn_uids` use their running
+        statistics, and `img_mask` (B,) weights the batch statistics of the
+        others."""
+        frozen = frozenset(freeze_bn_uids)
         outputs = {"__input__": x}
         results = {}
         for step in self.plan(tasks):
+            for bn in self._batch_norms(step.uid):
+                bn.frozen = step.uid in frozen
+                bn.img_mask = img_mask
             if step.task is not None:
                 xs = [outputs[u] for u in step.in_uids]
                 results[step.task] = self.block(step.uid)(xs)
@@ -204,6 +245,7 @@ class CerberusModel(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv):
                 m.fuse()
+        self._bn_of.clear()
         return self
 
     @property

@@ -49,12 +49,15 @@ class Conv(nn.Module):
         self.bn.reset()
 
     def forward(self, x):
+        """The compute dtype is x's: the weight is cast to it and the output
+        cast back to it (float32 master weights in training; a no-op on a
+        model cast as a whole, as for serving)."""
         bn = getattr(self, "bn", None)
-        y = F.conv2d(x, self.w, None if bn is not None else self.b, self.s, self.p,
-                     self.d, self.g)
-        if bn is not None:
-            y = bn(y)
-        return silu(y) if self.act else y
+        if bn is None:
+            y = F.conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
+        else:
+            y = bn(F.conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g))
+        return (silu(y) if self.act else y).to(x.dtype)
 
     @torch.no_grad()
     def fuse(self) -> None:
@@ -84,7 +87,13 @@ class PlainConv(nn.Module):
         uniform_(self.b, -bound, bound, gen)
 
     def forward(self, x):
-        return F.conv2d(x, self.w, self.b, self.s, self.p)
+        """The compute dtype is x's, as in Conv. With float32 master weights
+        and a lower compute dtype, the bias is added to the conv's output
+        in float32 and the sum cast back, as the JAX layer does."""
+        if self.w.dtype == x.dtype:
+            return F.conv2d(x, self.w, self.b, self.s, self.p)
+        y = F.conv2d(x, self.w.to(x.dtype), None, self.s, self.p)
+        return (y + self.b[:, None, None]).to(x.dtype)
 
 
 class Seq(nn.Sequential):
@@ -176,10 +185,11 @@ class Upsample(nn.Module):
 
 
 class Detect(nn.Module):
-    """YOLOv8 anchor-free decoupled head. forward(xs) -> (preds, feats):
-    feats are the per-level (B, 4*reg_max + nc, H, W) maps; preds is
-    (B, N, 4 + nc) float32, xywh boxes in input pixels + sigmoid scores, with
-    the N anchors flattened level-major, then row-major over (h, w)."""
+    """YOLOv8 anchor-free decoupled head. forward(xs) -> (preds, feats) in
+    eval mode, feats alone in training mode: feats are the per-level
+    (B, 4*reg_max + nc, H, W) maps; preds is (B, N, 4 + nc) float32, xywh
+    boxes in input pixels + sigmoid scores, with the N anchors flattened
+    level-major, then row-major over (h, w)."""
 
     def __init__(self, nc: int, ch: Sequence[int] = ()):
         super().__init__()
@@ -208,6 +218,8 @@ class Detect(nn.Module):
     def forward(self, xs: List[torch.Tensor]):
         feats = [torch.cat([getattr(self, f"box{i}")(x), getattr(self, f"cls{i}")(x)], 1)
                  for i, x in enumerate(xs)]
+        if self.training:
+            return feats
         return self.decode(feats), feats
 
     def decode(self, feats: List[torch.Tensor]):

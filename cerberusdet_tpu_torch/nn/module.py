@@ -1,8 +1,7 @@
-"""NN core of the port: padding rule, init, eval-mode BatchNorm, conv+BN fold.
+"""NN core of the port: padding rule, init, BatchNorm, conv+BN fold.
 
-Counterpart of cerberusdet_tpu/nn/module.py. Layout is NCHW / OIHW. Only the
-inference side is ported: BatchNorm runs from its running statistics
-(training-mode BN and the int8 path are later slices of the port).
+Counterpart of cerberusdet_tpu/nn/module.py. Layout is NCHW / OIHW. The int8
+path is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import torch
 import torch.nn as nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
 
 
 def autopad(k, p=None, d: int = 1):
@@ -49,10 +49,21 @@ def kaiming_uniform_(t: torch.Tensor, fan_in: int, gen: torch.Generator,
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channels (dim 1): y = x * inv + shift with
-    inv = rsqrt(var + eps) * weight and shift = bias - mean * inv, the order
-    of cerberusdet_tpu/nn/module.py:batch_norm. The factors are applied in
-    the activation's dtype, as there."""
+    """BatchNorm over channels (dim 1), cerberusdet_tpu/nn/module.py:batch_norm.
+
+    y = x * inv + shift with inv = rsqrt(var + eps) * weight and
+    shift = bias - mean * inv, the factors applied in the activation's dtype.
+    In eval mode, or when `frozen`, mean and var are the running statistics.
+    In training mode they are the batch mean and biased variance over N, H, W,
+    computed in float32 whatever the activation dtype, weighted per image by
+    `img_mask` (B,) when it is set. The running statistics then take the raw
+    batch statistics (unbiased variance) in place:
+    running = (1 - BN_MOMENTUM) * running + BN_MOMENTUM * batch. The JAX step
+    collects them and folds them after the optimizer, task by task; folding
+    during each task's forward is the same, because a training forward never
+    reads the running statistics of a block that is not frozen.
+    CerberusModel.forward sets `frozen` and `img_mask` for each block it runs.
+    """
 
     def __init__(self, c: int, eps: float = BN_EPS):
         super().__init__()
@@ -61,6 +72,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.frozen = False
+        self.img_mask = None
 
     def reset(self) -> None:
         with torch.no_grad():
@@ -69,12 +82,38 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def scale_shift(self):
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return inv, self.bias - self.running_mean * inv
+    def scale_shift(self, mean=None, var=None):
+        mean = self.running_mean if mean is None else mean
+        var = self.running_var if var is None else var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return inv, self.bias - mean * inv
+
+    def batch_stats(self, x):
+        """(mean, biased var, unbiased var) over N, H, W, in float32."""
+        xf = x.float()
+        dims = (0, 2, 3)
+        if self.img_mask is None:
+            mean = xf.mean(dims)
+            var = (xf - mean[:, None, None]).square().mean(dims)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            return mean, var, var * (n / max(n - 1, 1))
+        w = self.img_mask.float().reshape(-1, 1, 1, 1)
+        n = self.img_mask.float().sum().clamp(min=1.0) * (x.shape[2] * x.shape[3])
+        mean = (xf * w).sum(dims) / n
+        var = ((xf - mean[:, None, None]).square() * w).sum(dims) / n
+        return mean, var, var * (n / (n - 1.0).clamp(min=1.0))
 
     def forward(self, x):
-        inv, shift = self.scale_shift()
+        if self.training and not self.frozen:
+            mean, var, unbiased = self.batch_stats(x)
+            with torch.no_grad():
+                self.running_mean.copy_((1 - BN_MOMENTUM) * self.running_mean
+                                        + BN_MOMENTUM * mean)
+                self.running_var.copy_((1 - BN_MOMENTUM) * self.running_var
+                                       + BN_MOMENTUM * unbiased)
+            inv, shift = self.scale_shift(mean, var)
+        else:
+            inv, shift = self.scale_shift()
         return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 

@@ -1,7 +1,7 @@
 """Anchor-free grid machinery for the YOLOv8 head.
 
 Counterpart of cerberusdet_tpu/ops/anchors.py (make_anchors, dist2bbox,
-dfl_expectation). Anchors are ordered level-major, then row-major over
+bbox2dist, dfl_expectation). Anchors are ordered level-major, then row-major over
 (h, w), the order in which Detect flattens its feature maps.
 """
 
@@ -34,6 +34,14 @@ def dist2bbox(distance, anchor_points, xywh: bool = True, dim: int = -1):
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=dim)
     return torch.cat([x1y1, x2y2], dim=dim)
+
+
+def bbox2dist(anchor_points, bbox, reg_max: float):
+    """Encode xyxy boxes as (left, top, right, bottom) distances from the
+    anchors, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, dim=-1)
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return dist.clamp(0.0, reg_max - 0.01)
 
 
 def dfl_expectation(distri, reg_max: int = 16):

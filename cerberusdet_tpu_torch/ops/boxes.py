@@ -1,12 +1,14 @@
-"""Box geometry: coordinate conversion, pairwise IoU, host rescaling.
+"""Box geometry: coordinate conversion, pairwise IoU, CIoU, host rescaling.
 
-Counterpart of cerberusdet_tpu/ops/boxes.py (xywh2xyxy, box_iou) and of
-scale_boxes_np in cerberusdet_tpu/evaluation/val.py. box_iou keeps the JAX
-package's operation order and eps, so that IoU values, and the NMS decisions
-taken on them, are the same bit for bit.
+Counterpart of cerberusdet_tpu/ops/boxes.py (xywh2xyxy, box_iou, bbox_iou)
+and of scale_boxes_np in cerberusdet_tpu/evaluation/val.py. box_iou and
+bbox_iou keep the JAX package's operation order and eps, so that IoU values,
+and the NMS decisions taken on them, are the same bit for bit.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -33,6 +35,41 @@ def box_iou(box1, box2, eps: float = 1e-7):
     inter = inter_wh[..., 0] * inter_wh[..., 1]
     union = box_area(box1)[..., :, None] + box_area(box2)[..., None, :] - inter + eps
     return inter / union
+
+
+def box_atan(boxes, eps: float = 1e-7):
+    """arctan(w / (h + eps)) of (..., 4) xyxy boxes: the CIoU aspect term."""
+    return torch.atan((boxes[..., 2] - boxes[..., 0]) / (boxes[..., 3] - boxes[..., 1] + eps))
+
+
+def bbox_iou(box1, box2, xywh: bool = True, CIoU: bool = False, eps: float = 1e-7,
+             atans=None):
+    """Elementwise IoU, or CIoU, of broadcastable (..., 4) boxes. The CIoU
+    aspect-ratio weight alpha is detached, as the reference takes it under
+    no_grad. Operation order and eps of the JAX bbox_iou. `atans` may give
+    (arctan(w1/h1), arctan(w2/h2)) (box_atan of each xyxy set, broadcastable
+    to the result), computed once per box instead of once per pair."""
+    if xywh:
+        box1, box2 = xywh2xyxy(box1), xywh2xyxy(box2)
+    b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0.0)
+             * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0.0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not CIoU:
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)  # convex width
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)  # convex height
+    c2 = cw**2 + ch**2 + eps
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    at1, at2 = (torch.atan(w1 / h1), torch.atan(w2 / h2)) if atans is None else atans
+    v = (4 / math.pi**2) * (at2 - at1) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)
 
 
 def scale_boxes_np(img1_shape, boxes, img0_shape, ratio_pad=None):

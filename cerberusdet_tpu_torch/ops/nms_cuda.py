@@ -12,31 +12,23 @@ the same indices bit for bit.
 
 The kernel is built with nvcc from the package's sources at first use, into
 cerberusdet_tpu_torch/build/, as a shared library with a plain C interface
-loaded through ctypes. `greedy_nms_cuda` launches it for tensors on the card
-(or raises) and runs the plain loop for tensors on the CPU; its attribute
-`launches` counts the kernel launches.
+loaded through ctypes (ops/cuda_build.py). `greedy_nms_cuda` launches it for
+tensors on the card (or raises) and runs the plain loop for tensors on the
+CPU; its attribute `launches` counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from cerberusdet_tpu_torch.ops import cuda_build
 from cerberusdet_tpu_torch.ops.boxes import box_area
 
 MAX_K = 16384  # live scores in shared memory: 16384 * 4 B = 64 KB
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = cuda_build.CSRC / "nms.cu"
 
 
 def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
@@ -70,50 +62,13 @@ def greedy_nms(boxes, scores, iou_thres: float, max_det: int):
     return idx, valid
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the NMS kernel is built with the CUDA "
-                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
-    return nvcc
+def build(verbose: bool = False):
+    """Compile csrc/nms.cu (once) and return the library's path."""
+    return cuda_build.build(SOURCE, verbose)
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/nms.cu into build/ (once per source and flag set) and
-    return the library's path."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libcerberus_nms_{key[:12]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
-
-
-_LIB = {}
-
-
-def _load():
-    if "nms" not in _LIB:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.cerberus_nms_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB["nms"] = fn
-    return _LIB["nms"]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def greedy_nms_cuda(boxes, scores, iou_thres: float, max_det: int):
@@ -138,7 +93,7 @@ def greedy_nms_cuda(boxes, scores, iou_thres: float, max_det: int):
         raise ValueError(f"max_det must be positive, got {max_det}")
     if not (boxes.is_contiguous() and scores.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("NMS kernel needs contiguous inputs and 16-byte aligned boxes")
-    fn = _load()
+    fn = cuda_build.load(SOURCE, "cerberus_nms_f32", _ARGTYPES)
     idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
     if b == 0:

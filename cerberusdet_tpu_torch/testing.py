@@ -1,5 +1,6 @@
-"""Inputs that hold the NMS kernel against its plain version, shared by the
-tests and chip_smoke.py. numpy only; every case is made from a seed."""
+"""Inputs that hold the kernels against their plain versions, and seeded train
+batches, shared by the tests and chip_smoke.py. numpy only; every case is
+made from a seed."""
 
 from __future__ import annotations
 
@@ -66,3 +67,91 @@ def boundary_candidates(thr: float, n: int = 16, seed: int = 0):
     boxes = np.stack([np.stack([a, b]) for a, b, _ in rows])
     scores = np.tile(np.array([0.9, 0.5], f), (len(rows), 1))
     return boxes, scores, np.array([r[2] for r in rows], f)
+
+
+def tal_scene(seed: int, B: int = 2, N: int = 256, NC: int = 7, M: int = 12,
+              dense: bool = False, empty_first: bool = False):
+    """A TAL assigner input, the scenes of tests/test_tal_pallas.py: random
+    anchors and predicted boxes, valid gts first in each row. dense puts
+    overlapping gts around one region (anchors claimed by several gts);
+    empty_first leaves image 0 without gts. Returns (pd_scores (B, N, NC),
+    pd_bboxes (B, N, 4), anc (N, 2), gt_labels (B, M) int64, gt_bboxes
+    (B, M, 4), mask_gt (B, M) bool), float32."""
+    rng = np.random.default_rng(seed)
+    pd_scores = rng.uniform(0, 1, (B, N, NC)).astype(np.float32)
+    anc = rng.uniform(0, 64, (N, 2)).astype(np.float32)
+    wh = rng.uniform(2, 20, (B, N, 2)).astype(np.float32)
+    pd_bboxes = np.concatenate([anc[None] - wh / 2, anc[None] + wh / 2], -1)
+    gt_bboxes = np.zeros((B, M, 4), np.float32)
+    gt_labels = np.zeros((B, M), np.int64)
+    mask_gt = np.zeros((B, M), bool)
+    for b in range(B):
+        if empty_first and b == 0:
+            continue
+        n_gt = int(rng.integers(M // 2, M)) if dense else int(rng.integers(3, M))
+        for m in range(n_gt):
+            if dense:
+                cx, cy = rng.uniform(24, 40, 2)
+                w, h = rng.uniform(20, 40, 2)
+            else:
+                cx, cy = rng.uniform(8, 56, 2)
+                w, h = rng.uniform(6, 30, 2)
+            gt_bboxes[b, m] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+            gt_labels[b, m] = rng.integers(0, NC)
+            mask_gt[b, m] = True
+    return pd_scores, pd_bboxes, anc, gt_labels, gt_bboxes, mask_gt
+
+
+def tied_tal_scene(seed: int, B: int = 2, side: int = 24, NC: int = 5, M: int = 10):
+    """A TAL input with many exactly tied metrics: anchors on a side x side
+    grid of stride 4; large gts, so that each holds dozens of anchors; the
+    predicted boxes of 85% of the anchors lie far from every gt (CIoU
+    clipped to 0) and half of the scores are exactly 0, so most of each
+    gt's top-10 are ties at 0 that only the lowest index decides. Every
+    other gt starts at the grid's first row, so that some of those zeros lie
+    inside it and become positives. Valid gts are not a prefix of the row,
+    and invalid rows hold boxes of their own."""
+    rng = np.random.default_rng(seed)
+    g = (np.arange(side, dtype=np.float32) + 0.5) * 4
+    gy, gx = np.meshgrid(g, g, indexing="ij")
+    anc = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    N = anc.shape[0]
+    pd_scores = rng.uniform(0, 1, (B, N, NC)).astype(np.float32)
+    pd_scores[rng.uniform(0, 1, (B, N, NC)) < 0.5] = 0.0
+    wh = rng.uniform(4, 24, (B, N, 2)).astype(np.float32)
+    ctr = np.broadcast_to(anc[None], (B, N, 2)).copy()
+    far = rng.uniform(0, 1, (B, N)) < 0.85
+    ctr[far] += 10 * side * 4
+    pd_bboxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    c = rng.uniform(8, side * 4 - 8, (B, M, 2))
+    s = rng.uniform(16, side * 2, (B, M, 2))
+    gt_bboxes = np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+    # every other gt starts at the grid's first row, near its first column:
+    # its top-10 then reaches zeros inside it before zeros elsewhere
+    x1y1 = np.stack([rng.uniform(0, 20, (B, M)), rng.uniform(-4, 1, (B, M))], -1)
+    top = np.concatenate([x1y1, x1y1 + s], -1).astype(np.float32)
+    gt_bboxes[:, ::2] = top[:, ::2]
+    gt_labels = rng.integers(-1, NC + 1, (B, M)).astype(np.int64)  # clipped to [0, NC-1]
+    mask_gt = rng.uniform(0, 1, (B, M)) < 0.6
+    mask_gt[:, 1] = True
+    mask_gt[:, 0] = False
+    return pd_scores, pd_bboxes, anc, gt_labels, gt_bboxes, mask_gt
+
+
+def train_batches(tasks, ncs, batch: int, imgsz: int, max_labels: int, n_real: int,
+                  seed: int = 0):
+    """Seeded train batches {task: {'img', 'cls', 'bboxes', 'mask', 'prob'}}:
+    uniform images, max_labels gt rows of which the first n_real are valid,
+    xywh boxes uniform in [0.2, 0.6] (cerberusdet_tpu/tools/
+    bench_train_step.py:make_batches)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for t, nc in zip(tasks, ncs):
+        out[t] = {
+            "img": rng.uniform(0, 1, (batch, imgsz, imgsz, 3)).astype(np.float32),
+            "cls": rng.integers(0, nc, (batch, max_labels)).astype(np.int32),
+            "bboxes": rng.uniform(0.2, 0.6, (batch, max_labels, 4)).astype(np.float32),
+            "mask": (np.arange(max_labels)[None] < n_real).repeat(batch, 0),
+            "prob": np.ones((batch, max_labels), np.float32),
+        }
+    return out
