@@ -19,6 +19,14 @@ from cerberusdet_tpu_torch.manager.weights import load_jax_params
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
 from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
 from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, non_max_suppression
+from cerberusdet_tpu_torch.quant import (
+    calibrate_amax,
+    conv_layers,
+    fused_conv_weights,
+    quantize_params,
+    select_all,
+    select_deep,
+)
 
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 
@@ -44,6 +52,14 @@ class CerberusDetInference:
     `.ckpt.npz` written by either package. `device` None means the card.
     `dtype` is bfloat16 by default (the JAX package's half=True), or float32
     or float64; the decode and NMS run in float32 as in the JAX package.
+
+    int8: "off" | "deep" | "all", post-training quantization of the fused
+    Convs (quant/ptq.py): "all" every Conv, "deep" those with at least 256
+    input channels. Activation scales are calibrated by running the fused
+    model in `dtype` over `calib_batches` (a list of (B, H, W, 3) float
+    arrays in [0, 1]; one batch of uniform noise when omitted, as in the
+    JAX package); the weights are quantized from their fused float32 values.
+    A params tree that is already quantized needs no int8 argument.
     """
 
     def __init__(self, model: Optional[CerberusModel] = None, params=None,
@@ -51,10 +67,13 @@ class CerberusDetInference:
                  names: Optional[Dict[str, Sequence[str]]] = None,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  iou_thres_between_tasks: float = 0.8, img_size: int = 640,
-                 max_det: int = 300, dtype: torch.dtype = torch.bfloat16, device=None):
+                 max_det: int = 300, dtype: torch.dtype = torch.bfloat16, device=None,
+                 int8: str = "off", calib_batches=None):
         self.device = resolve_device(device)
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
+        if int8 not in ("off", "deep", "all"):
+            raise ValueError(f"int8 must be 'off', 'deep' or 'all', got {int8!r}")
         if model is None:
             if weights is None:
                 raise ValueError("provide (model, params) or a weights path")
@@ -72,8 +91,25 @@ class CerberusDetInference:
             load_jax_params(model, params)
         # always fused at inference (exact; the reference fuses in attempt_load),
         # in the weights' own precision before the cast to the compute dtype
-        self.model = model.fuse().to(device=self.device, dtype=dtype).eval()
+        model.fuse()
+        fused = fused_conv_weights(model) if int8 != "off" else None
+        self.model = model.to(device=self.device, dtype=dtype).eval()
         self.dtype = dtype
+        if int8 != "off":
+            if calib_batches is None:
+                # uniform noise covers the [0, 1] input range; real images
+                # give better scales
+                print("CerberusDetInference: int8 enabled without "
+                      "calib_batches — calibrating on random noise; pass "
+                      "real batches for best accuracy")
+                calib_batches = [np.random.default_rng(0).uniform(
+                    0, 1, (2, img_size, img_size, 3)).astype(np.float32)]
+            amax = calibrate_amax(self.model, calib_batches, dtype=dtype)
+            quantize_params(self.model, amax,
+                            select=select_all if int8 == "all" else select_deep(),
+                            weights=fused)
+            del fused
+        self.int8_convs = [m for _, m in conv_layers(self.model) if m.int8]
         self.names = dict(names)
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -89,9 +125,16 @@ class CerberusDetInference:
                        iou_bt: float, agnostic: bool, max_det: int,
                        use_kernel: Optional[bool] = None):
         """The device part: batch (B, H, W, 3) on the device -> merged
-        (B, T*max_det, 6), task_idx (B, T*max_det), keep (B, T*max_det)."""
+        (B, T*max_det, 6), task_idx (B, T*max_det), keep (B, T*max_det).
+        use_kernel as in `predict`."""
         x = batch.permute(0, 3, 1, 2).to(self.dtype)
-        out = self.model(x)
+        for m in self.int8_convs:
+            m.use_kernel = use_kernel
+        try:
+            out = self.model(x)
+        finally:
+            for m in self.int8_convs:
+                m.use_kernel = None
         dets_all, task_idx_all = [], []
         for ti, task in enumerate(self.task_order):
             pred, _ = out[task]
@@ -120,8 +163,9 @@ class CerberusDetInference:
         """batch: (B, H, W, 3) float NHWC in [0, 1], numpy or tensor
         (CerberusPreprocessor's output). Returns per image a list of
         {box, score, label, label_name, task} dicts, by descending score.
-        use_kernel=False runs the plain NMS loop instead of the kernel (a test
-        hook; see ops/nms.py)."""
+        use_kernel=False runs the plain NMS loop and the plain int8 convs
+        instead of their kernels (a test hook; see ops/nms.py and
+        nn/module.py:conv2d_int8)."""
         conf_thres = self.conf_thres if conf_thres is None else conf_thres
         iou_thres = self.iou_thres if iou_thres is None else iou_thres
         iou_bt = (self.iou_thres_between_tasks if iou_thres_between_tasks is None

@@ -11,6 +11,14 @@ the same nesting (nn/layers.py keeps the JAX names), so the mapping is by key:
   <uid>/.../bn/mean    -> ... .bn.running_mean (buffer)
   <uid>/.../bn/var     -> ... .bn.running_var  (buffer)
 A fused tree ({w, b} convs, no `bn` anywhere) fuses the model first.
+A quantized tree (quant/ptq.py) holds {w_q, s_w, s_x, b} for an int8 Conv:
+  <uid>/.../w_q        -> ... .w_q  (HWIO int8 -> the kernel's packed layout,
+                                     ops/conv_int8_cuda.py:pack_weight)
+  <uid>/.../s_w, s_x   -> ... .s_w, .s_x  (float32; s_x 0-d)
+and turns those Convs into their int8 form first. Its `__q_out__` / `q_in`
+leaves (the JAX package's propagate_act_quant with model=) are skipped: they
+only move where the same quantize runs and change no output bit
+(cerberusdet_tpu/quant/ptq.py:138-142).
 Parameterless blocks (Upsample, Concat) may be absent from the tree.
 export_jax_tree / export_jax_params go the other way, so that a state trained
 by the port can be held against the JAX package's and checkpoints move both
@@ -25,9 +33,11 @@ import numpy as np
 import torch
 
 from cerberusdet_tpu_torch.models.cerberus import module_key
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import pack_weight, unpack_weight
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _BN_BACK = {v: k for k, v in _BN.items()}
+_ACT_QUANT = ("__q_out__", "q_in")  # placement annotations, not parameters
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -64,6 +74,8 @@ def load_jax_tree(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.
         a = np.asarray(v)
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path[-1] == "w_q":
+            a = pack_weight(torch.from_numpy(np.array(a, np.int8))).numpy()
         src[_torch_key(path)] = a
     missing = sorted(set(state) - set(src))
     extra = sorted(set(src) - set(state))
@@ -82,18 +94,33 @@ def load_jax_tree(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.
 def load_jax_params(model, tree: Mapping[str, Any]):
     """Copy a JAX CerberusModel parameter tree (keyed by block uid) into the
     port's CerberusModel `model` in place and return it; fuses the model
-    first when the tree is fused. Errors as `load_jax_tree`."""
+    first when the tree is fused, and turns the Convs that the tree holds in
+    int8 into their int8 form. Errors as `load_jax_tree`."""
+    tree = _without_act_quant(tree)
     if not _has_bn(tree) and not model.fused:
         model.fuse()
+    for path, _ in _leaves(tree):
+        if path[-1] == "w_q":
+            model.block(path[0]).get_submodule(".".join(path[1:-1])).to_int8()
     load_jax_tree(model.blocks, {module_key(uid): sub for uid, sub in tree.items()})
     return model
+
+
+def _without_act_quant(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if k in _ACT_QUANT:
+            continue
+        out[k] = _without_act_quant(v) if isinstance(v, Mapping) else v
+    return out
 
 
 @torch.no_grad()
 def export_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of load_jax_tree: `module`'s parameters and buffers as a
     nested dict of numpy arrays in the JAX layout (OIHW -> HWIO; BatchNorm
-    weight/bias/running_mean/running_var -> scale/bias/mean/var)."""
+    weight/bias/running_mean/running_var -> scale/bias/mean/var; an int8
+    Conv's packed w_q -> HWIO int8)."""
     tree: Dict[str, Any] = {}
     for key, t in module.state_dict().items():
         path = key.split(".")
@@ -102,10 +129,13 @@ def export_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
         a = t.detach().cpu().numpy()
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "w_q":
+            ci = module.get_submodule(".".join(path[:-1])).c1
+            a = unpack_weight(t.detach().cpu(), ci).numpy()
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        node[path[-1]] = np.array(a, order="C")  # keeps a 0-d s_x 0-d
     return tree
 
 

@@ -3,7 +3,8 @@
 Counterpart of cerberusdet_tpu/nn/layers.py, restricted to the layers that
 configs/models/yolov8{n,x}*.yaml use: Conv, PlainConv, Seq, Bottleneck, C2f,
 SPPF, Concat, Upsample and Detect. Parameter names follow the JAX tree
-(Conv: `w` + `bn`, or `w` + `b` once fused; Detect: `box{i}`/`cls{i}`, each a
+(Conv: `w` + `bn`, `w` + `b` once fused, or `w_q`, `s_w`, `s_x`, `b` once
+quantized; Detect: `box{i}`/`cls{i}`, each a
 Seq with children 0/1/2), so a JAX tree maps onto `state_dict` key by key
 (manager/weights.py). The rest of the layer zoo is a later slice.
 """
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from cerberusdet_tpu_torch.nn.module import (
     BatchNorm,
     autopad,
+    conv2d_int8,
     fuse_conv_bn,
     kaiming_uniform_,
     silu,
@@ -33,12 +35,27 @@ def _pair(v):
 
 
 class Conv(nn.Module):
-    """Conv2d + BatchNorm + SiLU; after `fuse()`, Conv2d with bias + SiLU."""
+    """Conv2d + BatchNorm + SiLU; after `fuse()`, Conv2d with bias + SiLU;
+    after `to_int8()`, the int8 conv of the PTQ layout (quant/ptq.py).
+
+    The int8 form holds buffers `w_q` (int8, the kernel's layout,
+    ops/conv_int8_cuda.py:pack_weight) and `s_w` (Co,), `s_x` () and `b`
+    (Co,) in float32, which stay float32 when the module is cast (`_apply`),
+    as the JAX package keeps its params. `use_kernel` is handed to
+    conv2d_int8 (None: the kernel on the card; False: the plain version).
+    While `tap` is a dict, the forward records max |x| of its input there
+    under `tap_key` (PTQ calibration, quant/ptq.py:calibrate_amax)."""
+
+    INT8_F32 = ("s_w", "s_x", "b")
+    use_kernel = None
+    tap = None
+    tap_key = None
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
-        self.c2, self.g, self.d, self.act = c2, g, d, act
+        self.c1, self.c2, self.g, self.d, self.act = c1, c2, g, d, act
         kh, kw = _pair(k)
+        self.k = (kh, kw)
         self.s = _pair(s)
         self.p = _pair(autopad((kh, kw), p, d))
         self.w = nn.Parameter(torch.empty(c2, c1 // g, kh, kw))
@@ -48,10 +65,19 @@ class Conv(nn.Module):
         kaiming_uniform_(self.w, self.w[0].numel(), gen)
         self.bn.reset()
 
+    @property
+    def int8(self) -> bool:
+        return "w_q" in self._buffers
+
     def forward(self, x):
         """The compute dtype is x's: the weight is cast to it and the output
         cast back to it (float32 master weights in training; a no-op on a
         model cast as a whole, as for serving)."""
+        if self.tap is not None:
+            self.tap[self.tap_key] = x.float().abs().max()
+        if self.int8:
+            return conv2d_int8(x, self._buffers, self.s, self.p, act=self.act,
+                               out_dtype=x.dtype, use_kernel=self.use_kernel)
         bn = getattr(self, "bn", None)
         if bn is None:
             y = F.conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
@@ -68,6 +94,35 @@ class Conv(nn.Module):
         del self.bn
         self.w.copy_(w)
         self.b = nn.Parameter(b)
+
+    @torch.no_grad()
+    def to_int8(self) -> None:
+        """Replace the fused `w` and `b` by zeroed int8-form buffers on the
+        same device, to be filled by quantize_params or a weight load."""
+        if self.int8:
+            return
+        if hasattr(self, "bn") or self.g != 1 or self.d != 1:
+            raise ValueError("only a fused Conv with groups 1 and dilation 1 has an int8 form")
+        dev = self.w.device
+        kh, kw = self.k
+        del self.w, self.b
+        self.register_buffer("w_q", torch.zeros((kh, kw, (self.c1 + 3) // 4, self.c2, 4),
+                                                dtype=torch.int8, device=dev))
+        self.register_buffer("s_w", torch.zeros(self.c2, device=dev))
+        self.register_buffer("s_x", torch.zeros((), device=dev))
+        self.register_buffer("b", torch.zeros(self.c2, device=dev))
+
+    def _apply(self, fn, recurse=True):
+        """Casts leave the int8 form's float32 buffers float32: they go
+        through `fn` viewed as int32, which a cast does not touch and a move
+        moves."""
+        if not self.int8:
+            return super()._apply(fn, recurse)
+        keep = {n: self._buffers[n] for n in self.INT8_F32}
+        super()._apply(fn, recurse)
+        for n, t in keep.items():
+            self._buffers[n] = fn(t.view(torch.int32)).view(torch.float32)
+        return self
 
 
 class PlainConv(nn.Module):

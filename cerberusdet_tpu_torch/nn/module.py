@@ -1,15 +1,19 @@
 """NN core of the port: padding rule, init, BatchNorm, conv+BN fold.
 
-Counterpart of cerberusdet_tpu/nn/module.py. Layout is NCHW / OIHW. The int8
-path is a later slice of the port.
+Counterpart of cerberusdet_tpu/nn/module.py. Layout is NCHW / OIHW; the
+int8 conv's weights are in the layout its kernel reads
+(ops/conv_int8_cuda.py:pack_weight).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, conv_s8_plain
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -121,3 +125,47 @@ def fuse_conv_bn(w: torch.Tensor, bn: BatchNorm):
     """Fold BN into an OIHW conv weight; returns (weight, bias)."""
     inv, shift = bn.scale_shift()
     return w * inv[:, None, None, None], shift
+
+
+def quantize_act(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor symmetric int8 activation quantization:
+    clip(round(x * (1 / s_x)), -127, 127), with the reciprocal in float32
+    and round half to even, as the JAX package's quantize_act. int8 input
+    passes through."""
+    if x.dtype == torch.int8:
+        return x
+    inv_sx = 1.0 / s_x
+    return torch.clamp(torch.round(x.float() * inv_sx), -127.0, 127.0).to(torch.int8)
+
+
+def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
+                out_dtype: torch.dtype = torch.float32,
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Quantized inference conv, NCHW: x quantized per tensor with p["s_x"],
+    the int32 sums of the int8 conv against p["w_q"] (pack_weight's layout),
+    then float32 acc * (s_x * s_w) + b. With the defaults that float32 is the
+    result (the JAX package's conv2d_int8); act applies SiLU to it in float32
+    and out_dtype casts it, which the kernel does in its epilogue.
+
+    p: {"w_q" int8 (k, k, C4, Co, 4), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,) f32}.
+    use_kernel: None goes through ops/conv_int8_cuda.py:conv_s8, the CUDA
+    kernel for a tensor on the card and the plain version on the CPU; False
+    forces the plain version (a test hook)."""
+    k = p["w_q"].shape[0]
+    pad = autopad(k, padding)
+    s, pad = (_single(stride, "stride"), _single(pad, "padding"))
+    xq = quantize_act(x, p["s_x"]).contiguous()
+    scale = p["s_x"] * p["s_w"]
+    conv = conv_s8_plain if use_kernel is False else conv_s8  # conv_s8: plain on the CPU
+    kernel_out = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    y = conv(xq, p["w_q"], scale, p["b"], s, pad, act, kernel_out)
+    return y.to(out_dtype)
+
+
+def _single(v, what: str) -> int:
+    """An int or a square (v, v) pair as one int."""
+    if isinstance(v, int):
+        return v
+    if len(v) != 2 or v[0] != v[1]:
+        raise ValueError(f"int8 conv takes a square {what}, got {v}")
+    return int(v[0])

@@ -8,7 +8,7 @@ Phases, each of which fails the run on anything wrong:
   1. build every kernel of the port from the sources in the checkout (one
      nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, and
-     time both: the NMS kernel (identical selections) and the three TAL
+     time both (the int8 conv kernel in 3b): the NMS kernel (identical selections) and the three TAL
      assigner kernels, stage by stage (identical integer and bool outputs,
      scores within rtol 1e-5, atol 1e-6) on the scenes of the CPU tests
      and on the flagship train shapes;
@@ -17,6 +17,12 @@ Phases, each of which fails the run on anything wrong:
      CerberusPreprocessor and CerberusDetInference.predict at batch 1 and 8:
      every NMS launch is counted, and the results equal those of the same
      batch with the plain NMS loop on the card;
+  3b. serve the same model in int8 (int8="all", noise calibration): the
+     int8 conv kernel against its plain version at every distinct quantized
+     conv shape of a batch-8 request and at edge cases (raw int32 and the
+     float32 / bf16 / int8 epilogues identical), 3 + 3 requests with one
+     kernel launch per quantized Conv and request, identical results with
+     the plain int8 convs and NMS, agreement with bf16, and timings;
   4. train the flagship: MultiTaskTrainer.step at 640 px, bf16 compute,
      per-task batch 8, 300 gt rows of which 40 are real, seeded batches and
      init; 2 warm-up and 5 timed steps with finite losses, every TAL kernel
@@ -48,6 +54,7 @@ TASKS, NCS = ["voc", "animals"], [20, 19]
 CONF = 1e-4          # low enough that a random-init model detects in both tasks
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12    # H100 SXM, dense int8 tensor cores
 # per live candidate and step the kernel does 2 min, 2 max, 5 sub, 2 clamp,
 # 2 mul, 2 add, 1 div and 1 compare for the IoU test, plus 1 compare in the
 # argmax scan
@@ -89,8 +96,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def kernel_ms(fn, iters: int, name: str):
     """(device ms, source) of the kernel whose name contains `name`, per
-    call of fn(): the kernel's own time on the card from the profiler's
-    CUDA trace. Where the trace shows no such kernel, the mean time of a
+    call of fn(), which launches it once: the kernel's own time on the card
+    from the profiler's CUDA trace, the mean over the launches it recorded. Where the trace shows no such kernel, the mean time of a
     call by CUDA events (which counts the host's launch cost when that is
     the longer), and source says so."""
     import torch
@@ -105,8 +112,9 @@ def kernel_ms(fn, iters: int, name: str):
     hits = [e for e in prof.key_averages() if name in e.key]
     us = sum(e.device_time_total for e in hits)
     count = sum(e.count for e in hits)
-    if count == iters and us > 0:
-        return us / 1e3 / iters, "profiler"
+    if count and us > 0:  # fn launches the kernel once: the mean of the launches seen
+        return us / 1e3 / count, ("profiler" if count == iters else
+                                  f"profiler, {count} of {iters} launches seen")
     return cuda_ms(fn, iters), "events (the profiler saw no kernel)"
 
 
@@ -257,6 +265,260 @@ def close_updates(ours, ref, init, frac: float, what: str) -> float:
     return worst
 
 
+def matched_detections(a, b, iou_min: float = 0.5) -> int:
+    """Detections of result lists `a` that match one of `b` on the same
+    image: same task and label, box IoU >= iou_min, each of b used once."""
+    n = 0
+    for ra, rb in zip(a, b):
+        free = list(rb)
+        for x in ra:
+            for y in free:
+                if (x["task"], x["label"]) != (y["task"], y["label"]):
+                    continue
+                ix = max(0, min(x["box"][2], y["box"][2]) - max(x["box"][0], y["box"][0]))
+                iy = max(0, min(x["box"][3], y["box"][3]) - max(x["box"][1], y["box"][1]))
+                area = [(d["box"][2] - d["box"][0]) * (d["box"][3] - d["box"][1])
+                        for d in (x, y)]
+                inter = ix * iy
+                if inter / max(area[0] + area[1] - inter, 1e-9) >= iou_min:
+                    free.remove(y)
+                    n += 1
+                    break
+    return n
+
+
+def conv_s8_compare(xq, w_q, scale, bias, stride: int, act: bool):
+    """conv_s8 against conv_s8_plain on the same inputs in each of its four
+    output types. Returns the largest |kernel - plain| over them; raises,
+    after printing the count of differing elements and the largest ulp or
+    step, on any difference."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, conv_s8_plain
+
+    pad = w_q.shape[0] // 2
+    plain32 = conv_s8_plain(xq, w_q, scale, bias, stride, pad, act, torch.float32)
+    q_scale = max(float(plain32.abs().max()), 1e-6) / 127.0
+    worst = 0.0
+    for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int8):
+        args = (xq, w_q, scale, bias, stride, pad, act, dtype, q_scale)
+        got, ref = conv_s8(*args), conv_s8_plain(*args)
+        torch.cuda.synchronize()
+        diff = (got.double() - ref.double()).abs()
+        worst = max(worst, float(diff.max()))
+        n_diff = int((got != ref).sum())
+        if n_diff:
+            if dtype.is_floating_point:
+                ulp = diff / (torch.finfo(dtype).eps * ref.double().abs().clamp(min=1e-30))
+                how = f"largest {float(ulp.max()):.3g} ulp"
+            else:
+                how = f"largest {float(diff.max()):.0f} steps"
+            log(f"[conv_s8 vs plain] {dtype}: {n_diff} of {got.numel()} elements differ, {how}")
+            raise AssertionError(f"conv_s8 disagrees with its plain version in {dtype}")
+    return worst
+
+
+def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
+    """The int8 serving path at full width: build, hold conv_s8 against its
+    plain version at every distinct quantized-conv shape of a batch-8
+    request (and edge cases), serve 3 + 3 requests with launch counting,
+    compare a request with the plain int8 path and with bf16, and time.
+    Returns the kernels-line entry of conv_s8."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberusdet_tpu_torch.infer import CerberusDetInference
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn.module import quantize_act
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
+    from cerberusdet_tpu_torch.quant import conv_layers
+
+    t0 = time.perf_counter()
+    model = CerberusModel(FLAGSHIP, TASKS, NCS, device=dev).init(seed=0)
+    distinct_heads(model, seed=1)
+    inf = CerberusDetInference(model=model, names=names, conf_thres=CONF, img_size=640,
+                               dtype=torch.bfloat16, device=dev, int8="all")
+    convs = [m for _, m in conv_layers(inf.model)]
+    n_q = len(inf.int8_convs)
+    if n_q != len(convs):
+        raise AssertionError(f"int8='all' quantized {n_q} of {len(convs)} Convs")
+    log(f"[int8] yolov8x_2task, bf16 compute, int8='all': {n_q} quantized Convs, noise "
+        f"calibration, built in {time.perf_counter() - t0:.2f} s")
+
+    # every distinct quantized-conv shape, on the int8 activations of a batch-8 request
+    cases = {}
+
+    def capture(mod, args):
+        x = args[0]
+        key = (mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3])
+        if key not in cases:
+            cases[key] = (mod, quantize_act(x, mod.s_x).contiguous())
+        ho = (x.shape[2] + 2 * mod.p[0] - mod.k[0]) // mod.s[0] + 1
+        wo = (x.shape[3] + 2 * mod.p[1] - mod.k[1]) // mod.s[1] + 1
+        macs[0] += x.shape[0] * ho * wo * mod.c2 * mod.c1 * mod.k[0] * mod.k[1]
+
+    macs = [0]
+    hooks = [m.register_forward_pre_hook(capture) for m in inf.int8_convs]
+    batch8, shapes8 = pre.preprocess(frames[8][0])
+    inf.predict(batch8, original_shape=shapes8)
+    for h in hooks:
+        h.remove()
+    fwd_macs = macs[0]
+    max_err = 0.0
+    for key in sorted(cases):
+        mod, xq = cases[key]
+        err = conv_s8_compare(xq, mod.w_q, mod.s_x * mod.s_w, mod.b, mod.s[0], True)
+        max_err = max(max_err, err)
+    log(f"[conv_s8 vs plain] {len(cases)} distinct (Ci, Co, k, s, H, W) of the flagship's "
+        f"quantized convs at batch 8, on a request's activations, in int32 / float32 / "
+        f"bf16 / int8: identical (max |diff| {max_err})")
+    rng = np.random.default_rng(11)
+    edge = []
+    for name, ci, co, k, s, b, h, w in [("ragged 13x17", 80, 80, 3, 1, 3, 13, 17),
+                                        ("ragged s2 1x1-tail", 160, 320, 3, 2, 2, 21, 9),
+                                        ("Ci=3 s1", 3, 80, 3, 1, 2, 37, 29),
+                                        ("Ci=5 1x1", 5, 24, 1, 1, 1, 7, 11)]:
+        xq = torch.from_numpy(rng.integers(-127, 128, (b, ci, h, w), dtype=np.int8)).to(dev)
+        wq = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co), dtype=np.int8))
+        edge.append((name, xq, wq, s))
+    for name, ci, co, k in [("all +-127, 3x3 Ci=640", 640, 320, 3),
+                            ("all +-127, 1x1 Ci=2560", 2560, 640, 1)]:
+        xq = torch.full((2, ci, 20, 20), 127, dtype=torch.int8, device=dev)
+        xq[1] = -127
+        wq = torch.full((k, k, ci, co), 127, dtype=torch.int8)
+        wq[..., co // 2:] = -127
+        edge.append((name, xq, wq, 1))
+    for name, xq, wq, s in edge:
+        co = wq.shape[3]
+        scale = torch.full((co,), 1e-7, device=dev)
+        bias = torch.linspace(-2, 2, co, device=dev)
+        err = conv_s8_compare(xq, conv_int8_cuda.pack_weight(wq).to(dev), scale, bias, s, True)
+        max_err = max(max_err, err)
+        log(f"[conv_s8 vs plain] edge case {name}: x {tuple(xq.shape)}, {co} out, stride "
+            f"{s}: identical")
+    del edge
+
+    # the main path: 3 requests at batch 1 and 3 at batch 8
+    for bs in (1, 8):  # warmup
+        batch, shapes = pre.preprocess(frames[bs][0])
+        inf.predict(batch, original_shape=shapes)
+    torch.cuda.synchronize()
+    conv_int8_cuda.conv_s8.launches = 0
+    nms_cuda.greedy_nms_cuda.launches = 0
+    served, per_bs = [], {}
+    for bs in (1, 8):
+        times = []
+        for imgs in frames[bs]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batch, shapes = pre.preprocess(imgs)
+            out = inf.predict(batch, original_shape=shapes)
+            times.append(time.perf_counter() - t)
+            served.append((batch, shapes, out))
+        per_bs[bs] = times
+    launches = conv_int8_cuda.conv_s8.launches
+    nms_launches = nms_cuda.greedy_nms_cuda.launches
+    n_requests = len(served)
+    log(f"[int8] {n_requests} requests, conv_s8 launches {launches} (expected {n_q} "
+        f"quantized Convs x {n_requests}), NMS launches {nms_launches}")
+    if launches != n_q * n_requests or nms_launches != len(TASKS) * n_requests:
+        raise AssertionError("the int8 path did not launch conv_s8 once per quantized Conv "
+                             "and request, or NMS once per task and request")
+    for bs, times in per_bs.items():
+        ms = 1e3 * float(np.median(times))
+        log(f"[int8] batch {bs}: {ms:.2f} ms/request (median of {len(times)}, preprocess + "
+            f"predict, host clock), {bs / ms * 1e3:.1f} img/s  [{card}]")
+    for batch, shapes, out in served:
+        assert len(out) == batch.shape[0]
+        for task in TASKS:
+            assert sum(d["task"] == task for r in out for d in r) > 0, f"int8: no {task}"
+        for r in out:
+            for d in r:
+                assert np.isfinite(d["score"]) and 0 < d["score"] <= 1
+                assert all(np.isfinite(v) for v in d["box"])
+    n_det = sum(len(r) for _, _, out in served for r in out)
+    n_bf16 = sum(len(r) for _, _, out in served_bf16 for r in out)
+    n_match = sum(matched_detections(out, ref[2])
+                  for (_, _, out), ref in zip(served, served_bf16))
+    log(f"[int8] {n_det} detections in {n_requests} requests, both tasks present; against "
+        f"bf16 on the same frames ({n_bf16} detections): {n_match} matched (same task and "
+        f"label, IoU >= 0.5)")
+
+    batch, shapes, _ = served[-1]
+    out = inf.predict(batch, original_shape=shapes)
+    plain = inf.predict(batch, original_shape=shapes, use_kernel=False)
+    same_results(out, plain, score_rtol=0.0)
+    log("[int8] batch 8 with the plain int8 convs and the plain NMS loop on the card: "
+        "identical results")
+
+    # the forward in int8 beside bf16, and conv_s8's share of it
+    for bs in (1, 8):
+        bt, _ = pre.preprocess(frames[bs][0])
+        x = bt.permute(0, 3, 1, 2).to(torch.bfloat16)
+        before = conv_int8_cuda.conv_s8.launches
+        ms8 = cuda_ms(lambda: inf.model(x), iters=3)
+        if conv_int8_cuda.conv_s8.launches - before != 5 * n_q:  # 2 warm-up + 3 timed
+            raise AssertionError("the timed int8 forward did not run through conv_s8")
+        ms16 = cuda_ms(lambda: inf_bf16.model(x), iters=3)
+        log(f"[int8 stages] batch {bs}: int8 forward {ms8:.3f} ms, bf16 forward {ms16:.3f} ms "
+            f"(CUDA events, 3 calls)  [{card}]")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        inf.model(x)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    conv_us = sum(e.device_time_total for e in ev if "conv_s8_kernel" in e.key)
+    conv_n = sum(e.count for e in ev if "conv_s8_kernel" in e.key)
+    all_us = sum(e.device_time_total for e in ev)
+    log(f"[int8 stages] batch 8 forward: {fwd_macs / 1e12:.4f} TMAC in {n_q} quantized "
+        f"convs; profiler: conv_s8 {conv_us / 1e3:.3f} ms in {conv_n} launches of "
+        f"{all_us / 1e3:.3f} ms device time ({100 * conv_us / max(all_us, 1e-9):.1f}%), "
+        f"of a {ms8:.3f} ms forward (events)  [{card}]")
+
+    # the kernel alone at the path's most expensive shape (MACs a launch; on
+    # the flagship the Detect cls tower's 3x3 320->320 at 80x80)
+    def launch_macs(key):
+        ci, co, k, s, h, w = key
+        return ((h + 2 * (k // 2) - k) // s + 1) * ((w + 2 * (k // 2) - k) // s + 1) \
+            * co * ci * k * k
+
+    key = max(cases, key=launch_macs)
+    mod, xq = cases[key]
+    b, (ci, co, k, s, h, w) = xq.shape[0], key
+    call = (xq, mod.w_q, mod.s_x * mod.s_w, mod.b, s, k // 2, True, torch.bfloat16)
+    k_ms, how = kernel_ms(lambda: conv_int8_cuda.conv_s8(*call), 10, "conv_s8_kernel")
+    p_ms = cuda_ms(lambda: conv_int8_cuda.conv_s8_plain(*call), iters=3, warmup=1)
+    xb = xq.to(torch.bfloat16)
+    wb = conv_int8_cuda.unpack_weight(mod.w_q, ci).permute(3, 2, 0, 1).to(
+        torch.bfloat16).contiguous()
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, s, k // 2), iters=10)
+    kmacs = b * launch_macs(key)
+    out_elems = kmacs // (ci * k * k)
+    nbytes = xq.numel() + mod.w_q.numel() + 8 * co + 2 * out_elems  # bf16 out
+    ops_ms = 2 * kmacs / INT8_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[conv_s8 at main-path shapes] {k}x{k} s{s} {ci}->{co} at {h}x{w}, batch {b}: "
+        f"kernel {k_ms:.4f} ms ({how}), {kmacs / k_ms / 1e9:.2f} TMAC/s, bound "
+        f"{max(ops_ms, bytes_ms):.4f} ms; plain (float64 conv + epilogue) {p_ms:.3f} ms; "
+        f"for context, a different function: cuDNN's bf16 conv of the same shape "
+        f"{cudnn_ms:.4f} ms  [{card}]")
+    conv_int8_cuda.conv_s8.launches = launches  # the comparison and timing launches do not count
+    return {
+        "name": "conv_s8",
+        "route": "cuda",
+        "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,  # no PyTorch call computes an int8 convolution
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -267,7 +529,7 @@ def main() -> int:
         return 1
     from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
-    from cerberusdet_tpu_torch.ops import nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda, tal_cuda
     from cerberusdet_tpu_torch.ops.nms import (
         cross_task_suppress,
         non_max_suppression,
@@ -294,8 +556,9 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(verbose=True), (nms_cuda, tal_cuda)))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda m: m.build(verbose=True),
+                             (nms_cuda, tal_cuda, conv_int8_cuda)))
     log(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -458,6 +721,9 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no PyTorch call computes greedy NMS (no torchvision)
     }]
+
+    # ---- 3b. the int8 serving path at full width
+    kernels.append(serve_int8(inf, pre, frames, served, names, card, dev))
 
     del inf, model, preds, served
     torch.cuda.empty_cache()

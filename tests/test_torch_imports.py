@@ -34,8 +34,10 @@ def _sources():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
-    assert len(mods) >= 27, mods
-    assert {"cerberusdet_tpu_torch.train.step", "cerberusdet_tpu_torch.ops.tal_cuda"} <= set(mods)
+    assert len(mods) >= 30, mods
+    assert {"cerberusdet_tpu_torch.train.step", "cerberusdet_tpu_torch.ops.tal_cuda",
+            "cerberusdet_tpu_torch.quant", "cerberusdet_tpu_torch.quant.ptq",
+            "cerberusdet_tpu_torch.ops.conv_int8_cuda"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

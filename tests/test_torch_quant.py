@@ -1,0 +1,387 @@
+"""The port's int8 PTQ serving (nn/module.py quantize_act / conv2d_int8,
+ops/conv_int8_cuda.py, quant/ptq.py, the weight bridge and
+CerberusDetInference(int8=...)) against the JAX package's.
+
+The int8 conv's int32 sums are exact integer arithmetic in both packages, so
+the plain version must equal lax.conv_general_dilated(int32) and the Pallas
+kernel (interpret mode) bit for bit. Everything float is held to the limits
+stated at each test."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from cerberusdet_tpu.infer.inference import CerberusDetInference as JaxInference
+from cerberusdet_tpu.models.cerberus import CerberusModel as JaxModel
+from cerberusdet_tpu.nn.module import Ctx
+from cerberusdet_tpu.nn.module import conv2d_int8 as jax_conv2d_int8
+from cerberusdet_tpu.nn.module import quantize_act as jax_quantize_act
+from cerberusdet_tpu.nn.module import silu as jax_silu
+from cerberusdet_tpu.ops.conv_int8_pallas import conv3x3_s8
+from cerberusdet_tpu.quant import calibrate_amax as jax_calibrate
+from cerberusdet_tpu.quant import quantize_params as jax_quantize
+from cerberusdet_tpu.quant import select_all as jax_select_all
+from cerberusdet_tpu.quant.ptq import select_deep as jax_select_deep
+from cerberusdet_tpu_torch.infer import CerberusDetInference
+from cerberusdet_tpu_torch.manager.weights import export_jax_params, load_jax_params
+from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+from cerberusdet_tpu_torch.nn.module import conv2d_int8, quantize_act
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
+    conv_s8,
+    conv_s8_plain,
+    pack_weight,
+    unpack_weight,
+)
+from cerberusdet_tpu_torch.quant import (
+    calibrate_amax,
+    conv_layers,
+    fused_conv_weights,
+    quantize_params,
+    select_all,
+    select_deep,
+)
+
+CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "configs", "models", "yolov8n_2task.yaml")
+TASKS, NCS = ["a", "b"], [3, 5]
+NAMES = {"a": ["c0", "c1", "c2"], "b": ["k0", "k1", "k2", "k3", "k4"]}
+IMG = 64
+
+
+def _ptq_params(rng, ci, co, k):
+    """A JAX PTQ leaf {w_q HWIO, s_w, s_x, b} of numpy arrays."""
+    w = rng.normal(0, 0.4, (k, k, ci, co)).astype(np.float32)
+    s_w = (np.max(np.abs(w), axis=(0, 1, 2)) / 127.0).astype(np.float32)
+    return {"w_q": np.clip(np.round(w / s_w), -127, 127).astype(np.int8),
+            "s_w": s_w,
+            "s_x": np.float32(rng.uniform(0.01, 0.1)),
+            "b": rng.normal(0, 0.2, co).astype(np.float32)}
+
+
+def _torch_leaf(p):
+    return {"w_q": pack_weight(torch.from_numpy(p["w_q"])), "s_w": torch.from_numpy(p["s_w"]),
+            "s_x": torch.tensor(p["s_x"]), "b": torch.from_numpy(p["b"])}
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t):
+    return t.float().numpy().transpose(0, 2, 3, 1) if t.is_floating_point() \
+        else t.numpy().transpose(0, 2, 3, 1)
+
+
+def _ulps_bf16(a, b):
+    """|a - b| in bf16 ulps at b's magnitude (tests/test_conv_int8_pallas.py)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return np.abs(a - b) / (np.maximum(np.abs(b), 2.0 ** -126) * 2.0 ** -8)
+
+
+# ------------------------------------------------------------------ the conv
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_quantize_act_bitwise(dtype):
+    """Same int8 codes as the JAX quantize_act, including the round-half-even
+    ties at +-0.5 steps and the clip."""
+    rng = np.random.default_rng(0)
+    s_x = np.float32(0.037)
+    x = rng.normal(0, 2.5, (2, 6, 9, 11)).astype(np.float32)
+    x.flat[:40] = (np.arange(40) - 20 + 0.5) * s_x  # ties
+    xt = torch.from_numpy(x)
+    xj = jnp.asarray(x)
+    if dtype == "bfloat16":
+        xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+    ours = quantize_act(xt, torch.tensor(s_x))
+    ref = np.asarray(jax_quantize_act(xj, jnp.float32(s_x)))
+    assert ours.dtype == torch.int8
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    assert quantize_act(ours, torch.tensor(s_x)) is ours  # int8 passes through
+
+
+CONV_CASES = [(160, 160, 3, 1, 8), (80, 80, 3, 1, 10), (48, 80, 3, 1, 9),
+              (80, 160, 3, 2, 12), (64, 48, 1, 1, 7), (3, 16, 3, 2, 11), (3, 16, 3, 1, 6)]
+
+
+@pytest.mark.parametrize("ci,co,k,s,hw", CONV_CASES)
+def test_plain_int8_conv_int32_matches_lax(ci, co, k, s, hw):
+    """Raw int32 sums of the plain version == XLA's int32 conv, exactly."""
+    rng = np.random.default_rng(ci * 7 + co + k + s)
+    p = _ptq_params(rng, ci, co, k)
+    xq = rng.integers(-127, 128, (2, hw, hw + 1, ci), dtype=np.int8)
+    ref = lax.conv_general_dilated(
+        jnp.asarray(xq), jnp.asarray(p["w_q"]), (s, s), [(k // 2, k // 2)] * 2,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    tp = _torch_leaf(p)
+    got = conv_s8_plain(_nchw(xq), tp["w_q"], tp["s_w"], tp["b"], s, k // 2, False,
+                        torch.int32)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("ci,co,hw", [(160, 160, 6), (80, 80, 7), (48, 80, 5)])
+def test_plain_int8_conv_matches_pallas_interpret(ci, co, hw):
+    """Raw int32 sums == the Pallas kernel's (raw=True, interpret mode)."""
+    rng = np.random.default_rng(ci + co + hw)
+    p = _ptq_params(rng, ci, co, 3)
+    xq = rng.integers(-127, 128, (1, hw, hw, ci), dtype=np.int8)
+    ref = conv3x3_s8(jnp.asarray(xq), {k: jnp.asarray(v) for k, v in p.items()},
+                     raw=True, interpret=True)
+    tp = _torch_leaf(p)
+    got = conv_s8_plain(_nchw(xq), tp["w_q"], tp["s_w"], tp["b"], 1, 1, False, torch.int32)
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("ci,co,k,s", [(160, 160, 3, 1), (80, 80, 3, 2), (64, 96, 1, 1)])
+def test_epilogue_matches_jax(ci, co, k, s):
+    """Float epilogue against JAX's silu(conv2d_int8(...)): the limits of
+    tests/test_conv_int8_pallas.py. bf16 output within 2 bf16 ulps with
+    fewer than 1e-3 of the elements differing (torch's silu is x / (1 +
+    exp(-x)), JAX's x * sigmoid(x): float32 roundings apart, which a bf16
+    rounding rarely shows); no activation: float32 within 1e-6 relative; the
+    requantized int8 within 1 step with fewer than 1e-3 differing."""
+    rng = np.random.default_rng(ci + co + k + s)
+    p = _ptq_params(rng, ci, co, k)
+    x = rng.normal(0, 1, (2, 12, 12, ci)).astype(np.float32)
+    pj = {key: jnp.asarray(v) for key, v in p.items()}
+    tp = _torch_leaf(p)
+    y = jax_conv2d_int8(jnp.asarray(x), pj, s)
+    ref = jax_silu(y)
+
+    got = conv2d_int8(_nchw(x), tp, s, act=True, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    u = _ulps_bf16(_nhwc(got), ref.astype(jnp.bfloat16))
+    assert u.max() <= 2.01 and (u > 0).mean() < 1e-3, (u.max(), (u > 0).mean())
+
+    raw = conv2d_int8(_nchw(x), tp, s)
+    assert raw.dtype == torch.float32
+    np.testing.assert_allclose(_nhwc(raw), np.asarray(y), rtol=1e-6, atol=1e-6)
+
+    qs = float(np.abs(np.asarray(ref)).max() / 127.0)
+    xq = quantize_act(_nchw(x), tp["s_x"])
+    q = conv_s8_plain(xq, tp["w_q"], tp["s_x"] * tp["s_w"], tp["b"], s, k // 2, True,
+                      torch.int8, q_scale=qs)
+    dq = np.abs(_nhwc(q).astype(np.int32)
+                - np.asarray(jax_quantize_act(ref, jnp.float32(qs)), np.int32))
+    assert dq.max() <= 1 and (dq > 0).mean() < 1e-3
+
+
+def test_kernel_wrapper_on_cpu_is_plain_and_checks_shape_class():
+    """CPU tensors take the plain version and launch nothing; the weight
+    layout packs and unpacks losslessly; other conv shapes are refused."""
+    rng = np.random.default_rng(4)
+    p = _torch_leaf(_ptq_params(rng, 5, 24, 3))
+    assert p["w_q"].shape == (3, 3, 2, 24, 4)
+    np.testing.assert_array_equal(unpack_weight(p["w_q"], 5).numpy(),
+                                  _ptq_params(np.random.default_rng(4), 5, 24, 3)["w_q"])
+    xq = torch.from_numpy(rng.integers(-127, 128, (1, 5, 7, 6), dtype=np.int8))
+    before = conv_s8.launches
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        a = conv_s8(xq, p["w_q"], p["s_w"], p["b"], 2, 1, True, dtype)
+        b = conv_s8_plain(xq, p["w_q"], p["s_w"], p["b"], 2, 1, True, dtype)
+        assert a.shape == (1, 24, 4, 3) and torch.equal(a, b)
+    assert conv_s8.launches == before
+    with pytest.raises(ValueError, match="padding"):
+        conv_s8(xq, p["w_q"], p["s_w"], p["b"], 1, 0)
+    with pytest.raises(ValueError, match="stride"):
+        conv_s8(xq, p["w_q"], p["s_w"], p["b"], 3, 1)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """conv_s8 against its plain version on the card: int32 sums identical,
+    float32 / bf16 / int8 epilogues identical (the kernel repeats the plain
+    version's operations without FMA contraction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    rng = np.random.default_rng(0)
+    for ci, co, k, s, hw in CONV_CASES + [(640, 320, 3, 1, 20)]:
+        p = {key: v.cuda() for key, v in _torch_leaf(_ptq_params(rng, ci, co, k)).items()}
+        xq = torch.from_numpy(rng.integers(-127, 128, (3, ci, hw, hw + 3),
+                                           dtype=np.int8)).cuda()
+        scale = p["s_x"] * p["s_w"]
+        for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int8):
+            args = (xq, p["w_q"], scale, p["b"], s, k // 2, True, dtype, 0.05)
+            a, b = conv_s8(*args), conv_s8_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (ci, co, k, s, dtype)
+
+
+# ------------------------------------------------------- the slice as a whole
+
+
+@pytest.fixture(scope="module")
+def jax_fused():
+    """(JAX model, fused params as numpy float32, JAX float32 amax, batch)."""
+    model = JaxModel(CFG, TASKS, NCS)
+    fused = jax.tree_util.tree_map(np.asarray, model.fuse(model.init(jax.random.PRNGKey(0))))
+    batch = np.random.default_rng(0).uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32)
+    amax = jax_calibrate(model, fused, [batch], dtype=jnp.float32)
+    return model, fused, amax, batch
+
+
+def _port_model(tree):
+    return load_jax_params(CerberusModel(CFG, TASKS, NCS, device="cpu"), tree).eval()
+
+
+def test_calibrate_amax_matches_jax(jax_fused):
+    """The same conv paths, and each absmax within rtol 1e-5 (float32 convs
+    summed in other orders)."""
+    _, fused, amax, batch = jax_fused
+    ours = calibrate_amax(_port_model(fused), [batch])
+    assert sorted(ours) == sorted(amax) and len(ours) > 50
+    for k, v in amax.items():
+        np.testing.assert_allclose(ours[k], v, rtol=1e-5, err_msg=str(k))
+    assert all(m.tap is None for _, m in conv_layers(_port_model(fused)))
+
+
+@pytest.mark.parametrize("which", ["all", "deep64"])
+def test_quantize_params_bitwise(jax_fused, which):
+    """From JAX's fused params and amax, w_q, s_w and s_x bit for bit, and
+    the same convs left in float."""
+    _, fused, amax, _ = jax_fused
+    ref = jax_quantize(fused, amax, select=jax_select_all if which == "all"
+                       else jax_select_deep(64))
+    model = _port_model(fused)
+    quantize_params(model, amax, select=select_all if which == "all" else select_deep(64))
+    ours = export_jax_params(model)
+    paths_ref = jax.tree_util.tree_leaves_with_path(ref)
+    paths_ours = jax.tree_util.tree_leaves_with_path(ours)
+    assert [p for p, _ in paths_ours] == [p for p, _ in paths_ref]
+    n_q = 0
+    for (path, a), (_, b) in zip(paths_ours, paths_ref):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        if path[-1].key in ("w_q", "s_w", "s_x"):
+            np.testing.assert_array_equal(a, b, err_msg=str(path))
+            n_q += path[-1].key == "w_q"
+    assert (n_q == len(amax)) if which == "all" else (0 < n_q < len(amax))
+
+
+def test_int8_params_stay_float32_after_cast(jax_fused):
+    """A bf16 cast of a quantized model leaves s_w, s_x and b float32 (they
+    are float32 in the JAX package, which never casts params) and w_q int8;
+    a move keeps them so."""
+    _, fused, amax, _ = jax_fused
+    model = quantize_params(_port_model(fused), amax, select=select_all)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    model.to(torch.bfloat16)
+    model.to(device="cpu", dtype=torch.float16)
+    convs = [m for _, m in conv_layers(model)]
+    assert all(m.int8 for m in convs)
+    for m in convs:
+        assert m.w_q.dtype == torch.int8
+        assert m.s_w.dtype == m.s_x.dtype == m.b.dtype == torch.float32
+    after = model.state_dict()
+    for k, v in before.items():  # the rest (PlainConv) is cast
+        if k.endswith((".w_q", ".s_w", ".s_x")) or k[:-1] + "w_q" in before:
+            assert torch.equal(v, after[k]), k
+
+
+def test_quantized_tree_round_trip(jax_fused):
+    """A JAX tree quantized with model= (so carrying __q_out__ / q_in) loads
+    into the port and exports back as the same tree without those leaves."""
+    model, fused, amax, _ = jax_fused
+    ref = jax.tree_util.tree_map(np.asarray,
+                                 jax_quantize(fused, amax, select=jax_select_all, model=model))
+    assert any("__q_out__" in v for v in ref.values() if isinstance(v, dict))
+    ours = export_jax_params(_port_model(ref))
+
+    def strip(t):
+        return {k: strip(v) if isinstance(v, dict) else v for k, v in t.items()
+                if k not in ("__q_out__", "q_in")}
+
+    expect = {k: v for k, v in strip(ref).items() if v}
+    a = jax.tree_util.tree_leaves_with_path(ours)
+    b = jax.tree_util.tree_leaves_with_path(expect)
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, path
+        np.testing.assert_array_equal(x, y, err_msg=str(path))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_forward_matches_jax(jax_fused, dtype):
+    """JAX's quantized tree in the port: the head outputs agree with JAX's
+    int8 forward in the compute dtype. Both quantize the same activations,
+    but a float conv or silu rounded one ulp apart can put one activation on
+    the other side of a rounding step and move that int8 code by one, which
+    later layers carry on. Measured on this 64 px input: scores identical,
+    boxes within 3.1e-5 px in float32 and identical in bf16; the limits are
+    1e-5 (scores) and 1e-3 px (boxes)."""
+    model, fused, amax, batch = jax_fused
+    qtree = jax.tree_util.tree_map(np.asarray, jax_quantize(fused, amax, select=jax_select_all))
+    ref = model(qtree, jnp.asarray(batch), Ctx(train=False, dtype=getattr(jnp, dtype)))
+    port = _port_model(qtree).to(getattr(torch, dtype))
+    with torch.no_grad():
+        out = port(torch.from_numpy(batch).permute(0, 3, 1, 2).to(getattr(torch, dtype)))
+    for t in TASKS:
+        r = np.asarray(ref[t][0], np.float32)
+        o = out[t][0].float().numpy()
+        np.testing.assert_allclose(o[..., 4:], r[..., 4:], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(o[..., :4], r[..., :4], rtol=0, atol=1e-3)
+
+
+def test_int8_inference_matches_jax(jax_fused):
+    """The whole route: CerberusDetInference(int8="all") in both packages on
+    the same float32 weights and the noise calibration batch. Same detections
+    (task, label), scores within 1e-5 absolute and boxes within 1 px (the
+    forward's limits above, after letterbox scaling and rounding)."""
+    model, _, _, batch = jax_fused
+    params = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(1)
+    for t in TASKS:  # distinct box biases: both tasks survive cross-task NMS
+        for i in range(3):
+            last = params[f"head_{t}"][f"box{i}"]["2"]
+            last["b"] = rng.normal(0, 3, last["b"].shape).astype(np.float32)
+    common = dict(names=NAMES, conf_thres=1e-3, img_size=IMG)
+    ref = JaxInference(model=model, params=params, half=False, int8="all", **common)
+    ours = CerberusDetInference(model=CerberusModel(CFG, TASKS, NCS, device="cpu"),
+                                params=params, dtype=torch.float32, device="cpu",
+                                int8="all", **common)
+    assert len(ours.int8_convs) == len(list(conv_layers(ours.model)))
+    shapes = [(96, 128), (64, 64)]
+    a = ours.predict(batch, original_shape=shapes)
+    b = ref.predict(batch, original_shape=shapes)
+    assert sum(map(len, a)) > 0 and all(
+        sum(d["task"] == t for r in a for d in r) > 0 for t in TASKS)
+    assert len(a) == len(b)
+    for ra, rb in zip(a, b):
+        assert len(ra) == len(rb)
+        for x, y in zip(ra, rb):
+            assert (x["task"], x["label"]) == (y["task"], y["label"]), (x, y)
+            assert abs(x["score"] - y["score"]) <= 1e-5, (x, y)
+            assert max(abs(u - v) for u, v in zip(x["box"], y["box"])) <= 1, (x, y)
+
+
+def test_int8_inference_options():
+    """The fused float32 weights are what is quantized even when serving in
+    bf16 (each within half a step of its code), use_kernel=False on the CPU
+    gives the same results, and int8="deep" quantizes exactly the convs
+    with at least 256 input channels."""
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu").init(0)
+    ref_w = fused_conv_weights(CerberusModel(CFG, TASKS, NCS, device="cpu").init(0).fuse())
+    inf = CerberusDetInference(model=model, names=NAMES, conf_thres=1e-3, img_size=IMG,
+                               dtype=torch.bfloat16, device="cpu", int8="all")
+    for path, m in conv_layers(inf.model):
+        w = unpack_weight(m.w_q, m.c1).permute(3, 2, 0, 1).float() * m.s_w[:, None, None, None]
+        step = m.s_w[:, None, None, None]
+        assert bool(((w - ref_w[path][0]).abs() <= 0.5001 * step).all()), path
+        assert torch.equal(m.b, ref_w[path][1])
+    x = np.random.default_rng(2).uniform(0, 1, (1, IMG, IMG, 3)).astype(np.float32)
+    assert inf.predict(x) == inf.predict(x, use_kernel=False)
+    assert all(m.use_kernel is None for m in inf.int8_convs)  # the hook lasts one call
+    deep = CerberusDetInference(model=CerberusModel(CFG, TASKS, NCS, device="cpu").init(0),
+                                names=NAMES, img_size=IMG, dtype=torch.float32,
+                                device="cpu", int8="deep")
+    assert deep.int8_convs
+    assert all(m.int8 == (m.c1 >= 256) for _, m in conv_layers(deep.model))
+    with pytest.raises(ValueError, match="int8"):
+        CerberusDetInference(model=model, names=NAMES, device="cpu", int8="yes")
