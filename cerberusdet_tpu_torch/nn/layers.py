@@ -28,6 +28,7 @@ from cerberusdet_tpu_torch.nn.module import (
     uniform_,
 )
 from cerberusdet_tpu_torch.ops.anchors import dfl_expectation, dist2bbox, make_anchors
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import padded_channels
 
 
 def _pair(v):
@@ -106,7 +107,7 @@ class Conv(nn.Module):
         dev = self.w.device
         kh, kw = self.k
         del self.w, self.b
-        self.register_buffer("w_q", torch.zeros((kh, kw, (self.c1 + 3) // 4, self.c2, 4),
+        self.register_buffer("w_q", torch.zeros((self.c2, kh, kw, padded_channels(self.c1)),
                                                 dtype=torch.int8, device=dev))
         self.register_buffer("s_w", torch.zeros(self.c2, device=dev))
         self.register_buffer("s_x", torch.zeros((), device=dev))

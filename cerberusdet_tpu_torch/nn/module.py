@@ -2,7 +2,8 @@
 
 Counterpart of cerberusdet_tpu/nn/module.py. Layout is NCHW / OIHW; the
 int8 conv's weights are in the layout its kernel reads
-(ops/conv_int8_cuda.py:pack_weight).
+(ops/conv_int8_cuda.py:pack_weight), and its activations are packed NHWC
+int8 on the way in (ops/conv_int8_cuda.py:quant_pack_s8).
 """
 
 from __future__ import annotations
@@ -13,7 +14,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, conv_s8_plain
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
+    conv_s8,
+    conv_s8_plain,
+    quant_pack_s8,
+    quant_pack_s8_plain,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -141,24 +147,29 @@ def quantize_act(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
                 out_dtype: torch.dtype = torch.float32,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Quantized inference conv, NCHW: x quantized per tensor with p["s_x"],
-    the int32 sums of the int8 conv against p["w_q"] (pack_weight's layout),
-    then float32 acc * (s_x * s_w) + b. With the defaults that float32 is the
+    """Quantized inference conv, NCHW in and out: x quantized per tensor
+    with p["s_x"] (quantize_act's arithmetic) and packed NHWC int8, the int32
+    sums of the int8 conv against p["w_q"] (pack_weight's layout), then
+    float32 acc * (s_x * s_w) + b. With the defaults that float32 is the
     result (the JAX package's conv2d_int8); act applies SiLU to it in float32
     and out_dtype casts it, which the kernel does in its epilogue.
 
-    p: {"w_q" int8 (k, k, C4, Co, 4), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,) f32}.
-    use_kernel: None goes through ops/conv_int8_cuda.py:conv_s8, the CUDA
-    kernel for a tensor on the card and the plain version on the CPU; False
-    forces the plain version (a test hook)."""
-    k = p["w_q"].shape[0]
+    p: {"w_q" int8 (Co, k, k, Ci16), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,) f32};
+    x float32 or bfloat16. use_kernel: None goes through
+    ops/conv_int8_cuda.py:quant_pack_s8 and conv_s8, two CUDA kernels for a
+    tensor on the card and their plain versions on the CPU; False forces the
+    plain versions (a test hook)."""
+    w_q = p["w_q"]
+    k = w_q.shape[1]
     pad = autopad(k, padding)
     s, pad = (_single(stride, "stride"), _single(pad, "padding"))
-    xq = quantize_act(x, p["s_x"]).contiguous()
-    scale = p["s_x"] * p["s_w"]
-    conv = conv_s8_plain if use_kernel is False else conv_s8  # conv_s8: plain on the CPU
+    if use_kernel is False:
+        pack, conv = quant_pack_s8_plain, conv_s8_plain
+    else:  # the kernels on the card, the plain versions on the CPU
+        pack, conv = quant_pack_s8, conv_s8
+    xq = pack(x, p["s_x"], w_q.shape[3])
     kernel_out = out_dtype if out_dtype == torch.bfloat16 else torch.float32
-    y = conv(xq, p["w_q"], scale, p["b"], s, pad, act, kernel_out)
+    y = conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, kernel_out)
     return y.to(out_dtype)
 
 

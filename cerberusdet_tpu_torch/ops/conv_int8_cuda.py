@@ -1,31 +1,38 @@
-"""int8 convolution: the plain PyTorch version and its CUDA kernel for Hopper.
+"""int8 convolution: two CUDA kernels for Hopper and their plain PyTorch versions.
 
-The kernel (csrc/conv_int8.cu, `conv_s8`) replaces
-cerberusdet_tpu/ops/conv_int8_pallas.py:_conv_kernel and serves every
-quantized Conv of the int8 serving path: k in {1, 3}, stride in {1, 2},
-padding k // 2, groups 1, dilation 1. It sums s8 x s8 products in int32 and
-runs the epilogue in float32: y = acc * scale + bias, SiLU when `act`, then
-float32, bfloat16 or a requantize to int8; or the raw int32 sums. PyTorch has
-no int8 convolution on CUDA, and a float32 one is not exact at these depths
-(a 3x3 conv over 640 channels sums 5,760 products of up to 127^2).
+A quantized Conv on the card is two launches (csrc/conv_int8.cu):
 
-On this card it is bound by operations (2 * MACs against the int8
-tensor-core peak), not bytes; this first version uses __dp4a on the CUDA
-cores, a 64 x 64 output tile per block with its input patch in shared
-memory (see the source's note). Weights are read in a layout prepared once
-(`pack_weight`): (k, k, ceil(Ci/4), Co, 4) int8, four input channels to a
-32-bit word. Activations are the port's NCHW tensors.
+- `quant_pack_s8` quantizes the NCHW float32 / bfloat16 activations per
+  tensor (clip(rint(x * (1 / s_x)), -127, 127), as nn/module.py's and the
+  JAX package's quantize_act) and writes them NHWC int8 with the
+  channels zero-padded to Ci16 = ceil(Ci / 16) * 16. It is bound by bytes; a
+  shared-memory transpose tile keeps the read along W and the write along C
+  coalesced.
+- `conv_s8` replaces cerberusdet_tpu/ops/conv_int8_pallas.py:_conv_kernel and
+  serves every quantized Conv of the int8 serving path: k in {1, 3}, stride in
+  {1, 2}, padding k // 2, groups 1, dilation 1. It is an implicit GEMM (M =
+  B * Ho * Wo pixels, N = Co, K = k * k * Ci16) on the int8 tensor cores
+  (wgmma m64nNk32 s8 from shared memory, a 4-stage cp.async ring), bound by
+  operations. It sums s8 x s8 in int32 and runs the epilogue in float32:
+  y = acc * (s_x * s_w) + bias, SiLU when `act`, then float32, bfloat16 or a
+  requantize to int8; or the raw int32 sums. The output is NCHW. PyTorch has
+  no int8 convolution on CUDA, and a float32 one is not exact at these depths
+  (a 3x3 conv over 640 channels sums 5,760 products of up to 127^2).
 
-`conv_s8` launches the kernel for tensors on the card (or raises) and runs
-`conv_s8_plain` for tensors on the CPU; its attribute `launches` counts the
-kernel launches. The kernel is built with nvcc at first use
-(ops/cuda_build.py).
+Weights are packed once at quantize time (`pack_weight`): (Co, k, k, Ci16)
+int8, the reduction index (dy, dx, ci) contiguous for each output channel.
+
+Each wrapper checks its inputs, then launches its kernel for tensors on the
+card (or raises) and runs its plain version for tensors on the CPU; its
+attribute `launches` counts the kernel launches. The kernels are built with
+nvcc at first use (ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,27 +44,136 @@ SOURCE = cuda_build.CSRC / "conv_int8.cu"
 
 # output type -> the kernel's mode (int32 is the raw sums, no epilogue)
 _MODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+# activation type -> quant_pack_s8's dtype code
+_ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the conv kernel's block tiles (BM, BN), in the order conv_tile prefers them
+TILES = ((128, 160), (128, 80), (64, 160), (64, 80))
+
+
+def padded_channels(ci: int) -> int:
+    """Ci16: ci rounded up to a multiple of 16, the channel count of the
+    packed activations and weights."""
+    return -(-ci // 16) * 16
 
 
 def pack_weight(w_hwio: torch.Tensor) -> torch.Tensor:
-    """(k, k, Ci, Co) int8 HWIO -> the kernel's (k, k, ceil(Ci/4), Co, 4),
-    zero beyond Ci."""
+    """(k, k, Ci, Co) int8 HWIO -> the kernel's (Co, k, k, Ci16), zero beyond Ci."""
     kh, kw, ci, co = w_hwio.shape
-    c4 = (ci + 3) // 4
-    padded = torch.zeros((kh, kw, 4 * c4, co), dtype=torch.int8, device=w_hwio.device)
-    padded[:, :, :ci] = w_hwio
-    return padded.reshape(kh, kw, c4, 4, co).permute(0, 1, 2, 4, 3).contiguous()
+    out = torch.zeros((co, kh, kw, padded_channels(ci)), dtype=torch.int8, device=w_hwio.device)
+    out[..., :ci] = w_hwio.permute(3, 0, 1, 2)
+    return out
 
 
 def unpack_weight(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
-    """The inverse of pack_weight: (k, k, C4, Co, 4) -> (k, k, ci, Co) HWIO."""
-    kh, kw, c4, co, _ = w_packed.shape
-    return w_packed.permute(0, 1, 2, 4, 3).reshape(kh, kw, 4 * c4, co)[:, :, :ci]
+    """The inverse of pack_weight: (Co, k, k, Ci16) -> (k, k, ci, Co) HWIO."""
+    return w_packed[..., :ci].permute(1, 2, 3, 0)
 
 
 def requant_inverse(q_scale) -> float:
     """1 / q_scale in float32, the factor both versions multiply by."""
     return float(np.float32(1.0) / np.float32(float(q_scale)))
+
+
+def conv_tile(m: int, co: int, sms: int):
+    """(BM, BN), the conv kernel's block tile for M output pixels and Co
+    channels on a card of `sms` SMs: the first of TILES whose grid gives
+    every SM a block, else 64x80 (the most blocks); BN 160 only where Co is
+    a multiple of 160. Measured at every conv shape of the flagship's
+    batch-1 and batch-8 forwards on an H100 (tools/bench_conv_int8.py), this
+    picks the fastest tile or one within a few percent of it."""
+    for bm, bn in TILES:
+        if (bn == 80 or co % 160 == 0) and -(-m // bm) * -(-co // bn) >= sms:
+            return bm, bn
+    return TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check_scalar(s_x: torch.Tensor, what: str) -> None:
+    if s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise TypeError(f"{what}: s_x must be one float32 value, got {s_x.dtype} "
+                        f"{tuple(s_x.shape)}")
+
+
+def _check_act_dtype(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in _ACT_DTYPES:
+        raise TypeError(f"{what} takes {tuple(_ACT_DTYPES)} activations, not {x.dtype}")
+
+
+def _one_device(what: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU, False when all lie on one CUDA
+    device; raises otherwise."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} needs all tensors on the CPU or on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    return False
+
+
+# ------------------------------------------------------------ quant_pack_s8
+
+
+def quant_pack_s8_plain(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor:
+    """The quant_pack_s8 kernel's function in PyTorch ops; the plain version.
+
+    x (B, C, H, W) float32 or bfloat16; returns (B, H, W, ci16) int8, zero
+    beyond C: clip(round(x * (1 / s_x)), -127, 127) with the reciprocal in
+    float32 and round half to even (nn/module.py:quantize_act's codes),
+    channels last."""
+    _check_act_dtype(x, "quant_pack_s8_plain")
+    inv_sx = 1.0 / s_x.reshape(())
+    q = torch.clamp(torch.round(x.float() * inv_sx), -127.0, 127.0).to(torch.int8)
+    return F.pad(q.permute(0, 2, 3, 1), (0, ci16 - x.shape[1])).contiguous()
+
+
+_QP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def quant_pack_s8(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor:
+    """x (B, C, H, W) float32 or bfloat16 -> (B, H, W, ci16) int8 through
+    the CUDA kernel for tensors on the card; `quant_pack_s8_plain` for
+    tensors on the CPU. The pixels of each (H, W) plane of x must lie at one
+    stride in row-major order, as in a contiguous NCHW tensor, a channel
+    slice of one, or a channels-last view; s_x is one float32 value on x's
+    device; ci16 a multiple of 16, at least C."""
+    on_cpu = _one_device("quant_pack_s8", x, s_x)
+    _check_act_dtype(x, "quant_pack_s8")
+    _check_scalar(s_x, "quant_pack_s8")
+    if x.dim() != 4:
+        raise ValueError(f"quant_pack_s8: x {tuple(x.shape)} must be (B, C, H, W)")
+    b, c, h, w = x.shape
+    if ci16 % 16 or ci16 < c:
+        raise ValueError(f"quant_pack_s8: ci16={ci16} must be a multiple of 16 and >= C={c}")
+    sp = x.stride(3) if w > 1 else x.stride(2)  # between neighbouring pixels of a plane
+    if h > 1 and w > 1 and x.stride(2) != w * x.stride(3):
+        raise ValueError(f"quant_pack_s8: the pixels of an (H, W) plane of x must lie at one "
+                         f"stride, got strides {x.stride()}")
+    if on_cpu:
+        return quant_pack_s8_plain(x, s_x, ci16)
+    out = torch.empty((b, h, w, ci16), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = cuda_build.load(SOURCE, "cerberus_quant_pack_s8", _QP_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), _ACT_DTYPES[x.dtype], s_x.data_ptr(), b, c, h, w,
+                 x.stride(0), x.stride(1), sp, ci16, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"quant_pack_s8 kernel launch failed: CUDA error {err}")
+    quant_pack_s8.launches += 1
+    return out
+
+
+quant_pack_s8.launches = 0
+
+
+# ------------------------------------------------------------------ conv_s8
 
 
 def _check_shape_class(k: int, stride: int, pad: int) -> None:
@@ -66,23 +182,27 @@ def _check_shape_class(k: int, stride: int, pad: int) -> None:
                          f"got k={k} stride={stride} padding={pad}")
 
 
-def conv_s8_plain(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, stride: int, pad: int, act: bool,
+def conv_s8_plain(xq: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
+                  s_w: torch.Tensor, bias: torch.Tensor, stride: int, pad: int, act: bool,
                   out_dtype: torch.dtype, q_scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in PyTorch ops; the plain version.
+    """The conv_s8 kernel's function in PyTorch ops; the plain version.
 
-    xq (B, Ci, H, W) int8; w_packed from pack_weight; scale, bias (Co,)
-    float32. The int32 sums come from F.conv2d in float64 of the int8 values,
-    which is exact: every partial sum is an integer far below 2^53 (the
-    rounding removes the last-bit error a transform-based algorithm may
-    leave). The epilogue runs in the kernel's order: acc.float() * scale,
-    + bias, F.silu when act, then the cast to out_dtype; int8 output is
-    clip(round(y * (1 / q_scale)), -127, 127). int32 returns the sums."""
-    _check_shape_class(w_packed.shape[0], stride, pad)
-    w = unpack_weight(w_packed, xq.shape[1]).permute(3, 2, 0, 1).to(torch.float64)
-    acc = torch.round(F.conv2d(xq.to(torch.float64), w, None, stride, pad)).to(torch.int32)
+    xq (B, H, W, Ci16) int8 (quant_pack_s8's layout); w_packed (Co, k, k,
+    Ci16) from pack_weight; s_x one float32 value; s_w, bias (Co,) float32.
+    Returns (B, Co, Ho, Wo). The int32 sums come from F.conv2d in float64 of
+    the int8 values, which is exact: every partial sum is an integer far
+    below 2^53 (the rounding removes the last-bit error a transform-based
+    algorithm may leave). The epilogue runs in the kernel's order:
+    acc.float() * (s_x * s_w), + bias, F.silu when act, then the cast to
+    out_dtype; int8 output is clip(round(y * (1 / q_scale)), -127, 127).
+    int32 returns the sums."""
+    _check_shape_class(w_packed.shape[1], stride, pad)
+    xd = xq.permute(0, 3, 1, 2).to(torch.float64)
+    wd = w_packed.permute(0, 3, 1, 2).to(torch.float64)
+    acc = torch.round(F.conv2d(xd, wd, None, stride, pad)).to(torch.int32)
     if out_dtype == torch.int32:
         return acc
+    scale = s_x.reshape(()) * s_w
     y = acc.float() * scale[:, None, None]
     y = y + bias[:, None, None]
     if act:
@@ -98,62 +218,68 @@ def build(verbose: bool = False):
     return cuda_build.build(SOURCE, verbose)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p,
-                                                          ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def conv_s8(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+def conv_s8(xq: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor, s_w: torch.Tensor,
             bias: torch.Tensor, stride: int, pad: int, act: bool = False,
-            out_dtype: torch.dtype = torch.float32,
-            q_scale: Optional[float] = None) -> torch.Tensor:
+            out_dtype: torch.dtype = torch.float32, q_scale: Optional[float] = None,
+            tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The int8 conv through the CUDA kernel for tensors on the card; the
     plain `conv_s8_plain` for tensors on the CPU. Same contract as
     `conv_s8_plain`; out_dtype is int32, float32, bfloat16 or int8, and
-    q_scale is required for int8. On the card every input must be contiguous: xq int8,
-    w_packed int8 of pack_weight's shape for xq's Ci, scale and bias float32
-    (Co,)."""
-    tensors = (xq, w_packed, scale, bias)
-    if all(t.device.type == "cpu" for t in tensors):
-        return conv_s8_plain(xq, w_packed, scale, bias, stride, pad, act, out_dtype, q_scale)
-    dev = xq.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"conv_s8 needs all tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
+    q_scale is required for int8. xq and w_packed are contiguous int8 in the
+    layouts of quant_pack_s8 and pack_weight with the same Ci16, s_x one
+    float32 value, s_w and bias float32 (Co,). tile, one of TILES, sets the
+    kernel's block tile (for timing each one); None lets conv_tile choose."""
+    tensors = (xq, w_packed, s_x, s_w, bias)
+    on_cpu = _one_device("conv_s8", *tensors)
     if out_dtype not in _MODES:
         raise TypeError(f"conv_s8 writes {tuple(_MODES)}, not {out_dtype}")
     if out_dtype == torch.int8 and q_scale is None:
         raise ValueError("conv_s8: int8 output needs q_scale")
     if xq.dtype != torch.int8 or w_packed.dtype != torch.int8:
         raise TypeError(f"conv_s8 takes int8 x and weights, got {xq.dtype}/{w_packed.dtype}")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"conv_s8 takes float32 scale and bias, got {scale.dtype}/{bias.dtype}")
-    if xq.dim() != 4 or w_packed.dim() != 5:
-        raise ValueError(f"conv_s8 shapes: x {tuple(xq.shape)} must be (B, Ci, H, W) and "
-                         f"w {tuple(w_packed.shape)} (k, k, C4, Co, 4)")
-    b, ci, h, w = xq.shape
-    k, kw, c4, co, four = w_packed.shape
-    if k != kw or four != 4 or c4 != (ci + 3) // 4:
-        raise ValueError(f"conv_s8: weights {tuple(w_packed.shape)} do not fit Ci={ci}")
-    if scale.shape != (co,) or bias.shape != (co,):
-        raise ValueError(f"conv_s8: scale {tuple(scale.shape)} and bias {tuple(bias.shape)} "
+    _check_scalar(s_x, "conv_s8")
+    if s_w.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"conv_s8 takes float32 s_w and bias, got {s_w.dtype}/{bias.dtype}")
+    if xq.dim() != 4 or w_packed.dim() != 4:
+        raise ValueError(f"conv_s8 shapes: x {tuple(xq.shape)} must be (B, H, W, Ci16) and "
+                         f"w {tuple(w_packed.shape)} (Co, k, k, Ci16)")
+    b, h, w, ci16 = xq.shape
+    co, k, kw, wci = w_packed.shape
+    if k != kw or wci != ci16 or ci16 % 16:
+        raise ValueError(f"conv_s8: weights {tuple(w_packed.shape)} do not fit x "
+                         f"{tuple(xq.shape)} (Ci16 a multiple of 16 in both)")
+    if s_w.shape != (co,) or bias.shape != (co,):
+        raise ValueError(f"conv_s8: s_w {tuple(s_w.shape)} and bias {tuple(bias.shape)} "
                          f"must be ({co},)")
     _check_shape_class(k, stride, pad)
-    if not all(t.is_contiguous() for t in tensors) or w_packed.data_ptr() % 4:
-        raise ValueError("conv_s8 needs contiguous inputs and 4-byte aligned weights")
+    if tile is not None and tuple(tile) not in TILES:
+        raise ValueError(f"conv_s8: tile {tile} is not one of {TILES}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("conv_s8 needs contiguous inputs")
+    if on_cpu:
+        return conv_s8_plain(xq, w_packed, s_x, s_w, bias, stride, pad, act, out_dtype, q_scale)
+    if xq.data_ptr() % 16 or w_packed.data_ptr() % 16:
+        raise ValueError("conv_s8 needs 16-byte aligned x and weights")
     ho = (h + 2 * pad - k) // stride + 1
     wo = (w + 2 * pad - k) // stride + 1
-    if b * ho * wo >= 2 ** 31:
-        raise ValueError(f"conv_s8: B * Ho * Wo = {b * ho * wo} does not fit an int")
-    fn = cuda_build.load(SOURCE, "cerberus_conv_s8", _ARGTYPES)
-    out = torch.empty((b, co, ho, wo), dtype=out_dtype, device=dev)
+    if max(b * ho * wo, b * h * w * ci16, w_packed.numel()) >= 2 ** 31:
+        raise ValueError(f"conv_s8: B * Ho * Wo = {b * ho * wo}, x or the weights do not "
+                         f"fit an int")
+    out = torch.empty((b, co, ho, wo), dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
+    bm, bn = tile or conv_tile(b * ho * wo, co, _sm_count(xq.device.index))
+    fn = cuda_build.load(SOURCE, "cerberus_conv_s8", _ARGTYPES)
     inv = requant_inverse(q_scale) if out_dtype == torch.int8 else 1.0
-    with torch.cuda.device(dev):
+    with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xq.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 b, ci, h, w, co, k, stride, pad, int(bool(act)), _MODES[out_dtype], inv,
-                 out.data_ptr(), stream)
+        err = fn(xq.data_ptr(), w_packed.data_ptr(), s_x.data_ptr(), s_w.data_ptr(),
+                 bias.data_ptr(), b, h, w, ci16, co, k, stride, pad, int(bool(act)),
+                 _MODES[out_dtype], inv, bm, bn, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"conv_s8 kernel launch failed: CUDA error {err}")
     conv_s8.launches += 1

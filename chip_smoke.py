@@ -8,7 +8,7 @@ Phases, each of which fails the run on anything wrong:
   1. build every kernel of the port from the sources in the checkout (one
      nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, and
-     time both (the int8 conv kernel in 3b): the NMS kernel (identical selections) and the three TAL
+     time both (the int8 kernels in 3b): the NMS kernel (identical selections) and the three TAL
      assigner kernels, stage by stage (identical integer and bool outputs,
      scores within rtol 1e-5, atol 1e-6) on the scenes of the CPU tests
      and on the flagship train shapes;
@@ -18,11 +18,14 @@ Phases, each of which fails the run on anything wrong:
      every NMS launch is counted, and the results equal those of the same
      batch with the plain NMS loop on the card;
   3b. serve the same model in int8 (int8="all", noise calibration): the
-     int8 conv kernel against its plain version at every distinct quantized
-     conv shape of a batch-8 request and at edge cases (raw int32 and the
-     float32 / bf16 / int8 epilogues identical), 3 + 3 requests with one
-     kernel launch per quantized Conv and request, identical results with
-     the plain int8 convs and NMS, agreement with bf16, and timings;
+     conv kernel's SASS must hold int8 tensor-core instructions (cuobjdump);
+     the two int8 kernels against their plain versions at every distinct
+     quantized conv shape of a batch-8 request (quant_pack_s8 on the
+     request's conv inputs in bf16 and float32; conv_s8 in raw int32 and the
+     float32 / bf16 / int8 epilogues, and at edge cases), all identical;
+     3 + 3 requests with one launch of each kernel per quantized Conv and
+     request, identical results with the plain int8 path and NMS, agreement
+     with bf16, and timings (torch._int_mm as the yardstick of a 1x1 conv);
   4. train the flagship: MultiTaskTrainer.step at 640 px, bf16 compute,
      per-task batch 8, 300 gt rows of which 40 are real, seeded batches and
      init; 2 warm-up and 5 timed steps with finite losses, every TAL kernel
@@ -43,6 +46,7 @@ import concurrent.futures
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -287,22 +291,23 @@ def matched_detections(a, b, iou_min: float = 0.5) -> int:
     return n
 
 
-def conv_s8_compare(xq, w_q, scale, bias, stride: int, act: bool):
-    """conv_s8 against conv_s8_plain on the same inputs in each of its four
-    output types. Returns the largest |kernel - plain| over them; raises,
+def conv_s8_compare(xq, w_q, s_x, s_w, bias, stride: int, act: bool, tile=None):
+    """conv_s8 (with the block tile `tile`, None for the wrapper's choice)
+    against conv_s8_plain on the same inputs in each of its four output
+    types. Returns the largest |kernel - plain| over them; raises,
     after printing the count of differing elements and the largest ulp or
     step, on any difference."""
     import torch
 
     from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, conv_s8_plain
 
-    pad = w_q.shape[0] // 2
-    plain32 = conv_s8_plain(xq, w_q, scale, bias, stride, pad, act, torch.float32)
+    pad = w_q.shape[1] // 2
+    plain32 = conv_s8_plain(xq, w_q, s_x, s_w, bias, stride, pad, act, torch.float32)
     q_scale = max(float(plain32.abs().max()), 1e-6) / 127.0
     worst = 0.0
     for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int8):
-        args = (xq, w_q, scale, bias, stride, pad, act, dtype, q_scale)
-        got, ref = conv_s8(*args), conv_s8_plain(*args)
+        args = (xq, w_q, s_x, s_w, bias, stride, pad, act, dtype, q_scale)
+        got, ref = conv_s8(*args, tile=tile), conv_s8_plain(*args)
         torch.cuda.synchronize()
         diff = (got.double() - ref.double()).abs()
         worst = max(worst, float(diff.max()))
@@ -313,17 +318,56 @@ def conv_s8_compare(xq, w_q, scale, bias, stride: int, act: bool):
                 how = f"largest {float(ulp.max()):.3g} ulp"
             else:
                 how = f"largest {float(diff.max()):.0f} steps"
-            log(f"[conv_s8 vs plain] {dtype}: {n_diff} of {got.numel()} elements differ, {how}")
+            log(f"[conv_s8 vs plain] {dtype}, tile {tile}: {n_diff} of {got.numel()} elements differ, {how}")
             raise AssertionError(f"conv_s8 disagrees with its plain version in {dtype}")
     return worst
 
 
+def quant_pack_compare(x, s_x, ci16: int) -> int:
+    """quant_pack_s8 against quant_pack_s8_plain on the same activations;
+    returns the largest |kernel - plain| (0) or raises."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops.conv_int8_cuda import quant_pack_s8, quant_pack_s8_plain
+
+    got, ref = quant_pack_s8(x, s_x, ci16), quant_pack_s8_plain(x, s_x, ci16)
+    torch.cuda.synchronize()
+    n_diff = int((got != ref).sum())
+    if n_diff:
+        log(f"[quant_pack_s8 vs plain] {x.dtype} {tuple(x.shape)}: {n_diff} of {got.numel()} "
+            f"codes differ")
+        raise AssertionError("quant_pack_s8 disagrees with its plain version")
+    return int((got.int() - ref.int()).abs().max())
+
+
+def tensor_core_instructions(lib, kernel: str):
+    """(count, how): the int8 tensor-core instructions (IMMA for mma.sync,
+    IGMMA for wgmma) in the SASS of the functions of the built library `lib`
+    whose names contain `kernel`, by cuobjdump; count None where the toolkit
+    has no cuobjdump, and how says so."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None, "no cuobjdump in the toolkit: not checked"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and ("IMMA" in line or "IGMMA" in line):
+            count += 1
+    return count, tool
+
+
 def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
-    """The int8 serving path at full width: build, hold conv_s8 against its
-    plain version at every distinct quantized-conv shape of a batch-8
-    request (and edge cases), serve 3 + 3 requests with launch counting,
+    """The int8 serving path at full width: check that the conv kernel runs on
+    the int8 tensor cores, hold quant_pack_s8 and conv_s8 against their plain
+    versions at every distinct quantized-conv shape of a batch-8 request (and
+    conv_s8 at edge cases), serve 3 + 3 requests with launch counting,
     compare a request with the plain int8 path and with bf16, and time.
-    Returns the kernels-line entry of conv_s8."""
+    Returns the kernels-line entries of conv_s8 (its heaviest 3x3 shape and
+    its heaviest 1x1 shape) and quant_pack_s8."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -331,9 +375,15 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
 
     from cerberusdet_tpu_torch.infer import CerberusDetInference
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
-    from cerberusdet_tpu_torch.nn.module import quantize_act
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
     from cerberusdet_tpu_torch.quant import conv_layers
+
+    conv_s8, quant_pack_s8 = conv_int8_cuda.conv_s8, conv_int8_cuda.quant_pack_s8
+    n_imma, how = tensor_core_instructions(conv_int8_cuda.build(), "conv_s8_kernel")
+    log(f"[conv_s8 SASS] int8 tensor-core instructions (IMMA / IGMMA) in conv_s8_kernel: "
+        f"{n_imma if n_imma is not None else 'not counted'} ({how})")
+    if n_imma == 0:
+        raise AssertionError("conv_s8_kernel holds no int8 tensor-core instruction")
 
     t0 = time.perf_counter()
     model = CerberusModel(FLAGSHIP, TASKS, NCS, device=dev).init(seed=0)
@@ -347,57 +397,71 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     log(f"[int8] yolov8x_2task, bf16 compute, int8='all': {n_q} quantized Convs, noise "
         f"calibration, built in {time.perf_counter() - t0:.2f} s")
 
-    # every distinct quantized-conv shape, on the int8 activations of a batch-8 request
+    # every distinct quantized-conv shape, on the activations of a batch-8 request
     cases = {}
 
     def capture(mod, args):
         x = args[0]
         key = (mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3])
         if key not in cases:
-            cases[key] = (mod, quantize_act(x, mod.s_x).contiguous())
+            cases[key] = (mod, x)
         ho = (x.shape[2] + 2 * mod.p[0] - mod.k[0]) // mod.s[0] + 1
         wo = (x.shape[3] + 2 * mod.p[1] - mod.k[1]) // mod.s[1] + 1
         macs[0] += x.shape[0] * ho * wo * mod.c2 * mod.c1 * mod.k[0] * mod.k[1]
+        pack_bytes[0] += x.numel() * x.element_size() + x.numel() // mod.c1 * mod.w_q.shape[3]
 
-    macs = [0]
+    macs, pack_bytes = [0], [0]
     hooks = [m.register_forward_pre_hook(capture) for m in inf.int8_convs]
     batch8, shapes8 = pre.preprocess(frames[8][0])
     inf.predict(batch8, original_shape=shapes8)
     for h in hooks:
         h.remove()
     fwd_macs = macs[0]
-    max_err = 0.0
+    max_err, pack_err = 0.0, 0
     for key in sorted(cases):
-        mod, xq = cases[key]
-        err = conv_s8_compare(xq, mod.w_q, mod.s_x * mod.s_w, mod.b, mod.s[0], True)
+        mod, x = cases[key]
+        ci16 = mod.w_q.shape[3]
+        for xt in (x, x.float()):
+            pack_err = max(pack_err, quant_pack_compare(xt, mod.s_x, ci16))
+        xq = conv_int8_cuda.quant_pack_s8_plain(x, mod.s_x, ci16)
+        err = conv_s8_compare(xq, mod.w_q, mod.s_x, mod.s_w, mod.b, mod.s[0], True)
         max_err = max(max_err, err)
+    log(f"[quant_pack_s8 vs plain] the inputs of the {len(cases)} distinct quantized convs of "
+        f"a batch-8 request (Ci 3 included), in bf16 and in float32: identical")
     log(f"[conv_s8 vs plain] {len(cases)} distinct (Ci, Co, k, s, H, W) of the flagship's "
         f"quantized convs at batch 8, on a request's activations, in int32 / float32 / "
         f"bf16 / int8: identical (max |diff| {max_err})")
     rng = np.random.default_rng(11)
     edge = []
-    for name, ci, co, k, s, b, h, w in [("ragged 13x17", 80, 80, 3, 1, 3, 13, 17),
-                                        ("ragged s2 1x1-tail", 160, 320, 3, 2, 2, 21, 9),
+    for name, ci, co, k, s, b, h, w in [("ragged 13x17, Co 80 against BN", 80, 80, 3, 1, 3, 13, 17),
+                                        ("stride 2 on odd H, 1x1 tail", 160, 320, 3, 2, 2, 21, 9),
                                         ("Ci=3 s1", 3, 80, 3, 1, 2, 37, 29),
-                                        ("Ci=5 1x1", 5, 24, 1, 1, 1, 7, 11)]:
-        xq = torch.from_numpy(rng.integers(-127, 128, (b, ci, h, w), dtype=np.int8)).to(dev)
+                                        ("Ci=5 1x1", 5, 24, 1, 1, 1, 7, 11),
+                                        ("Ci=400 (16 | Ci, 32 does not)", 400, 80, 3, 1, 3, 9, 12),
+                                        ("M below BM: batch 1 at 20x20", 320, 320, 3, 1, 1, 20, 20),
+                                        ("stride 2 on odd H=41", 320, 320, 3, 2, 1, 41, 40)]:
+        xq = torch.zeros((b, h, w, conv_int8_cuda.padded_channels(ci)), dtype=torch.int8)
+        xq[..., :ci] = torch.from_numpy(rng.integers(-127, 128, (b, h, w, ci), dtype=np.int8))
         wq = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co), dtype=np.int8))
-        edge.append((name, xq, wq, s))
+        edge.append((name, xq.to(dev), wq, s))
     for name, ci, co, k in [("all +-127, 3x3 Ci=640", 640, 320, 3),
                             ("all +-127, 1x1 Ci=2560", 2560, 640, 1)]:
-        xq = torch.full((2, ci, 20, 20), 127, dtype=torch.int8, device=dev)
+        xq = torch.full((2, 20, 20, ci), 127, dtype=torch.int8, device=dev)
         xq[1] = -127
         wq = torch.full((k, k, ci, co), 127, dtype=torch.int8)
         wq[..., co // 2:] = -127
         edge.append((name, xq, wq, 1))
     for name, xq, wq, s in edge:
         co = wq.shape[3]
-        scale = torch.full((co,), 1e-7, device=dev)
+        s_x = torch.tensor(1e-3, device=dev)
+        s_w = torch.full((co,), 1e-4, device=dev)
         bias = torch.linspace(-2, 2, co, device=dev)
-        err = conv_s8_compare(xq, conv_int8_cuda.pack_weight(wq).to(dev), scale, bias, s, True)
-        max_err = max(max_err, err)
+        for tile in (None,) + conv_int8_cuda.TILES:
+            err = conv_s8_compare(xq, conv_int8_cuda.pack_weight(wq).to(dev), s_x, s_w, bias, s,
+                                  True, tile)
+            max_err = max(max_err, err)
         log(f"[conv_s8 vs plain] edge case {name}: x {tuple(xq.shape)}, {co} out, stride "
-            f"{s}: identical")
+            f"{s}: identical with the chosen tile and with each of {conv_int8_cuda.TILES}")
     del edge
 
     # the main path: 3 requests at batch 1 and 3 at batch 8
@@ -405,7 +469,8 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
         batch, shapes = pre.preprocess(frames[bs][0])
         inf.predict(batch, original_shape=shapes)
     torch.cuda.synchronize()
-    conv_int8_cuda.conv_s8.launches = 0
+    conv_s8.launches = 0
+    quant_pack_s8.launches = 0
     nms_cuda.greedy_nms_cuda.launches = 0
     served, per_bs = [], {}
     for bs in (1, 8):
@@ -418,14 +483,17 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
             times.append(time.perf_counter() - t)
             served.append((batch, shapes, out))
         per_bs[bs] = times
-    launches = conv_int8_cuda.conv_s8.launches
+    launches = conv_s8.launches
+    pack_launches = quant_pack_s8.launches
     nms_launches = nms_cuda.greedy_nms_cuda.launches
     n_requests = len(served)
-    log(f"[int8] {n_requests} requests, conv_s8 launches {launches} (expected {n_q} "
-        f"quantized Convs x {n_requests}), NMS launches {nms_launches}")
-    if launches != n_q * n_requests or nms_launches != len(TASKS) * n_requests:
-        raise AssertionError("the int8 path did not launch conv_s8 once per quantized Conv "
-                             "and request, or NMS once per task and request")
+    log(f"[int8] {n_requests} requests, quant_pack_s8 launches {pack_launches}, conv_s8 "
+        f"launches {launches} (expected {n_q} quantized Convs x {n_requests} each), NMS "
+        f"launches {nms_launches}")
+    if launches != n_q * n_requests or pack_launches != n_q * n_requests \
+            or nms_launches != len(TASKS) * n_requests:
+        raise AssertionError("the int8 path did not launch quant_pack_s8 and conv_s8 once per "
+                             "quantized Conv and request, or NMS once per task and request")
     for bs, times in per_bs.items():
         ms = 1e3 * float(np.median(times))
         log(f"[int8] batch {bs}: {ms:.2f} ms/request (median of {len(times)}, preprocess + "
@@ -453,70 +521,127 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     log("[int8] batch 8 with the plain int8 convs and the plain NMS loop on the card: "
         "identical results")
 
-    # the forward in int8 beside bf16, and conv_s8's share of it
+    # the forward in int8 beside bf16, and the kernels' share of it
     for bs in (1, 8):
         bt, _ = pre.preprocess(frames[bs][0])
         x = bt.permute(0, 3, 1, 2).to(torch.bfloat16)
-        before = conv_int8_cuda.conv_s8.launches
+        before = (conv_s8.launches, quant_pack_s8.launches)
         ms8 = cuda_ms(lambda: inf.model(x), iters=3)
-        if conv_int8_cuda.conv_s8.launches - before != 5 * n_q:  # 2 warm-up + 3 timed
-            raise AssertionError("the timed int8 forward did not run through conv_s8")
+        if (conv_s8.launches - before[0], quant_pack_s8.launches - before[1]) \
+                != (5 * n_q, 5 * n_q):  # 2 warm-up + 3 timed
+            raise AssertionError("the timed int8 forward did not run through both kernels")
         ms16 = cuda_ms(lambda: inf_bf16.model(x), iters=3)
-        log(f"[int8 stages] batch {bs}: int8 forward {ms8:.3f} ms, bf16 forward {ms16:.3f} ms "
-            f"(CUDA events, 3 calls)  [{card}]")
+        log(f"[int8 stages] batch {bs}: int8 forward {ms8:.3f} ms, bf16 forward {ms16:.3f} ms, "
+            f"int8 / bf16 {ms8 / ms16:.2f} (CUDA events, 3 calls)  [{card}]")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         inf.model(x)
         torch.cuda.synchronize()
     ev = prof.key_averages()
-    conv_us = sum(e.device_time_total for e in ev if "conv_s8_kernel" in e.key)
-    conv_n = sum(e.count for e in ev if "conv_s8_kernel" in e.key)
     all_us = sum(e.device_time_total for e in ev)
+    share = {}
+    for kern in ("conv_s8_kernel", "quant_pack_s8_kernel"):
+        us = sum(e.device_time_total for e in ev if kern in e.key)
+        share[kern] = (us, sum(e.count for e in ev if kern in e.key))
+    (conv_us, conv_n), (pack_us, pack_n) = share["conv_s8_kernel"], share["quant_pack_s8_kernel"]
     log(f"[int8 stages] batch 8 forward: {fwd_macs / 1e12:.4f} TMAC in {n_q} quantized "
-        f"convs; profiler: conv_s8 {conv_us / 1e3:.3f} ms in {conv_n} launches of "
-        f"{all_us / 1e3:.3f} ms device time ({100 * conv_us / max(all_us, 1e-9):.1f}%), "
-        f"of a {ms8:.3f} ms forward (events)  [{card}]")
+        f"convs; profiler: conv_s8 {conv_us / 1e3:.3f} ms in {conv_n} launches "
+        f"(bound {2 * fwd_macs / INT8_OPS_PER_S * 1e3:.3f} ms), quant_pack_s8 "
+        f"{pack_us / 1e3:.3f} ms in {pack_n} launches (bound "
+        f"{pack_bytes[0] / HBM_BYTES_PER_S * 1e3:.3f} ms), of {all_us / 1e3:.3f} ms device "
+        f"time (conv_s8 {100 * conv_us / max(all_us, 1e-9):.1f}%, quant_pack_s8 "
+        f"{100 * pack_us / max(all_us, 1e-9):.1f}%), of a {ms8:.3f} ms forward (events)  "
+        f"[{card}]")
 
-    # the kernel alone at the path's most expensive shape (MACs a launch; on
-    # the flagship the Detect cls tower's 3x3 320->320 at 80x80)
+    # the kernels alone at the path's most expensive shapes (MACs a launch; on
+    # the flagship the Detect cls tower's 3x3 320->320 at 80x80 and the 1x1
+    # 2560->640 at 40x40)
     def launch_macs(key):
         ci, co, k, s, h, w = key
         return ((h + 2 * (k // 2) - k) // s + 1) * ((w + 2 * (k // 2) - k) // s + 1) \
             * co * ci * k * k
 
-    key = max(cases, key=launch_macs)
-    mod, xq = cases[key]
-    b, (ci, co, k, s, h, w) = xq.shape[0], key
-    call = (xq, mod.w_q, mod.s_x * mod.s_w, mod.b, s, k // 2, True, torch.bfloat16)
-    k_ms, how = kernel_ms(lambda: conv_int8_cuda.conv_s8(*call), 10, "conv_s8_kernel")
-    p_ms = cuda_ms(lambda: conv_int8_cuda.conv_s8_plain(*call), iters=3, warmup=1)
-    xb = xq.to(torch.bfloat16)
-    wb = conv_int8_cuda.unpack_weight(mod.w_q, ci).permute(3, 2, 0, 1).to(
-        torch.bfloat16).contiguous()
-    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, s, k // 2), iters=10)
-    kmacs = b * launch_macs(key)
-    out_elems = kmacs // (ci * k * k)
-    nbytes = xq.numel() + mod.w_q.numel() + 8 * co + 2 * out_elems  # bf16 out
-    ops_ms = 2 * kmacs / INT8_OPS_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[conv_s8 at main-path shapes] {k}x{k} s{s} {ci}->{co} at {h}x{w}, batch {b}: "
-        f"kernel {k_ms:.4f} ms ({how}), {kmacs / k_ms / 1e9:.2f} TMAC/s, bound "
-        f"{max(ops_ms, bytes_ms):.4f} ms; plain (float64 conv + epilogue) {p_ms:.3f} ms; "
-        f"for context, a different function: cuDNN's bf16 conv of the same shape "
-        f"{cudnn_ms:.4f} ms  [{card}]")
-    conv_int8_cuda.conv_s8.launches = launches  # the comparison and timing launches do not count
-    return {
-        "name": "conv_s8",
+    entries = []
+    for kk in (3, 1):
+        key = max((c for c in cases if c[2] == kk), key=lambda c: (launch_macs(c), c[0]))
+        mod, x = cases[key]
+        b, (ci, co, k, s, h, w) = x.shape[0], key
+        xq = quant_pack_s8(x, mod.s_x, mod.w_q.shape[3])
+        out_dtype = torch.bfloat16 if k == 3 else torch.int32
+        call = (xq, mod.w_q, mod.s_x, mod.s_w, mod.b, s, k // 2, True, out_dtype)
+        k_ms, how = kernel_ms(lambda: conv_s8(*call), 10, "conv_s8_kernel")
+        p_ms = cuda_ms(lambda: conv_int8_cuda.conv_s8_plain(*call), iters=3, warmup=1)
+        kmacs = b * launch_macs(key)
+        out_elems = kmacs // (ci * k * k)
+        nbytes = xq.numel() + mod.w_q.numel() + 12 * co + out_dtype.itemsize * out_elems
+        ops_ms = 2 * kmacs / INT8_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if k == 3:
+            xb = x.to(torch.bfloat16).contiguous()
+            wb = conv_int8_cuda.unpack_weight(mod.w_q, ci).permute(3, 2, 0, 1).to(
+                torch.bfloat16).contiguous()
+            lib_ms = None  # no PyTorch call computes an int8 3x3 convolution
+            ctx = cuda_ms(lambda: F.conv2d(xb, wb, None, s, k // 2), iters=10)
+            extra = (f"for context, a different function: cuDNN's bf16 conv of the same "
+                     f"shape {ctx:.4f} ms")
+        else:  # a 1x1 conv's int32 sums are one int8 matrix product: (M, Ci16) x (Ci16, Co)
+            a2 = xq.reshape(-1, xq.shape[3])
+            b2 = mod.w_q.reshape(co, -1).t()
+            if not torch.equal(torch._int_mm(a2, b2).reshape(b, h, w, co).permute(0, 3, 1, 2),
+                               conv_s8(*call)):
+                raise AssertionError("torch._int_mm disagrees with conv_s8's int32 sums")
+            lib_ms = cuda_ms(lambda: torch._int_mm(a2, b2), iters=10)
+            extra = (f"torch._int_mm (cuBLASLt, NHWC out) of the same sums {lib_ms:.4f} ms, "
+                     f"identical")
+        log(f"[conv_s8 at main-path shapes] {k}x{k} s{s} {ci}->{co} at {h}x{w}, batch {b}, "
+            f"{str(out_dtype).split('.')[-1]} out, tile "
+            f"{conv_int8_cuda.conv_tile(out_elems // co, co, torch.cuda.get_device_properties(dev).multi_processor_count)}: "
+            f"kernel {k_ms:.4f} ms ({how}), {kmacs / k_ms / 1e9:.2f} TMAC/s, bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / k_ms:.1f}%); plain "
+            f"(float64 conv + epilogue) {p_ms:.3f} ms; {extra}  [{card}]")
+        entries.append({
+            "name": "conv_s8" if k == 3 else "conv_s8 (1x1, int32 out)",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
+            "shape": f"{k}x{k} s{s} {ci}->{co} at {h}x{w}, batch {b}",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms,
+        })
+
+    # quant_pack_s8 alone at the path's largest input (bf16 in, int8 out)
+    key = max(cases, key=lambda c: cases[c][1].numel())
+    mod, x = cases[key]
+    ci16 = mod.w_q.shape[3]
+    q_ms, how = kernel_ms(lambda: quant_pack_s8(x, mod.s_x, ci16), 20, "quant_pack_s8_kernel")
+    qp_ms = cuda_ms(lambda: conv_int8_cuda.quant_pack_s8_plain(x, mod.s_x, ci16), iters=5)
+    q_bytes = x.numel() * x.element_size() + x.numel() // x.shape[1] * ci16
+    q_bound = q_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[quant_pack_s8 at main-path shapes] x {tuple(x.shape)} bf16 -> (B, H, W, {ci16}) "
+        f"int8: kernel {q_ms:.4f} ms ({how}), {q_bytes / q_ms / 1e6:.1f} GB/s, bound "
+        f"{q_bound:.4f} ms ({100 * q_bound / q_ms:.1f}%); plain {qp_ms:.3f} ms  [{card}]")
+    entries.append({
+        "name": "quant_pack_s8",
         "route": "cuda",
         "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
-        "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,  # no PyTorch call computes an int8 convolution
-    }
+        "replaces": "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas kernel; part "
+                    "of conv_s8's redesign)",
+        "shape": f"{tuple(x.shape)} bf16",
+        "launches": pack_launches,
+        "max_abs_err": pack_err,
+        "ms": q_ms,
+        "plain_ms": qp_ms,
+        "bound_ms": q_bound,
+        "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call quantizes, transposes and pads in one
+    })
+    conv_s8.launches = launches  # the comparison and timing launches do not count
+    quant_pack_s8.launches = pack_launches
+    return entries
 
 
 def main() -> int:
@@ -723,7 +848,7 @@ def main() -> int:
     }]
 
     # ---- 3b. the int8 serving path at full width
-    kernels.append(serve_int8(inf, pre, frames, served, names, card, dev))
+    kernels.extend(serve_int8(inf, pre, frames, served, names, card, dev))
 
     del inf, model, preds, served
     torch.cuda.empty_cache()

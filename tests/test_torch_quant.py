@@ -32,9 +32,14 @@ from cerberusdet_tpu_torch.manager.weights import export_jax_params, load_jax_pa
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
 from cerberusdet_tpu_torch.nn.module import conv2d_int8, quantize_act
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
+    TILES,
     conv_s8,
     conv_s8_plain,
+    conv_tile,
     pack_weight,
+    padded_channels,
+    quant_pack_s8,
+    quant_pack_s8_plain,
     unpack_weight,
 )
 from cerberusdet_tpu_torch.quant import (
@@ -87,6 +92,15 @@ def _ulps_bf16(a, b):
 # ------------------------------------------------------------------ the conv
 
 
+def _packed(xq):
+    """(B, H, W, Ci) int8 numpy -> quant_pack_s8's (B, H, W, Ci16) layout."""
+    xq = np.asarray(xq)
+    ci = xq.shape[-1]
+    out = np.zeros(xq.shape[:-1] + (padded_channels(ci),), np.int8)
+    out[..., :ci] = xq
+    return torch.from_numpy(out)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_quantize_act_bitwise(dtype):
     """Same int8 codes as the JAX quantize_act, including the round-half-even
@@ -106,6 +120,51 @@ def test_quantize_act_bitwise(dtype):
     assert quantize_act(ours, torch.tensor(s_x)) is ours  # int8 passes through
 
 
+@pytest.mark.parametrize("ci", [3, 5, 80, 400])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_quant_pack_plain_matches_jax_quantize_act(dtype, ci):
+    """quant_pack_s8_plain of NCHW activations == JAX's quantize_act of the
+    same NHWC activations, zero-padded to Ci16 channels: the codes bit for
+    bit (ties and the clip included), the padding zero."""
+    rng = np.random.default_rng(ci)
+    s_x = np.float32(0.029)
+    x = rng.normal(0, 2.5, (2, 5, 7, ci)).astype(np.float32)
+    x.flat[:30] = (np.arange(30) - 15 + 0.5) * s_x  # ties
+    xj = jnp.asarray(x)
+    xt = _nchw(x)
+    if dtype == "bfloat16":
+        xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+    ci16 = padded_channels(ci)
+    ours = quant_pack_s8_plain(xt, torch.tensor(s_x), ci16)
+    ref = np.asarray(jax_quantize_act(xj, jnp.float32(s_x)))
+    assert ours.dtype == torch.int8 and ours.shape == (2, 5, 7, ci16) and ours.is_contiguous()
+    np.testing.assert_array_equal(ours[..., :ci].numpy(), ref)
+    assert not ours[..., ci:].any()
+    # the wrapper on the CPU is the plain version, for a channel slice too
+    before = quant_pack_s8.launches
+    assert torch.equal(quant_pack_s8(xt, torch.tensor(s_x), ci16), ours)
+    wide = torch.cat([xt, xt], 1)[:, ci:]  # images 2 * ci planes apart
+    last = xt.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)  # channels last
+    for view in (wide, last):
+        assert not view.is_contiguous()
+        assert torch.equal(quant_pack_s8(view, torch.tensor(s_x), ci16), ours)
+    assert quant_pack_s8.launches == before
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("ci", [3, 5, 40, 80, 400])
+def test_pack_weight_round_trip(ci, k):
+    """HWIO int8 -> (Co, k, k, Ci16), zero beyond Ci, and back losslessly."""
+    w = np.random.default_rng(ci + k).integers(-127, 128, (k, k, ci, 24), dtype=np.int8)
+    packed = pack_weight(torch.from_numpy(w))
+    ci16 = padded_channels(ci)
+    assert ci16 % 16 == 0 and ci <= ci16 < ci + 16
+    assert packed.dtype == torch.int8 and packed.shape == (24, k, k, ci16)
+    assert packed.is_contiguous() and not packed[..., ci:].any()
+    np.testing.assert_array_equal(packed[..., :ci].numpy(), w.transpose(3, 0, 1, 2))
+    np.testing.assert_array_equal(unpack_weight(packed, ci).numpy(), w)
+
+
 CONV_CASES = [(160, 160, 3, 1, 8), (80, 80, 3, 1, 10), (48, 80, 3, 1, 9),
               (80, 160, 3, 2, 12), (64, 48, 1, 1, 7), (3, 16, 3, 2, 11), (3, 16, 3, 1, 6)]
 
@@ -120,8 +179,8 @@ def test_plain_int8_conv_int32_matches_lax(ci, co, k, s, hw):
         jnp.asarray(xq), jnp.asarray(p["w_q"]), (s, s), [(k // 2, k // 2)] * 2,
         dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
     tp = _torch_leaf(p)
-    got = conv_s8_plain(_nchw(xq), tp["w_q"], tp["s_w"], tp["b"], s, k // 2, False,
-                        torch.int32)
+    got = conv_s8_plain(_packed(xq), tp["w_q"], tp["s_x"], tp["s_w"], tp["b"], s, k // 2,
+                        False, torch.int32)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
 
@@ -135,7 +194,8 @@ def test_plain_int8_conv_matches_pallas_interpret(ci, co, hw):
     ref = conv3x3_s8(jnp.asarray(xq), {k: jnp.asarray(v) for k, v in p.items()},
                      raw=True, interpret=True)
     tp = _torch_leaf(p)
-    got = conv_s8_plain(_nchw(xq), tp["w_q"], tp["s_w"], tp["b"], 1, 1, False, torch.int32)
+    got = conv_s8_plain(_packed(xq), tp["w_q"], tp["s_x"], tp["s_w"], tp["b"], 1, 1, False,
+                        torch.int32)
     np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
 
 
@@ -165,8 +225,8 @@ def test_epilogue_matches_jax(ci, co, k, s):
     np.testing.assert_allclose(_nhwc(raw), np.asarray(y), rtol=1e-6, atol=1e-6)
 
     qs = float(np.abs(np.asarray(ref)).max() / 127.0)
-    xq = quantize_act(_nchw(x), tp["s_x"])
-    q = conv_s8_plain(xq, tp["w_q"], tp["s_x"] * tp["s_w"], tp["b"], s, k // 2, True,
+    xq = quant_pack_s8_plain(_nchw(x), tp["s_x"], padded_channels(ci))
+    q = conv_s8_plain(xq, tp["w_q"], tp["s_x"], tp["s_w"], tp["b"], s, k // 2, True,
                       torch.int8, q_scale=qs)
     dq = np.abs(_nhwc(q).astype(np.int32)
                 - np.asarray(jax_quantize_act(ref, jnp.float32(qs)), np.int32))
@@ -178,40 +238,138 @@ def test_kernel_wrapper_on_cpu_is_plain_and_checks_shape_class():
     layout packs and unpacks losslessly; other conv shapes are refused."""
     rng = np.random.default_rng(4)
     p = _torch_leaf(_ptq_params(rng, 5, 24, 3))
-    assert p["w_q"].shape == (3, 3, 2, 24, 4)
+    assert p["w_q"].shape == (24, 3, 3, 16)
     np.testing.assert_array_equal(unpack_weight(p["w_q"], 5).numpy(),
                                   _ptq_params(np.random.default_rng(4), 5, 24, 3)["w_q"])
-    xq = torch.from_numpy(rng.integers(-127, 128, (1, 5, 7, 6), dtype=np.int8))
+    xq = _packed(rng.integers(-127, 128, (1, 7, 6, 5), dtype=np.int8))
     before = conv_s8.launches
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
-        a = conv_s8(xq, p["w_q"], p["s_w"], p["b"], 2, 1, True, dtype)
-        b = conv_s8_plain(xq, p["w_q"], p["s_w"], p["b"], 2, 1, True, dtype)
+        args = (xq, p["w_q"], p["s_x"], p["s_w"], p["b"], 2, 1, True, dtype)
+        a, b = conv_s8(*args), conv_s8_plain(*args)
         assert a.shape == (1, 24, 4, 3) and torch.equal(a, b)
+        assert torch.equal(conv_s8(*args, tile=TILES[-1]), b)  # no kernel, no tile on the CPU
     assert conv_s8.launches == before
     with pytest.raises(ValueError, match="padding"):
-        conv_s8(xq, p["w_q"], p["s_w"], p["b"], 1, 0)
+        conv_s8(xq, p["w_q"], p["s_x"], p["s_w"], p["b"], 1, 0)
     with pytest.raises(ValueError, match="stride"):
-        conv_s8(xq, p["w_q"], p["s_w"], p["b"], 3, 1)
+        conv_s8(xq, p["w_q"], p["s_x"], p["s_w"], p["b"], 3, 1)
+
+
+def _bad_conv_inputs():
+    """{name: (args of conv_s8, exception type)}, each refused by conv_s8."""
+    rng = np.random.default_rng(9)
+    p = _torch_leaf(_ptq_params(rng, 20, 16, 3))
+    xq = _packed(rng.integers(-127, 128, (2, 6, 5, 20), dtype=np.int8))
+    ok = (xq, p["w_q"], p["s_x"], p["s_w"], p["b"], 1, 1)
+
+    def but(i, v):
+        return ok[:i] + (v,) + ok[i + 1:]
+
+    return {
+        "x NCHW": (but(0, xq.permute(0, 3, 1, 2).contiguous()), ValueError),
+        "x not contiguous": (but(0, xq[:, :, :4]), ValueError),
+        "x float": (but(0, xq.float()), TypeError),
+        "x Ci not padded": (but(0, xq[..., :20].contiguous()), ValueError),
+        "w HWIO": (but(1, unpack_weight(p["w_q"], 20).contiguous()), ValueError),
+        "w Ci16 mismatch": (but(1, p["w_q"][..., :16].contiguous()), ValueError),
+        "s_x float64": (but(2, p["s_x"].double()), TypeError),
+        "s_x a vector": (but(2, p["s_x"].repeat(2)), TypeError),
+        "s_w bf16": (but(3, p["s_w"].bfloat16()), TypeError),
+        "bias short": (but(4, p["b"][:8]), ValueError),
+        "k 5": (but(1, torch.zeros((16, 5, 5, 32), dtype=torch.int8)), ValueError),
+        "float16 out": (ok + (True, torch.float16), TypeError),
+        "int8 out without q_scale": (ok + (True, torch.int8), ValueError),
+        "tile not the kernel's": (ok + (True, torch.float32, None, (32, 32)), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_conv_inputs()))
+def test_conv_wrapper_refuses_bad_inputs_on_cpu(case):
+    """conv_s8 checks layouts, shapes and dtypes before it dispatches, so the
+    CPU path refuses what the kernel would refuse, and launches nothing."""
+    args, exc = _bad_conv_inputs()[case]
+    before = conv_s8.launches
+    with pytest.raises(exc):
+        conv_s8(*args)
+    assert conv_s8.launches == before
+
+
+@pytest.mark.parametrize("case", ["float64", "int8", "H, W swapped", "ci16 short",
+                                  "ci16 ragged", "s_x float64", "3-d"])
+def test_quant_pack_wrapper_refuses_bad_inputs_on_cpu(case):
+    """quant_pack_s8 takes NCHW float32 / bf16 whose planes are row-major at
+    one pixel stride, one float32 s_x and a Ci16 that is a multiple of 16
+    and holds C."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (2, 20, 5, 6)).astype(np.float32))
+    s_x = torch.tensor(0.05)
+    args = {"float64": (x.double(), s_x, 32), "int8": (x.to(torch.int8), s_x, 32),
+            "H, W swapped": (x.transpose(2, 3), s_x, 32), "ci16 short": (x, s_x, 16),
+            "ci16 ragged": (x, s_x, 40), "s_x float64": (x, s_x.double(), 32),
+            "3-d": (x[0], s_x, 32)}[case]
+    before = quant_pack_s8.launches
+    with pytest.raises((TypeError, ValueError)):
+        quant_pack_s8(*args)
+    assert quant_pack_s8.launches == before
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
+def test_conv2d_int8_takes_float_activations_on_both_routes(dtype, use_kernel):
+    """conv2d_int8 quantizes float32 / bf16 activations; the plain route
+    (use_kernel=False) refuses other types as the kernels' wrappers do, so
+    the two routes take the same inputs."""
+    rng = np.random.default_rng(3)
+    p = _torch_leaf(_ptq_params(rng, 8, 16, 3))
+    x = torch.from_numpy(rng.normal(0, 1, (1, 8, 5, 5)).astype(np.float32))
+    assert conv2d_int8(x, p, use_kernel=use_kernel).shape == (1, 16, 5, 5)
+    with pytest.raises(TypeError, match="activations"):
+        conv2d_int8(x.to(dtype), p, use_kernel=use_kernel)
+
+
+@pytest.mark.parametrize("m,co,tile", [(51200, 320, (128, 160)), (12800, 640, (128, 160)),
+                                       (204800, 80, (128, 80)), (6400, 320, (128, 80)),
+                                       (3200, 640, (128, 80)), (6400, 160, (64, 80)),
+                                       (400, 320, (64, 80)), (1600, 80, (64, 80)),
+                                       (16900, 160, (128, 160))])
+def test_conv_tile_choice(m, co, tile):
+    """The first of 128x160, 128x80, 64x160, 64x80 (BN 160 only where Co is
+    a multiple of 160) whose grid has a block for each of an H100's 132
+    SMs; 64x80 where none has."""
+    assert conv_tile(m, co, 132) == tile
+
+
+EDGE_CASES = CONV_CASES + [(640, 320, 3, 1, 20), (400, 80, 3, 1, 9), (320, 320, 3, 1, 20),
+                           (160, 320, 3, 2, 21), (2560, 640, 1, 1, 5)]
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """conv_s8 against its plain version on the card: int32 sums identical,
-    float32 / bf16 / int8 epilogues identical (the kernel repeats the plain
-    version's operations without FMA contraction)."""
+    """conv_s8 and quant_pack_s8 against their plain versions on the card:
+    int32 sums identical, float32 / bf16 / int8 epilogues identical (the
+    kernel repeats the plain version's operations without FMA contraction),
+    the packed activations identical, the int32 sums with every block tile.
+    The cases add Ci 400 (a multiple of 16,
+    not of 32), Co 80 against the 160-wide tile, a batch-1 20x20 map (M below
+    the 128-row tile) and stride 2 on an odd H."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
     rng = np.random.default_rng(0)
-    for ci, co, k, s, hw in CONV_CASES + [(640, 320, 3, 1, 20)]:
+    for ci, co, k, s, hw in EDGE_CASES:
         p = {key: v.cuda() for key, v in _torch_leaf(_ptq_params(rng, ci, co, k)).items()}
-        xq = torch.from_numpy(rng.integers(-127, 128, (3, ci, hw, hw + 3),
-                                           dtype=np.int8)).cuda()
-        scale = p["s_x"] * p["s_w"]
+        batch = 1 if (ci, hw) == (320, 20) else 3
+        x = torch.from_numpy(rng.normal(0, 3, (batch, ci, hw, hw + 3)).astype(np.float32)).cuda()
+        for xt in (x, x.to(torch.bfloat16)):
+            args = (xt, p["s_x"], padded_channels(ci))
+            xq = quant_pack_s8(*args)
+            assert torch.equal(xq, quant_pack_s8_plain(*args)), (ci, xt.dtype)
         for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int8):
-            args = (xq, p["w_q"], scale, p["b"], s, k // 2, True, dtype, 0.05)
+            args = (xq, p["w_q"], p["s_x"], p["s_w"], p["b"], s, k // 2, True, dtype, 0.05)
             a, b = conv_s8(*args), conv_s8_plain(*args)
             torch.cuda.synchronize()
             assert torch.equal(a, b), (ci, co, k, s, dtype)
+        raw = (xq, p["w_q"], p["s_x"], p["s_w"], p["b"], s, k // 2, True, torch.int32)
+        for tile in TILES:  # each block tile of the kernel, whichever conv_tile picks
+            assert torch.equal(conv_s8(*raw, tile=tile), conv_s8_plain(*raw)), (ci, co, tile)
 
 
 # ------------------------------------------------------- the slice as a whole
