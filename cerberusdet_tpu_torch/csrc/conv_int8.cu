@@ -1,7 +1,8 @@
 // int8 convolution for Hopper (sm_90a), two kernels a quantized Conv:
 //
 //   quant_pack_s8   NCHW float32 / bfloat16 activations -> NHWC int8 with the
-//                   channels zero-padded to Ci16 = ceil(Ci / 16) * 16;
+//                   channels zero-padded to Ci16 = ceil(Ci / 16) * 16; int8
+//                   activations, already quantized, are packed unscaled;
 //   conv_s8         the implicit-GEMM conv on the int8 tensor cores, s8 x s8
 //                   summed in int32, then a float32 epilogue, NCHW out.
 //
@@ -24,6 +25,7 @@
 // Arithmetic, in the plain versions' order:
 //   quant:  q = clip(rint(x * inv), -127, 127), inv = 1 / s_x rounded to
 //           float32 (the port's 1.0 / s_x and JAX's float32 reciprocal);
+//           q = x for int8 x (JAX's quantize_act passes int8 through);
 //   conv:   acc = sum over (dy, dx, ci) of xq * w, exact in int32 (|acc| <=
 //           9 * Ci * 127^2 < 2^31 for Ci < 14,000), so any order gives it;
 //           raw:  out = acc;
@@ -83,10 +85,14 @@ constexpr int kQC = 64;            // channels a block
 constexpr int kQThreads = 256;
 constexpr int kQRow = kQC + 4;     // bytes of a pixel's row in shared memory
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ int8_t quant(const float* p, float inv) {
+  return to_s8(__fmul_rn(*p, inv));
 }
+__device__ __forceinline__ int8_t quant(const __nv_bfloat16* p, float inv) {
+  return to_s8(__fmul_rn(__bfloat162float(*p), inv));
+}
+// int8 input is already quantized (with this s_x): copied, not rescaled
+__device__ __forceinline__ int8_t quant(const int8_t* p, float) { return *p; }
 
 template <typename T>
 __global__ void __launch_bounds__(kQThreads)
@@ -106,7 +112,7 @@ quant_pack_s8_kernel(const T* __restrict__ x, const float* __restrict__ s_x, int
   for (int i = tid / kQP; i < kQC; i += kQThreads / kQP) {
     const int c = c0 + i;
     int8_t q = 0;
-    if (p < HW && c < C) q = to_s8(__fmul_rn(load_f32(x + b * sb + c * sc + p * sp), inv));
+    if (p < HW && c < C) q = quant(x + b * sb + c * sc + p * sp, inv);
     tile[lp * kQRow + i] = q;
   }
   __syncthreads();
@@ -443,7 +449,8 @@ int launch_conv(const int8_t* x, const int8_t* w, const float* s_x, const float*
 
 extern "C" {
 
-// x (B, C, H, W) of float32 (dtype 0) or bfloat16 (dtype 1) with images sb,
+// x (B, C, H, W) of float32 (dtype 0), bfloat16 (dtype 1) or int8 (dtype 2,
+// already quantized: copied unscaled) with images sb,
 // channels sc and the pixels of an (H, W) plane sp elements apart (sp 1 for
 // NCHW, C for a channels-last view); s_x a float32
 // scalar on the card; out (B, H, W, C16) int8 with C16 a multiple of 16 and
@@ -463,6 +470,9 @@ int cerberus_quant_pack_s8(const void* x, int dtype, const float* s_x, int B, in
   } else if (dtype == 1) {
     quant_pack_s8_kernel<__nv_bfloat16><<<grid, kQThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), s_x, C, HW, sb, sc, sp, C16, out);
+  } else if (dtype == 2) {
+    quant_pack_s8_kernel<int8_t><<<grid, kQThreads, 0, s>>>(
+        static_cast<const int8_t*>(x), s_x, C, HW, sb, sc, sp, C16, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

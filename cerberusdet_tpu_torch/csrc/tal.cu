@@ -21,24 +21,31 @@
 //               gives the winner, and only the winner's owner rescans. It
 //               writes sel (B, M, k): the anchor index where the anchor is
 //               inside the gt, else -1.
-//   tal_assign  one thread per (image, anchor), a block per 256 anchors of an
-//               image. The block gathers the sel entries that fall in its
-//               anchor range into shared-memory counters (atomicAdd for the
-//               count, atomicMin for the first positive gt: both exact in
-//               any order). Per anchor: no positive -> gt 0, background; one
-//               -> that gt; several -> the first-occurrence argmax of the
-//               clipped CIoU over ALL M rows, valid or not (the plain
-//               select_highest_overlaps). It writes the gt index, fg, the
-//               clipped label and the gt box, keeps align at its gt, and
-//               folds align and CIoU into the gt's maxima pos (B, M, 2) with
-//               atomicMax on the int bits (exact: the values are >= +0).
+//   tal_assign  a block per 256 anchors of an image. The block gathers the
+//               sel entries that fall in its anchor range into shared-memory
+//               counters (atomicAdd for the count, atomicMin for the first
+//               positive gt: both exact in any order). Phase 1, a thread per
+//               anchor: no positive -> gt 0, background; one -> that gt;
+//               several -> listed in shared memory. Phase 2, a warp per
+//               listed anchor: the first-occurrence argmax of the clipped
+//               CIoU over ALL M rows, valid or not (the plain
+//               select_highest_overlaps), the lanes taking rows m = lane,
+//               lane + 32, ... and a (value desc, index asc) shuffle joining
+//               them. A lone thread scanning all M rows for such an anchor
+//               made its 31 neighbours wait, and the flagship's large,
+//               overlapping gt boxes make such anchors common. Either phase
+//               writes the gt index, fg, the clipped label and the gt box,
+//               keeps align at its gt, and folds align and CIoU into the
+//               gt's maxima pos (B, M, 2) with atomicMax on the int bits
+//               (exact: the values are >= +0).
 //   tal_norm    one thread per (image, anchor, class): target_scores =
 //               (fg and class == label) ? align * pos_ov / (pos_align + eps) : 0.
 //
 // What bounds it on this card: neither bytes nor operations. At the flagship
 // shapes (B 8, M 300 with 40 valid, N 8400) the work is ~2.7 M (gt, anchor)
-// pairs, ~0.2 G fp32 operations, and ~12 MB in and out; the three launches
-// and the k dependent block reductions of tal_select set the time.
+// pairs, ~0.2 G fp32 operations, and ~12 MB in and out; the three launches,
+// the k dependent block reductions of tal_select and the M-row argmax of
+// each multiply claimed anchor in tal_assign set the time.
 //
 // Exactness: the CIoU follows the plain version's operation order,
 // arctan(w / (h + eps)) arrives precomputed per box, every operation is an
@@ -183,6 +190,34 @@ tal_select_kernel(const float* __restrict__ scores, const float4* __restrict__ p
   }
 }
 
+// The outputs of anchor a (flat over B x N) resolved to gt t of its image:
+// the gt index, fg, the clipped label and the gt box; for a positive anchor
+// align at t, folded with the CIoU ov into t's maxima pos (atomicMax on the
+// int bits, exact: the values are >= +0).
+__device__ __forceinline__ void write_target(size_t a, int t, bool fg, float ov,
+                                             const float* __restrict__ scores, int nc,
+                                             int beta, const float4* s_box,
+                                             const int* s_label, size_t gb,
+                                             int64_t* __restrict__ tgt_out,
+                                             uint8_t* __restrict__ fg_out,
+                                             int64_t* __restrict__ label_out,
+                                             float4* __restrict__ box_out,
+                                             float* __restrict__ align_out,
+                                             float* __restrict__ pos) {
+  const int label = s_label[t];
+  tgt_out[a] = t;
+  fg_out[a] = fg;
+  label_out[a] = label;
+  box_out[a] = s_box[t];
+  float al = 0.f;
+  if (fg) {
+    al = align_metric(scores[a * nc + label], ov, beta);
+    atomicMax(reinterpret_cast<int*>(pos) + (gb + t) * 2, __float_as_int(al));
+    atomicMax(reinterpret_cast<int*>(pos) + (gb + t) * 2 + 1, __float_as_int(ov));
+  }
+  align_out[a] = al;
+}
+
 // ---------------------------------------------------------------- tal_assign
 __global__ void __launch_bounds__(kThreads)
 tal_assign_kernel(const float* __restrict__ scores, const float4* __restrict__ pd_boxes,
@@ -198,12 +233,15 @@ tal_assign_kernel(const float* __restrict__ scores, const float4* __restrict__ p
   int* s_label = reinterpret_cast<int*>(s_at + M);          // M
   __shared__ int s_count[kThreads];
   __shared__ int s_first[kThreads];
+  __shared__ int s_multi[kThreads];  // the block's anchors that several gts claim
+  __shared__ int s_n_multi;
 
   const int b = blockIdx.y, tid = threadIdx.x;
   const int n0 = blockIdx.x * kThreads;
   const size_t gb = (size_t)b * M;
   s_count[tid] = 0;
   s_first[tid] = 0x7fffffff;
+  if (tid == 0) s_n_multi = 0;
   for (int m = tid; m < M; m += kThreads) {
     s_box[m] = gt_boxes[gb + m];
     s_at[m] = at_gt[gb + m];
@@ -220,36 +258,43 @@ tal_assign_kernel(const float* __restrict__ scores, const float4* __restrict__ p
   }
   __syncthreads();
 
+  // phase 1: each thread resolves its own anchor when at most one gt claims
+  // it, and lists it for phase 2 when several do
   const int n = n0 + tid;
-  if (n >= N) return;
-  const size_t a = (size_t)b * N + n;
-  const int count = s_count[tid];
-  const float4 p = pd_boxes[a];
-  const float atp = at_pd[a];
-  int t = 0;
-  float ov = 0.f;
-  if (count == 1) {
-    t = min(s_first[tid], M - 1);
-    ov = ciou_clip(s_box[t], p, s_at[t], atp);
-  } else if (count > 1) {
-    ov = __int_as_float(0xff800000);
-    for (int m = 0; m < M; ++m) {
+  const int count = n < N ? s_count[tid] : 0;
+  if (count > 1) s_multi[atomicAdd(&s_n_multi, 1)] = tid;
+  if (n < N && count <= 1) {
+    const size_t a = (size_t)b * N + n;
+    int t = 0;
+    float ov = 0.f;
+    if (count == 1) {
+      t = min(s_first[tid], M - 1);
+      ov = ciou_clip(s_box[t], pd_boxes[a], s_at[t], at_pd[a]);
+    }
+    write_target(a, t, count == 1, ov, scores, nc, beta, s_box, s_label, gb, tgt_out, fg_out,
+                 label_out, box_out, align_out, pos);
+  }
+  __syncthreads();
+
+  // phase 2: a warp per listed anchor; the lanes split the M rows, each keeps
+  // its first maximum in index order, and a (value desc, index asc) shuffle
+  // gives the first-occurrence argmax over all M rows, as a scan in order would
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int j = warp; j < s_n_multi; j += kWarps) {
+    const size_t a = (size_t)b * N + n0 + s_multi[j];
+    const float4 p = pd_boxes[a];
+    const float atp = at_pd[a];
+    float ov = __int_as_float(0xff800000);  // -inf
+    int t = M;
+    for (int m = lane; m < M; m += 32) {
       const float o = ciou_clip(s_box[m], p, s_at[m], atp);
       if (o > ov) { ov = o; t = m; }
     }
+    warp_best(ov, t);
+    if (lane == 0)
+      write_target(a, t, true, ov, scores, nc, beta, s_box, s_label, gb, tgt_out, fg_out,
+                   label_out, box_out, align_out, pos);
   }
-  const int label = s_label[t];
-  tgt_out[a] = t;
-  fg_out[a] = count > 0;
-  label_out[a] = label;
-  box_out[a] = s_box[t];
-  float al = 0.f;
-  if (count > 0) {
-    al = align_metric(scores[a * nc + label], ov, beta);
-    atomicMax(reinterpret_cast<int*>(pos) + (gb + t) * 2, __float_as_int(al));
-    atomicMax(reinterpret_cast<int*>(pos) + (gb + t) * 2 + 1, __float_as_int(ov));
-  }
-  align_out[a] = al;
 }
 
 // ------------------------------------------------------------------ tal_norm

@@ -50,8 +50,17 @@ class CerberusDetInference:
     `dtype`) with `params` = None (the model's own weights) or a JAX-layout
     parameter tree of arrays (manager/weights.py); or from `weights`, a
     `.ckpt.npz` written by either package. `device` None means the card.
-    `dtype` is bfloat16 by default (the JAX package's half=True), or float32
-    or float64; the decode and NMS run in float32 as in the JAX package.
+    The compute dtype is bfloat16 with `half` (the default) and float32
+    without, as in the JAX package; `dtype` (bfloat16, float32 or float64)
+    overrides `half` when given. The decode and NMS run in float32 as in the
+    JAX package.
+
+    warmup_batch=n runs one `predict` on zeros of batch n at `img_size` at
+    construction, which builds the kernels and lets cuDNN choose its
+    algorithms before the first request. With warmup_batch None there is no
+    warm-up: that is the one difference from the JAX package, which always
+    warms up (at batch 1 by default) because its warm-up compiles the
+    program; here a forward on the CPU at 640 px would cost seconds.
 
     int8: "off" | "deep" | "all", post-training quantization of the fused
     Convs (quant/ptq.py): "all" every Conv, "deep" those with at least 256
@@ -67,9 +76,12 @@ class CerberusDetInference:
                  names: Optional[Dict[str, Sequence[str]]] = None,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  iou_thres_between_tasks: float = 0.8, img_size: int = 640,
-                 max_det: int = 300, dtype: torch.dtype = torch.bfloat16, device=None,
-                 int8: str = "off", calib_batches=None):
+                 half: bool = True, max_det: int = 300,
+                 dtype: Optional[torch.dtype] = None, device=None, int8: str = "off",
+                 calib_batches=None, warmup_batch: Optional[int] = None):
         self.device = resolve_device(device)
+        if dtype is None:
+            dtype = torch.bfloat16 if half else torch.float32
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         if int8 not in ("off", "deep", "all"):
@@ -119,6 +131,8 @@ class CerberusDetInference:
         self.stride = int(max(model.strides))
         self.categories_map, self.all_class_names = build_category_map(self.names)
         self.task_order = list(self.names.keys())
+        if warmup_batch is not None:
+            self.predict(np.zeros((warmup_batch, img_size, img_size, 3), np.float32))
 
     @torch.no_grad()
     def predict_device(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,

@@ -42,10 +42,14 @@ class Conv(nn.Module):
     The int8 form holds buffers `w_q` (int8, the kernel's layout,
     ops/conv_int8_cuda.py:pack_weight) and `s_w` (Co,), `s_x` () and `b`
     (Co,) in float32, which stay float32 when the module is cast (`_apply`),
-    as the JAX package keeps its params. `use_kernel` is handed to
+    as the JAX package keeps its params, and `compute_like`, an empty tensor
+    whose dtype follows the casts: the compute dtype. It takes an int8 input as
+    already quantized and returns the compute dtype, as the JAX package's
+    Conv returns ctx.dtype. `use_kernel` is handed to
     conv2d_int8 (None: the kernel on the card; False: the plain version).
-    While `tap` is a dict, the forward records max |x| of its input there
-    under `tap_key` (PTQ calibration, quant/ptq.py:calibrate_amax)."""
+    While `tap` is a dict, the forward records max |x| of a float input
+    there under `tap_key` (PTQ calibration, quant/ptq.py:calibrate_amax);
+    an int8 input is already quantized and is not recorded."""
 
     INT8_F32 = ("s_w", "s_x", "b")
     use_kernel = None
@@ -71,14 +75,16 @@ class Conv(nn.Module):
         return "w_q" in self._buffers
 
     def forward(self, x):
-        """The compute dtype is x's: the weight is cast to it and the output
-        cast back to it (float32 master weights in training; a no-op on a
-        model cast as a whole, as for serving)."""
-        if self.tap is not None:
+        """The compute dtype is a float x's: the weight is cast to it and the
+        output cast back to it (float32 master weights in training; a no-op
+        on a model cast as a whole, as for serving). An int8 x (int8 form
+        only) carries none: the output takes `compute_like`'s."""
+        if self.tap is not None and x.dtype != torch.int8:
             self.tap[self.tap_key] = x.float().abs().max()
         if self.int8:
+            out_dtype = self.compute_like.dtype if x.dtype == torch.int8 else x.dtype
             return conv2d_int8(x, self._buffers, self.s, self.p, act=self.act,
-                               out_dtype=x.dtype, use_kernel=self.use_kernel)
+                               out_dtype=out_dtype, use_kernel=self.use_kernel)
         bn = getattr(self, "bn", None)
         if bn is None:
             y = F.conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
@@ -104,7 +110,7 @@ class Conv(nn.Module):
             return
         if hasattr(self, "bn") or self.g != 1 or self.d != 1:
             raise ValueError("only a fused Conv with groups 1 and dilation 1 has an int8 form")
-        dev = self.w.device
+        dev, dtype = self.w.device, self.w.dtype
         kh, kw = self.k
         del self.w, self.b
         self.register_buffer("w_q", torch.zeros((self.c2, kh, kw, padded_channels(self.c1)),
@@ -112,6 +118,8 @@ class Conv(nn.Module):
         self.register_buffer("s_w", torch.zeros(self.c2, device=dev))
         self.register_buffer("s_x", torch.zeros((), device=dev))
         self.register_buffer("b", torch.zeros(self.c2, device=dev))
+        self.register_buffer("compute_like", torch.empty(0, dtype=dtype, device=dev),
+                             persistent=False)
 
     def _apply(self, fn, recurse=True):
         """Casts leave the int8 form's float32 buffers float32: they go

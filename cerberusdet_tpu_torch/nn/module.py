@@ -148,14 +148,16 @@ def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
                 out_dtype: torch.dtype = torch.float32,
                 use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Quantized inference conv, NCHW in and out: x quantized per tensor
-    with p["s_x"] (quantize_act's arithmetic) and packed NHWC int8, the int32
-    sums of the int8 conv against p["w_q"] (pack_weight's layout), then
-    float32 acc * (s_x * s_w) + b. With the defaults that float32 is the
-    result (the JAX package's conv2d_int8); act applies SiLU to it in float32
-    and out_dtype casts it, which the kernel does in its epilogue.
+    with p["s_x"] (quantize_act's arithmetic; int8 x is taken as already
+    quantized, as the JAX package's conv2d_int8 takes it) and packed NHWC
+    int8, the int32 sums of the int8 conv against p["w_q"] (pack_weight's
+    layout), then float32 acc * (s_x * s_w) + b. With the defaults that
+    float32 is the result (the JAX package's conv2d_int8); act applies SiLU
+    to it in float32 and out_dtype casts it, which the kernel does in its
+    epilogue.
 
     p: {"w_q" int8 (Co, k, k, Ci16), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,) f32};
-    x float32 or bfloat16. use_kernel: None goes through
+    x float32, bfloat16 or int8. use_kernel: None goes through
     ops/conv_int8_cuda.py:quant_pack_s8 and conv_s8, two CUDA kernels for a
     tensor on the card and their plain versions on the CPU; False forces the
     plain versions (a test hook)."""

@@ -5,7 +5,9 @@ A quantized Conv on the card is two launches (csrc/conv_int8.cu):
 - `quant_pack_s8` quantizes the NCHW float32 / bfloat16 activations per
   tensor (clip(rint(x * (1 / s_x)), -127, 127), as nn/module.py's and the
   JAX package's quantize_act) and writes them NHWC int8 with the
-  channels zero-padded to Ci16 = ceil(Ci / 16) * 16. It is bound by bytes; a
+  channels zero-padded to Ci16 = ceil(Ci / 16) * 16. int8 activations are
+  already quantized (quantize_act passes them through): they are packed
+  unscaled. It is bound by bytes; a
   shared-memory transpose tile keeps the read along W and the write along C
   coalesced.
 - `conv_s8` replaces cerberusdet_tpu/ops/conv_int8_pallas.py:_conv_kernel and
@@ -44,8 +46,8 @@ SOURCE = cuda_build.CSRC / "conv_int8.cu"
 
 # output type -> the kernel's mode (int32 is the raw sums, no epilogue)
 _MODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
-# activation type -> quant_pack_s8's dtype code
-_ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# activation type -> quant_pack_s8's dtype code (int8: already quantized)
+_ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the conv kernel's block tiles (BM, BN), in the order conv_tile prefers them
 TILES = ((128, 160), (128, 80), (64, 160), (64, 80))
 
@@ -121,13 +123,16 @@ def _one_device(what: str, *tensors: torch.Tensor) -> bool:
 def quant_pack_s8_plain(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor:
     """The quant_pack_s8 kernel's function in PyTorch ops; the plain version.
 
-    x (B, C, H, W) float32 or bfloat16; returns (B, H, W, ci16) int8, zero
-    beyond C: clip(round(x * (1 / s_x)), -127, 127) with the reciprocal in
-    float32 and round half to even (nn/module.py:quantize_act's codes),
-    channels last."""
+    x (B, C, H, W) float32, bfloat16 or int8; returns (B, H, W, ci16) int8,
+    zero beyond C: clip(round(x * (1 / s_x)), -127, 127) with the reciprocal
+    in float32 and round half to even (nn/module.py:quantize_act's codes),
+    channels last. int8 x is already quantized and is packed as it is."""
     _check_act_dtype(x, "quant_pack_s8_plain")
-    inv_sx = 1.0 / s_x.reshape(())
-    q = torch.clamp(torch.round(x.float() * inv_sx), -127.0, 127.0).to(torch.int8)
+    if x.dtype == torch.int8:
+        q = x
+    else:
+        inv_sx = 1.0 / s_x.reshape(())
+        q = torch.clamp(torch.round(x.float() * inv_sx), -127.0, 127.0).to(torch.int8)
     return F.pad(q.permute(0, 2, 3, 1), (0, ci16 - x.shape[1])).contiguous()
 
 
@@ -136,7 +141,8 @@ _QP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int
 
 
 def quant_pack_s8(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor:
-    """x (B, C, H, W) float32 or bfloat16 -> (B, H, W, ci16) int8 through
+    """x (B, C, H, W) float32, bfloat16 or int8 (already quantized, packed
+    unscaled) -> (B, H, W, ci16) int8 through
     the CUDA kernel for tensors on the card; `quant_pack_s8_plain` for
     tensors on the CPU. The pixels of each (H, W) plane of x must lie at one
     stride in row-major order, as in a contiguous NCHW tensor, a channel

@@ -1,14 +1,17 @@
 """Batched greedy NMS: the plain PyTorch loop and its CUDA kernel for Hopper.
 
 The kernel (csrc/nms.cu) replaces cerberusdet_tpu/ops/nms_pallas.py:_nms_kernel.
-On this card it is bound by the chain of max_det dependent steps, not by
-bytes: each step is a block-wide argmax and a suppression pass, and the
-candidates (K * 20 B an image) come from L2 on every step. Its design: one
-thread block per image, the live scores in shared memory, a warp-shuffle
-argmax with lowest-index ties, a suppression pass that skips candidates
-already at 0, and an early end once every live score is 0. The IoU follows
-the plain loop's operation order with FMA contraction off, so both select
-the same indices bit for bit.
+On this card it is bound by the chain of max_det dependent steps and, within
+a step, by the IoU test of every live candidate against the pick, not by
+bytes. Its design: one thread block per image; the positive candidates
+compacted into shared memory (boxes, scores, indices), so a step touches
+only shared memory; one pass a step that suppresses and finds the next pick
+at once, with one barrier; the survivors re-compacted as they thin out;
+scores <= 0 handled after the positive picks run out, as the plain loop
+handles them. Candidates beyond the shared memory's 10240 slots continue in
+a scratch buffer in global memory that the wrapper allocates. The IoU
+follows the plain loop's operation order with FMA contraction off, so both
+select the same indices bit for bit.
 
 The kernel is built with nvcc from the package's sources at first use, into
 cerberusdet_tpu_torch/build/, as a shared library with a plain C interface
@@ -26,7 +29,7 @@ import torch
 from cerberusdet_tpu_torch.ops import cuda_build
 from cerberusdet_tpu_torch.ops.boxes import box_area
 
-MAX_K = 16384  # live scores in shared memory: 16384 * 4 B = 64 KB
+MAX_K = 16384  # original indices are 16-bit in the kernel's slots
 
 SOURCE = cuda_build.CSRC / "nms.cu"
 
@@ -68,7 +71,7 @@ def build(verbose: bool = False):
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def greedy_nms_cuda(boxes, scores, iou_thres: float, max_det: int):
@@ -94,14 +97,17 @@ def greedy_nms_cuda(boxes, scores, iou_thres: float, max_det: int):
     if not (boxes.is_contiguous() and scores.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("NMS kernel needs contiguous inputs and 16-byte aligned boxes")
     fn = cuda_build.load(SOURCE, "cerberus_nms_f32", _ARGTYPES)
+    scratch_bytes = cuda_build.load(SOURCE, "cerberus_nms_scratch_bytes", [ctypes.c_int])(k)
     idx = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
     if b == 0:
         return idx, valid
+    # the candidates beyond the kernel's shared-memory slots (K > 10240)
+    scratch = torch.empty(b * scratch_bytes, dtype=torch.uint8, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(boxes.data_ptr(), scores.data_ptr(), b, k, max_det, float(iou_thres),
-                 idx.data_ptr(), valid.data_ptr(), stream)
+                 scratch.data_ptr(), idx.data_ptr(), valid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: CUDA error {err}")
     greedy_nms_cuda.launches += 1

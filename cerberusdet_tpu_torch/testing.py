@@ -7,21 +7,34 @@ from __future__ import annotations
 import numpy as np
 
 
-def random_candidates(B: int, K: int, seed: int = 0, zeros_from=None, classes: int = 0):
-    """Random xyxy boxes (B, K, 4) and scores (B, K) in float32. Scores are
-    rounded to 2 decimals (many exact ties); scores from `zeros_from` on are
-    0 (invalid). With `classes`, boxes are offset by cls * 4096 as
+def random_candidates(B: int, K: int, seed: int = 0, zeros_from=None, classes: int = 0,
+                      low: float = 0.0, size=(10, 80)):
+    """Random xyxy boxes (B, K, 4), side lengths uniform in `size`, and
+    scores (B, K) in float32. Scores are uniform in [low, 1) rounded to 2
+    decimals (many exact ties; with low < 0 some negative and some -0.0);
+    scores from `zeros_from` on are min(score, 0): 0, or negative where low
+    < 0 drew them so. With `classes`, boxes are offset by cls * 4096 as
     ops/nms.py does for class-aware NMS."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(50, 600, (B, K, 2))
-    wh = rng.uniform(10, 80, (B, K, 2))
+    wh = rng.uniform(*size, (B, K, 2))
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1)
     if classes:
         boxes = boxes + rng.integers(0, classes, (B, K, 1)) * 4096.0
-    scores = np.round(rng.uniform(0, 1, (B, K)), 2)
+    scores = np.round(rng.uniform(low, 1, (B, K)), 2)
     if zeros_from is not None:
-        scores[:, zeros_from:] = 0.0
+        scores[:, zeros_from:] = np.minimum(scores[:, zeros_from:], 0.0)
     return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def duplicate_candidates(B: int, K: int, seed: int = 0):
+    """random_candidates in which every box appears three times, at scattered
+    indices, with one score for its copies: the lowest-index copy must win
+    and suppress the others."""
+    boxes, scores = random_candidates(B, -(-K // 3), seed)
+    order = np.random.default_rng(seed + 1).permutation(3 * boxes.shape[1])[:K]
+    src = order % boxes.shape[1]
+    return np.ascontiguousarray(boxes[:, src]), np.ascontiguousarray(scores[:, src])
 
 
 def _iou_f32(a, b):
@@ -99,6 +112,30 @@ def tal_scene(seed: int, B: int = 2, N: int = 256, NC: int = 7, M: int = 12,
             gt_bboxes[b, m] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
             gt_labels[b, m] = rng.integers(0, NC)
             mask_gt[b, m] = True
+    return pd_scores, pd_bboxes, anc, gt_labels, gt_bboxes, mask_gt
+
+
+def crowded_tal_scene(seed: int, B: int = 2, NC: int = 7, M: int = 72):
+    """A TAL input whose anchors are mostly claimed by several gts: one block
+    of the kernel's anchors (a 16 x 16 grid of stride 4, N = 256) under M -
+    8 valid gts of side 12-20 spread over the field, with predicted boxes of
+    that size around each anchor, so that each gt's top-10 is the anchors
+    around it and neighbouring gts share them. The last 8 rows are invalid.
+    Returns the arrays of tal_scene."""
+    rng = np.random.default_rng(seed)
+    g = (np.arange(16, dtype=np.float32) + 0.5) * 4
+    gy, gx = np.meshgrid(g, g, indexing="ij")
+    anc = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    N = anc.shape[0]
+    pd_scores = rng.uniform(0, 1, (B, N, NC)).astype(np.float32)
+    wh = rng.uniform(12, 20, (B, N, 2))
+    ctr = anc[None] + rng.uniform(-2, 2, (B, N, 2))
+    pd_bboxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    c = rng.uniform(4, 60, (B, M, 2))
+    s = rng.uniform(12, 20, (B, M, 2))
+    gt_bboxes = np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+    gt_labels = rng.integers(0, NC, (B, M)).astype(np.int64)
+    mask_gt = np.arange(M)[None].repeat(B, 0) < M - 8
     return pd_scores, pd_bboxes, anc, gt_labels, gt_bboxes, mask_gt
 
 

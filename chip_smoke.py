@@ -8,7 +8,9 @@ Phases, each of which fails the run on anything wrong:
   1. build every kernel of the port from the sources in the checkout (one
      nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, and
-     time both (the int8 kernels in 3b): the NMS kernel (identical selections) and the three TAL
+     time both (the int8 kernels in 3b): the NMS kernel (identical
+     selections; K 8400 and 16384, IoUs within an ulp of the threshold,
+     negative scores, one image, duplicate boxes) and the three TAL
      assigner kernels, stage by stage (identical integer and bool outputs,
      scores within rtol 1e-5, atol 1e-6) on the scenes of the CPU tests
      and on the flagship train shapes;
@@ -16,13 +18,14 @@ Phases, each of which fails the run on anything wrong:
      nc 20/19) at 640 px in bfloat16 with seeded random weights, through
      CerberusPreprocessor and CerberusDetInference.predict at batch 1 and 8:
      every NMS launch is counted, and the results equal those of the same
-     batch with the plain NMS loop on the card;
+     batches (1 and 8) with the plain NMS loop on the card;
   3b. serve the same model in int8 (int8="all", noise calibration): the
      conv kernel's SASS must hold int8 tensor-core instructions (cuobjdump);
      the two int8 kernels against their plain versions at every distinct
      quantized conv shape of a batch-8 request (quant_pack_s8 on the
-     request's conv inputs in bf16 and float32; conv_s8 in raw int32 and the
-     float32 / bf16 / int8 epilogues, and at edge cases), all identical;
+     request's conv inputs in bf16, float32 and int8; conv_s8 in raw int32
+     and the float32 / bf16 / int8 epilogues, and at edge cases), all
+     identical;
      3 + 3 requests with one launch of each kernel per quantized Conv and
      request, identical results with the plain int8 path and NMS, agreement
      with bf16, and timings (torch._int_mm as the yardstick of a 1x1 conv);
@@ -375,6 +378,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
 
     from cerberusdet_tpu_torch.infer import CerberusDetInference
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn.module import quantize_act
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
     from cerberusdet_tpu_torch.quant import conv_layers
 
@@ -421,13 +425,14 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     for key in sorted(cases):
         mod, x = cases[key]
         ci16 = mod.w_q.shape[3]
-        for xt in (x, x.float()):
+        for xt in (x, x.float(), quantize_act(x, mod.s_x)):
             pack_err = max(pack_err, quant_pack_compare(xt, mod.s_x, ci16))
         xq = conv_int8_cuda.quant_pack_s8_plain(x, mod.s_x, ci16)
         err = conv_s8_compare(xq, mod.w_q, mod.s_x, mod.s_w, mod.b, mod.s[0], True)
         max_err = max(max_err, err)
     log(f"[quant_pack_s8 vs plain] the inputs of the {len(cases)} distinct quantized convs of "
-        f"a batch-8 request (Ci 3 included), in bf16 and in float32: identical")
+        f"a batch-8 request (Ci 3 included), in bf16, in float32 and already quantized to "
+        f"int8 (packed unscaled): identical")
     log(f"[conv_s8 vs plain] {len(cases)} distinct (Ci, Co, k, s, H, W) of the flagship's "
         f"quantized convs at batch 8, on a request's activations, in int32 / float32 / "
         f"bf16 / int8: identical (max |diff| {max_err})")
@@ -662,6 +667,8 @@ def main() -> int:
     )
     from cerberusdet_tpu_torch.testing import (
         boundary_candidates,
+        crowded_tal_scene,
+        duplicate_candidates,
         random_candidates,
         tal_scene,
         tied_tal_scene,
@@ -696,6 +703,19 @@ def main() -> int:
         ("K16384 thr0.7 zero-tail", random_candidates(8, 16384, seed=4, zeros_from=9000), 0.7),
         ("boundary thr0.45", boundary_candidates(0.45, n=16)[:2], 0.45),
         ("boundary thr0.7", boundary_candidates(0.7, n=16)[:2], 0.7),
+        ("K8400 thr0.45 negative scores", random_candidates(
+            8, 8400, seed=5, low=-0.5, classes=20), 0.45),
+        ("K2000 thr0.45 100 positives among negatives (the kernel's tail loop)",
+         random_candidates(8, 2000, seed=6, zeros_from=100, low=-0.5, size=(40, 200)), 0.45),
+        ("K8400 thr0.45 all positive", random_candidates(8, 8400, seed=7, low=0.01,
+                                                         classes=20), 0.45),
+        ("B1 K8400 thr0.45", random_candidates(1, 8400, seed=8, classes=20), 0.45),
+        ("K16384 thr0.7 all positive (slots beyond shared memory)",
+         random_candidates(8, 16384, seed=9, low=0.01), 0.7),
+        ("K16384 thr0.45 all positive, large boxes (survivors back into shared memory)",
+         random_candidates(8, 16384, seed=10, low=0.01, size=(150, 400)), 0.45),
+        ("K8400 thr0.45 duplicates with tied scores", duplicate_candidates(8, 8400, seed=11),
+         0.45),
     ]
     max_err = 0
     for name, (boxes, scores), thr in cases:
@@ -719,6 +739,7 @@ def main() -> int:
         ("M40", tal_scene(7, M=40, N=384), 7),
         ("tied zeros", tied_tal_scene(0), 5),
         ("tied zeros B3 M16", tied_tal_scene(1, B=3, M=16), 5),
+        ("crowded: most anchors claimed by several gts", crowded_tal_scene(0), 7),
     ]
     tal_err = {"tal_select": 0, "tal_assign": 0.0, "tal_norm": 0.0}
     for name, scene, nc in tal_cases:
@@ -782,12 +803,12 @@ def main() -> int:
     n_det = sum(len(r) for _, _, out in served for r in out)
     log(f"[main] {n_det} detections in {n_requests} requests, both tasks present")
 
-    # the same batch with the plain NMS loop on the card: identical results
-    batch, shapes, _ = served[-1]
-    out = inf.predict(batch, original_shape=shapes)
-    plain = inf.predict(batch, original_shape=shapes, use_kernel=False)
-    same_results(out, plain, score_rtol=0.0)
-    log("[main] batch 8 with the plain NMS loop on the card: identical results")
+    # the same batches with the plain NMS loop on the card: identical results
+    for batch, shapes, _ in (served[0], served[-1]):
+        out = inf.predict(batch, original_shape=shapes)
+        plain = inf.predict(batch, original_shape=shapes, use_kernel=False)
+        same_results(out, plain, score_rtol=0.0)
+    log("[main] batch 1 and batch 8 with the plain NMS loop on the card: identical results")
 
     # where the time goes: each stage alone, CUDA events around 5 calls
     # (a stage that is launch-bound shows its host time here)

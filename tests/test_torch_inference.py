@@ -144,3 +144,44 @@ def test_default_device_is_the_card():
     model = CerberusModel(CFG, TASKS, NCS, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         CerberusDetInference(model=model, names=NAMES)
+
+
+@pytest.mark.parametrize("half", [False, None])
+def test_half_matches_jax(half):
+    """half=False computes in float32 and the default (half=True) in
+    bfloat16, in both packages; both built with warmup_batch=2. The results
+    equal JAX's on the same float32 weights."""
+    kw = {} if half is None else {"half": half}
+    model = JaxModel(CFG, TASKS, NCS)
+    params = jax.tree_util.tree_map(
+        np.asarray, _distinct_heads(model.init(jax.random.PRNGKey(0)), seed=1))
+    common = dict(params=params, names=NAMES, conf_thres=1e-4, img_size=64, warmup_batch=2,
+                  **kw)
+    ref = JaxInference(model=model, **common)
+    ours = CerberusDetInference(model=CerberusModel(CFG, TASKS, NCS, device="cpu"),
+                                device="cpu", **common)
+    want = torch.float32 if half is False else torch.bfloat16
+    assert ours.dtype == want and ref.compute_dtype == (jnp.float32 if half is False
+                                                        else jnp.bfloat16)
+    x = np.random.default_rng(3).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    dets = ours.predict(x, original_shape=SHAPES)
+    _assert_same(dets, ref.predict(x, original_shape=SHAPES))
+    assert sum(map(len, dets)) > 0
+
+
+def test_dtype_overrides_half_and_warmup_batch_predicts_once(monkeypatch):
+    """dtype wins over half; warmup_batch=n runs one predict on zeros of
+    (n, img_size, img_size, 3) at construction, and None runs none."""
+    calls = []
+    real = CerberusDetInference.predict
+    monkeypatch.setattr(CerberusDetInference, "predict",
+                        lambda self, batch, *a, **k: calls.append(np.shape(batch))
+                        or real(self, batch, *a, **k))
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu").init(0)
+    inf = CerberusDetInference(model=model, names=NAMES, img_size=64, half=True,
+                               dtype=torch.float32, device="cpu")
+    assert inf.dtype == torch.float32 and calls == []
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu").init(0)
+    inf = CerberusDetInference(model=model, names=NAMES, img_size=64, half=False,
+                               dtype=torch.float64, device="cpu", warmup_batch=3)
+    assert inf.dtype == torch.float64 and calls == [(3, 64, 64, 3)]

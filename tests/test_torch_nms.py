@@ -16,7 +16,11 @@ from cerberusdet_tpu.ops.nms import non_max_suppression as jax_nms
 from cerberusdet_tpu.ops.nms_pallas import greedy_nms_pallas
 from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, greedy_nms, non_max_suppression
 from cerberusdet_tpu_torch.ops.nms_cuda import MAX_K, greedy_nms_cuda
-from cerberusdet_tpu_torch.testing import boundary_candidates, random_candidates
+from cerberusdet_tpu_torch.testing import (
+    boundary_candidates,
+    duplicate_candidates,
+    random_candidates,
+)
 from test_nms import _reference_cross_task
 from test_nms_pallas import _random_candidates
 
@@ -75,6 +79,76 @@ def test_plain_greedy_all_zero_and_ties():
         np.testing.assert_array_equal(idx[b], np.asarray(idx_r))
         np.testing.assert_array_equal(valid[b], np.asarray(val_r))
     assert not valid[1].any() and (idx[1] == 0).all()
+
+
+def _signed_zeros(boxes, scores):
+    """Every 17th score -0.0 (<= 0: invalid, and equal to +0.0 in the argmax)."""
+    scores = scores.copy()
+    scores[:, ::17] = -0.0
+    return boxes, scores
+
+
+def _negative_tail():
+    """Few positives among negative scores. Indices 0 (negative) and 1 (0)
+    share a box far from the rest: once the positives run out the lowest 0 is
+    index 1, whose pick zeroes index 0, which is picked from then on."""
+    boxes, scores = random_candidates(2, 600, seed=8, zeros_from=40, low=-0.5,
+                                      size=(40, 200))
+    boxes[:, :2] = [1000.0, 1000.0, 1100.0, 1100.0]
+    scores[:, 0], scores[:, 1] = -0.3, 0.0
+    return boxes, scores
+
+
+# the redesigned kernel's paths (csrc/nms.cu): scores <= 0 after the positive
+# picks run out, positives that fill shared memory, one image, ties between
+# copies of one box
+KERNEL_CASES = {
+    "negative and -0.0 scores": (lambda: _signed_zeros(*random_candidates(
+        3, 700, seed=7, low=-0.5, classes=3)), 0.45, 300),
+    "few positives among negatives": (_negative_tail, 0.45, 300),
+    "K8400 all positive": (lambda: random_candidates(
+        2, 8400, seed=9, low=0.01, classes=20), 0.45, 300),
+    "B1": (lambda: random_candidates(1, 2000, seed=10, size=(60, 300)), 0.7, 300),
+    "duplicates with tied scores": (lambda: duplicate_candidates(2, 900, seed=11), 0.45, 300),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_plain_greedy_matches_jax_on_kernel_cases(name):
+    """The plain loop, which the kernel must match, against jax greedy_nms
+    and the Pallas kernel in interpret mode: identical idx and valid."""
+    make, thr, max_det = KERNEL_CASES[name]
+    boxes, scores = make()
+    idx, valid = _plain(boxes, scores, thr, max_det)
+    idx_p, val_p = greedy_nms_pallas(jnp.asarray(boxes), jnp.asarray(scores), thr, max_det,
+                                     interpret=True)
+    np.testing.assert_array_equal(idx, np.asarray(idx_p))
+    np.testing.assert_array_equal(valid, np.asarray(val_p))
+    for b in range(boxes.shape[0]):
+        idx_r, val_r = jax_greedy(jnp.asarray(boxes[b]), jnp.asarray(scores[b]), thr, max_det)
+        np.testing.assert_array_equal(idx[b], np.asarray(idx_r))
+        np.testing.assert_array_equal(valid[b], np.asarray(val_r))
+
+
+def test_kernel_cases_reach_their_paths():
+    """Each case reaches what it is named for: scores <= 0 picked after the
+    positives run out (and some of them more than once), every score
+    positive, copies of a box suppressed by their first."""
+    boxes, scores = KERNEL_CASES["few positives among negatives"][0]()
+    idx, valid = _plain(boxes, scores, 0.45, 300)
+    assert (scores < 0).sum() > 300 and (valid.sum(1) < 40).all() and not valid[:, -1].any()
+    for b in range(2):
+        tail = idx[b][~valid[b]]
+        assert tail[0] == 1 and set(tail[1:]) == {0}
+    boxes, scores = KERNEL_CASES["negative and -0.0 scores"][0]()
+    assert np.signbit(scores[scores == 0]).any() and (scores < 0).any()
+    assert (KERNEL_CASES["K8400 all positive"][0]()[1] > 0).all()
+    boxes, scores = KERNEL_CASES["duplicates with tied scores"][0]()
+    idx, valid = _plain(boxes, scores, 0.45, 300)
+    for b in range(2):
+        for j in idx[b][valid[b]]:
+            copies = np.flatnonzero((boxes[b] == boxes[b, j]).all(1))
+            assert len(copies) >= 2 and j == copies.min()
 
 
 def _pred(B, N, nc, seed):
@@ -168,12 +242,17 @@ def test_kernel_wrapper_takes_plain_loop_on_cpu():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """The CUDA kernel selects exactly what the plain loop selects."""
+    """The CUDA kernel selects exactly what the plain loop selects, on the
+    cases above and at K 16384 (slots beyond shared memory in global
+    scratch; with large boxes the survivors move back into shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     cases = [(random_candidates(8, 8400, seed=1, zeros_from=6000, classes=20), 0.45),
              (random_candidates(8, MAX_K, seed=2), 0.7),
+             (random_candidates(8, MAX_K, seed=3, low=0.01), 0.7),
+             (random_candidates(8, MAX_K, seed=4, low=0.01, size=(150, 400)), 0.45),
              (boundary_candidates(0.45)[:2], 0.45), (boundary_candidates(0.7)[:2], 0.7)]
+    cases += [(make(), thr) for make, thr, _ in KERNEL_CASES.values()]
     for (boxes, scores), thr in cases:
         b = torch.from_numpy(boxes).cuda()
         s = torch.from_numpy(scores).cuda()

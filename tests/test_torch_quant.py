@@ -294,15 +294,15 @@ def test_conv_wrapper_refuses_bad_inputs_on_cpu(case):
     assert conv_s8.launches == before
 
 
-@pytest.mark.parametrize("case", ["float64", "int8", "H, W swapped", "ci16 short",
+@pytest.mark.parametrize("case", ["float64", "uint8", "H, W swapped", "ci16 short",
                                   "ci16 ragged", "s_x float64", "3-d"])
 def test_quant_pack_wrapper_refuses_bad_inputs_on_cpu(case):
-    """quant_pack_s8 takes NCHW float32 / bf16 whose planes are row-major at
-    one pixel stride, one float32 s_x and a Ci16 that is a multiple of 16
-    and holds C."""
+    """quant_pack_s8 takes NCHW float32 / bf16 / int8 whose planes are
+    row-major at one pixel stride, one float32 s_x and a Ci16 that is a
+    multiple of 16 and holds C."""
     x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (2, 20, 5, 6)).astype(np.float32))
     s_x = torch.tensor(0.05)
-    args = {"float64": (x.double(), s_x, 32), "int8": (x.to(torch.int8), s_x, 32),
+    args = {"float64": (x.double(), s_x, 32), "uint8": (x.to(torch.uint8), s_x, 32),
             "H, W swapped": (x.transpose(2, 3), s_x, 32), "ci16 short": (x, s_x, 16),
             "ci16 ragged": (x, s_x, 40), "s_x float64": (x, s_x.double(), 32),
             "3-d": (x[0], s_x, 32)}[case]
@@ -315,15 +315,86 @@ def test_quant_pack_wrapper_refuses_bad_inputs_on_cpu(case):
 @pytest.mark.parametrize("use_kernel", [None, False])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float64])
 def test_conv2d_int8_takes_float_activations_on_both_routes(dtype, use_kernel):
-    """conv2d_int8 quantizes float32 / bf16 activations; the plain route
-    (use_kernel=False) refuses other types as the kernels' wrappers do, so
-    the two routes take the same inputs."""
+    """conv2d_int8 quantizes float32 / bf16 activations and takes int8 ones
+    as already quantized (the JAX package's conv2d_int8); both routes refuse
+    other types (use_kernel=False is the plain route), so the two routes
+    take the same inputs."""
     rng = np.random.default_rng(3)
     p = _torch_leaf(_ptq_params(rng, 8, 16, 3))
     x = torch.from_numpy(rng.normal(0, 1, (1, 8, 5, 5)).astype(np.float32))
-    assert conv2d_int8(x, p, use_kernel=use_kernel).shape == (1, 16, 5, 5)
-    with pytest.raises(TypeError, match="activations"):
-        conv2d_int8(x.to(dtype), p, use_kernel=use_kernel)
+    y = conv2d_int8(x, p, use_kernel=use_kernel)
+    assert y.shape == (1, 16, 5, 5)
+    if dtype == torch.int8:
+        xq = quantize_act(x, p["s_x"])
+        assert torch.equal(conv2d_int8(xq, p, use_kernel=use_kernel), y)
+    else:
+        with pytest.raises(TypeError, match="activations"):
+            conv2d_int8(x.to(dtype), p, use_kernel=use_kernel)
+
+
+@pytest.mark.parametrize("ci", [3, 80])
+def test_quant_pack_plain_takes_int8_unscaled(ci):
+    """int8 activations are already quantized: packed NHWC, zero-padded to
+    Ci16, with no rescale, on the plain route and through the CPU wrapper."""
+    xq = np.random.default_rng(ci).integers(-127, 128, (2, 5, 7, ci), dtype=np.int8)
+    s_x = torch.tensor(0.05)
+    got = quant_pack_s8_plain(_nchw(xq), s_x, padded_channels(ci))
+    assert torch.equal(got, _packed(xq)) and got.is_contiguous()
+    before = quant_pack_s8.launches
+    assert torch.equal(quant_pack_s8(_nchw(xq), s_x, padded_channels(ci)), got)
+    assert quant_pack_s8.launches == before
+
+
+def _int8_conv_pair(p, ci, co, k, s, dtype):
+    """A JAX Conv and the port's int8 Conv holding the same PTQ leaf `p`,
+    the port's cast to the compute dtype."""
+    from cerberusdet_tpu.nn.layers import Conv as JaxConv
+    from cerberusdet_tpu_torch.nn.layers import Conv
+
+    conv = Conv(ci, co, k, s)
+    del conv.bn  # a fused Conv's form; its weights are replaced below
+    conv.b = torch.nn.Parameter(torch.zeros(co))
+    conv.to_int8()
+    for key, v in _torch_leaf(p).items():
+        getattr(conv, key).copy_(v)
+    return JaxConv(ci, co, k, s), conv.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co,k,s", [(16, 24, 3, 1), (40, 32, 3, 2), (24, 16, 1, 1)])
+def test_int8_input_to_quantized_conv_matches_jax(ci, co, k, s, dtype):
+    """The same int8 tensor (NHWC for JAX, NCHW for the port) into a
+    quantized Conv of each package: taken as already quantized, output in
+    the compute dtype, not the input's (JAX's ctx.dtype); values within the
+    limits of test_epilogue_matches_jax (float32 1e-6 relative; bf16 within
+    2 ulps, fewer than 1e-3 differing), except where SiLU meets sums near
+    -85: JAX's x * sigmoid(x) gives -0.0 there and torch's x / (1 +
+    exp(-x)) a value below 1e-36, so where JAX has 0 the port must be within
+    1e-30 of it. Calibration records nothing for the int8 input in either
+    package, and a float input is recorded."""
+    rng = np.random.default_rng(ci + co + k + s)
+    p = _ptq_params(rng, ci, co, k)
+    xq = rng.integers(-127, 128, (2, 9, 11, ci), dtype=np.int8)
+    jax_conv, conv = _int8_conv_pair(p, ci, co, k, s, dtype)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ctx = Ctx(dtype=jdtype)
+    ctx.taps = {}
+    ref = jax_conv({key: jnp.asarray(v) for key, v in p.items()}, jnp.asarray(xq), ctx,
+                   ("c",))
+    conv.tap, conv.tap_key = {}, "c"
+    got = conv(_nchw(xq))
+    assert ctx.taps == {} and conv.tap == {}
+    assert ref.dtype == jdtype and got.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_nhwc(got), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    else:
+        ref = np.asarray(ref.astype(jnp.float32))
+        zero = ref == 0
+        assert np.abs(_nhwc(got)[zero]).max(initial=0.0) < 1e-30
+        u = _ulps_bf16(_nhwc(got), ref)[~zero]
+        assert u.max() <= 2.01 and (u > 0).mean() < 1e-3, (u.max(), (u > 0).mean())
+    conv(_nchw(xq).to(dtype))
+    assert set(conv.tap) == {"c"}
 
 
 @pytest.mark.parametrize("m,co,tile", [(51200, 320, (128, 160)), (12800, 640, (128, 160)),
@@ -347,7 +418,8 @@ def test_kernel_matches_plain_on_card():
     """conv_s8 and quant_pack_s8 against their plain versions on the card:
     int32 sums identical, float32 / bf16 / int8 epilogues identical (the
     kernel repeats the plain version's operations without FMA contraction),
-    the packed activations identical, the int32 sums with every block tile.
+    the packed activations identical (int8 input packed unscaled), the int32
+    sums with every block tile.
     The cases add Ci 400 (a multiple of 16,
     not of 32), Co 80 against the 160-wide tile, a batch-1 20x20 map (M below
     the 128-row tile) and stride 2 on an odd H."""
@@ -358,7 +430,7 @@ def test_kernel_matches_plain_on_card():
         p = {key: v.cuda() for key, v in _torch_leaf(_ptq_params(rng, ci, co, k)).items()}
         batch = 1 if (ci, hw) == (320, 20) else 3
         x = torch.from_numpy(rng.normal(0, 3, (batch, ci, hw, hw + 3)).astype(np.float32)).cuda()
-        for xt in (x, x.to(torch.bfloat16)):
+        for xt in (quantize_act(x, p["s_x"]), x, x.to(torch.bfloat16)):
             args = (xt, p["s_x"], padded_channels(ci))
             xq = quant_pack_s8(*args)
             assert torch.equal(xq, quant_pack_s8_plain(*args)), (ci, xt.dtype)

@@ -19,7 +19,7 @@ from cerberusdet_tpu_torch.ops.tal_cuda import (
     selection_mask,
     task_aligned_assign,
 )
-from cerberusdet_tpu_torch.testing import tal_scene, tied_tal_scene
+from cerberusdet_tpu_torch.testing import crowded_tal_scene, tal_scene, tied_tal_scene
 
 SCENES = {
     "random0": (lambda: tal_scene(0), 7),
@@ -30,6 +30,7 @@ SCENES = {
     "m40": (lambda: tal_scene(7, M=40, N=384), 7),
     "tied_zeros": (lambda: tied_tal_scene(0), 5),
     "tied_zeros_b": (lambda: tied_tal_scene(1, B=3, M=16), 5),
+    "crowded": (lambda: crowded_tal_scene(0), 7),
 }
 EXACT = ("target_labels", "fg_mask", "target_gt_idx", "target_bboxes")
 
@@ -85,6 +86,16 @@ def test_scenes_exercise_ties_and_multi_assignment():
     mask_pos, _, _ = plain.select_topk(dense[0], dense[1], dense[2], dense[3].clamp(0, 6),
                                        dense[4], dense[5])
     assert (mask_pos.sum(1) > 1).any()
+
+
+def test_crowded_scene_claims_most_anchors_several_times():
+    """In the crowded scene (one kernel block of 256 anchors) most anchors of
+    each image are claimed by several gts: tal_assign resolves them by its
+    warp-wide argmax over all M rows."""
+    t = [torch.from_numpy(x) for x in crowded_tal_scene(0)]
+    mask_pos, _, _ = TaskAlignedAssigner(topk=10, num_classes=7).select_topk(*t)
+    count = (mask_pos > 0).sum(1)
+    assert t[0].shape[1] == 256 and ((count > 1).float().mean(1) > 0.5).all()
 
 
 def test_selection_mask():
