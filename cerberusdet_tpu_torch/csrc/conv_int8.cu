@@ -58,11 +58,24 @@
 //   blocks an SM without spilling, where mma.sync m16n8k32 fed by ldmatrix
 //   spilled and was slower (PERF.md, Findings). TMA, a deeper asynchronous
 //   pipeline and a persistent grid are later work.
-// - quant_pack_s8 is bound by bytes (read the activations once, write a
-//   quarter or half of them as int8). A block transposes a 64-pixel x
-//   64-channel tile through shared memory, so the read runs along W and the
-//   write along C, both coalesced; the reciprocal is taken on the card from
-//   s_x's pointer (no host sync, no extra launch).
+// - quant_pack_s8 is bound by bytes: read the activations once (2 B an
+//   element in bf16), write one byte a pixel and Ci16 channel. So every
+//   byte moves in 16-byte accesses and the transpose costs no memory
+//   traffic: a lane loads 16-byte runs along the plane (8 bf16, 4 float32
+//   or 16 int8 pixels) of each of 16 channels, 16 loads in flight before
+//   the first use, and transposes them in registers with byte permutes
+//   into one 16-byte store a pixel (a whole chunk of 16 channels, the unit
+//   conv_s8 gathers). The threads take the runs so that neighbouring lanes
+//   read 32 pixels of a plane and write a pixel's neighbouring chunks side
+//   by side: whole sectors on both sides, and no lane idles at any Ci. The
+//   rint is an addition (no conversion instruction) and the reciprocal is
+//   taken on the card from s_x's pointer once per thread (no host sync, no
+//   extra launch). The grid is what the card holds at once (one block an
+//   SM where the input outgrows L2), its blocks looping over the runs. A
+//   plane whose base or length is not a multiple of 16 bytes (a
+//   letterboxed 15 x 20 map, a channel slice at an odd offset) and the
+//   ragged end of every plane load element by element; a channels-last
+//   view takes a kernel of its own (a thread per pixel and chunk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,57 +87,234 @@ namespace {
 
 enum Mode { kRaw = 0, kF32 = 1, kBF16 = 2, kS8 = 3 };
 
+constexpr int kMaxDevices = 64;
+
 __device__ __forceinline__ int8_t to_s8(float v) {
   return (int8_t)(int)fminf(fmaxf(rintf(v), -127.f), 127.f);
 }
 
 // ------------------------------------------------------------ quant_pack_s8
 
-constexpr int kQP = 64;            // pixels a block
-constexpr int kQC = 64;            // channels a block
-constexpr int kQThreads = 256;
-constexpr int kQRow = kQC + 4;     // bytes of a pixel's row in shared memory
+constexpr int kQThreads = 256;        // 8 warps; a warp takes one item at a time
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23 (see code)
 
-__device__ __forceinline__ int8_t quant(const float* p, float inv) {
-  return to_s8(__fmul_rn(*p, inv));
-}
-__device__ __forceinline__ int8_t quant(const __nv_bfloat16* p, float inv) {
-  return to_s8(__fmul_rn(__bfloat162float(*p), inv));
-}
-// int8 input is already quantized (with this s_x): copied, not rescaled
-__device__ __forceinline__ int8_t quant(const int8_t* p, float) { return *p; }
+// raw bits of one element of T, for the scalar edge path
+template <typename T> struct Raw;
+template <> struct Raw<float> { using type = uint32_t; };
+template <> struct Raw<__nv_bfloat16> { using type = uint16_t; };
+template <> struct Raw<int8_t> { using type = uint8_t; };
 
+// The int8 code of v as the low byte of the returned word:
+// clip(rint(v * inv), -127, 127). The clip comes first (rint keeps the
+// integers -127 and 127 in place, so the order does not matter) and the
+// rint is the addition of 1.5 * 2^23, which rounds half to even and leaves
+// the integer, two's complement, in the low mantissa bits: no conversion
+// instruction (F2I runs at a quarter of the FP32 rate).
+__device__ __forceinline__ uint32_t code(float v, float inv) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f), kRound));
+}
+
+// A word holding the code of element j of a 16-byte run of T (float: 4
+// elements, bfloat16: 8, int8: 16, copied unscaled): in byte j % 4 for
+// int8, in byte 0 otherwise (pack16 picks it out).
+template <typename T>
+__device__ __forceinline__ uint32_t code_word(const uint4& r, int j, float inv);
+template <>
+__device__ __forceinline__ uint32_t code_word<float>(const uint4& r, int j, float inv) {
+  return code(__uint_as_float((&r.x)[j]), inv);
+}
+template <>
+__device__ __forceinline__ uint32_t code_word<__nv_bfloat16>(const uint4& r, int j, float inv) {
+  const uint32_t w = (&r.x)[j >> 1];
+  return code(__uint_as_float(j & 1 ? w & 0xffff0000u : w << 16), inv);
+}
+template <>
+__device__ __forceinline__ uint32_t code_word<int8_t>(const uint4& r, int j, float) {
+  return (&r.x)[j >> 2];
+}
+// 16 bytes of codes, channel i in byte i, from the code words w[i] of
+// element j (its code in byte j % 4 for int8, byte 0 otherwise)
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const uint32_t (&w)[16], int j) {
+  const int s = sizeof(T) == 1 ? j & 3 : 0;
+  const uint32_t pair = (uint32_t)(s | (4 + s) << 4);  // byte s of a, then byte s of b
+  uint32_t o[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    o[q] = __byte_perm(__byte_perm(w[4 * q], w[4 * q + 1], pair),
+                       __byte_perm(w[4 * q + 2], w[4 * q + 3], pair), 0x5410);
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The V = 16 / sizeof(T) elements p[0, V) of one plane as 16 bytes, zero at
+// and past n: one 16-byte load where the run is aligned and whole (vec),
+// else element by element (a plane of a misaligned length or base, and
+// the ragged end of every plane).
+template <typename T>
+__device__ __forceinline__ uint4 load_run(const T* p, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  using R = typename Raw<T>::type;
+  union { uint4 u; R e[16 / sizeof(T)]; } r;
+  r.u = make_uint4(0, 0, 0, 0);
+  const R* q = reinterpret_cast<const R*>(p);
+#pragma unroll
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j)
+    if (j < n) r.e[j] = q[j];
+  return r.u;
+}
+
+// NCHW planes (pixels at stride 1) -> (B, HW, C16) int8, in register tiles.
+// A thread takes a run of V pixels (one 16-byte load) of each of the 16
+// channels of one chunk: 16 independent loads in flight, a transpose in
+// registers with byte permutes, then one 16-byte store a pixel. The runs go
+// to the threads in the order (image, group of 32 pixels, chunk, run in the
+// group): the LP = 32 / V neighbouring lanes of a group read 32 pixels of a
+// plane (a whole sector or more), and the 32 / LP lanes of a run in a warp
+// write neighbouring chunks of each pixel side by side (64 to 256 bytes),
+// so both sides move whole 32-byte sectors, and no lane idles at any Ci.
+// (A warp that covered one chunk's plane alone stored 16-byte pieces 8 rows
+// apart and ran far slower at Ci 400; groups of 16 or 64 pixels were slower
+// at the path's largest inputs.)
 template <typename T>
 __global__ void __launch_bounds__(kQThreads)
-quant_pack_s8_kernel(const T* __restrict__ x, const float* __restrict__ s_x, int C, int HW,
-                     long long sb, long long sc, long long sp, int C16,
-                     int8_t* __restrict__ out) {
-  __shared__ __align__(16) int8_t tile[kQP * kQRow];
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * kQP;
-  const int c0 = blockIdx.y * kQC;
-  const int b = blockIdx.z;
-  const float inv = __fdiv_rn(1.f, *s_x);
+quant_pack_planes_kernel(const T* __restrict__ x, const float* __restrict__ s_x, int B, int C,
+                         int HW, long long sb, long long sc, int C16, int vec,
+                         int8_t* __restrict__ out) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int LP = 32 / V;
+  const float inv = sizeof(T) == 1 ? 0.f : __fdiv_rn(1.f, *s_x);
+  const int K = C16 / 16;
+  const int groups = (HW + 31) / 32;
+  const long long items = (long long)B * groups * K * LP;
+  for (long long f = (long long)blockIdx.x * kQThreads + threadIdx.x; f < items;
+       f += (long long)gridDim.x * kQThreads) {
+    const int pl = (int)(f % LP);
+    const long long u = f / LP;
+    const int c0 = 16 * (int)(u % K);
+    const long long w = u / K;
+    const int b = (int)(w / groups);
+    const int p = ((int)(w - (long long)b * groups) * LP + pl) * V;
+    const int n = HW - p;  // pixels of the plane from p on
+    if (n <= 0) continue;
+    const T* src = x + b * sb + p;
+    uint4 raw[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      raw[i] = c0 + i < C ? load_run(src + (c0 + i) * sc, n, vec && n >= V)
+                          : make_uint4(0, 0, 0, 0);  // zero codes past C
+    int8_t* dst = out + ((long long)b * HW + p) * C16 + c0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (j >= n) break;
+      uint32_t w[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) w[i] = code_word<T>(raw[i], j, inv);
+      *reinterpret_cast<uint4*>(dst + (long long)j * C16) = pack16<T>(w, j);
+    }
+  }
+}
 
-  // read: a warp takes 32 neighbouring pixels of one channel; zero past Ci
-  const int lp = tid % kQP;
-  const int p = p0 + lp;
-  for (int i = tid / kQP; i < kQC; i += kQThreads / kQP) {
-    const int c = c0 + i;
-    int8_t q = 0;
-    if (p < HW && c < C) q = quant(x + b * sb + c * sc + p * sp, inv);
-    tile[lp * kQRow + i] = q;
+// Any other layout (a channels-last view: pixels sp apart, channels sc):
+// a thread per pixel and 16-channel chunk, element loads, one 16-byte store.
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+quant_pack_rows_kernel(const T* __restrict__ x, const float* __restrict__ s_x, int B, int C,
+                       int HW, long long sb, long long sc, long long sp, int C16,
+                       int8_t* __restrict__ out) {
+  using R = typename Raw<T>::type;
+  const float inv = sizeof(T) == 1 ? 0.f : __fdiv_rn(1.f, *s_x);
+  const int K = C16 / 16;
+  const long long items = (long long)B * HW * K;
+  for (long long t = (long long)blockIdx.x * kQThreads + threadIdx.x; t < items;
+       t += (long long)gridDim.x * kQThreads) {
+    const int k = (int)(t % K);
+    const long long bp = t / K;  // b * HW + pixel
+    const long long b = bp / HW;
+    const R* src = reinterpret_cast<const R*>(x + b * sb + (bp - b * HW) * sp);
+    uint32_t w[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 16 * k + i;
+      const uint4 r = make_uint4(c < C ? (uint32_t)src[c * sc] : 0u, 0, 0, 0);
+      w[i] = code_word<T>(r, 0, inv);
+    }
+    *reinterpret_cast<uint4*>(out + bp * C16 + 16 * k) = pack16<T>(w, 0);
   }
-  __syncthreads();
-  // write: 16 threads a pixel, 4 channels (one 32-bit word) each
-  const int wc = tid % (kQC / 4);
-  const int c = c0 + 4 * wc;
-  if (c >= C16) return;
-  for (int j = tid / (kQC / 4); j < kQP; j += kQThreads / (kQC / 4)) {
-    if (p0 + j < HW)
-      *reinterpret_cast<int32_t*>(out + ((size_t)b * HW + p0 + j) * C16 + c) =
-          *reinterpret_cast<const int32_t*>(tile + j * kQRow + 4 * wc);
+}
+
+// What the grid of the quant_pack_s8 kernels is sized from, found once per
+// device and kernel: the SMs, the blocks of kQThreads an SM holds, the L2.
+struct Card {
+  int sms, per_sm, l2;
+};
+
+template <typename Kernel>
+cudaError_t card(Kernel kernel, std::atomic<bool> (&ready)[kMaxDevices],
+                 Card (&cache)[kMaxDevices], Card* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    Card c{};
+    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&c.l2, cudaDevAttrL2CacheSize, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, kQThreads, 0);
+    if (e != cudaSuccess) return e;
+    if (c.per_sm < 1) c.per_sm = 1;
+    cache[dev] = c;  // the same values in any racing thread
+    ready[dev].store(true, std::memory_order_release);
   }
+  *out = cache[dev];
+  return cudaSuccess;
+}
+
+// Blocks loop over the items, so the grid is at most what the card holds at
+// once (no block starts late with a full share): one block an SM where the
+// input is larger than L2 and streams from HBM (fewer streams in flight ran
+// faster at the path's largest inputs), every block an SM holds where it
+// fits L2, as an input just written by the layer before it does.
+template <typename T>
+int launch_planes(const void* x, const float* s_x, int B, int C, int HW, long long sb,
+                  long long sc, int C16, int vec, int8_t* out, cudaStream_t s) {
+  static std::atomic<bool> ready[kMaxDevices];
+  static Card cache[kMaxDevices];
+  Card c;
+  const cudaError_t e = card(quant_pack_planes_kernel<T>, ready, cache, &c);
+  if (e != cudaSuccess) return (int)e;
+  const long long bytes = (long long)B * C * HW * sizeof(T);
+  const long long resident = (long long)c.sms * (bytes > c.l2 ? 1 : c.per_sm);
+  const long long items = (long long)B * ((HW + 31) / 32) * (C16 / 16) * (32 / (16 / sizeof(T)));
+  const long long blocks = (items + kQThreads - 1) / kQThreads;
+  quant_pack_planes_kernel<T><<<(unsigned)(blocks < resident ? blocks : resident), kQThreads, 0,
+                                s>>>(static_cast<const T*>(x), s_x, B, C, HW, sb, sc, C16, vec,
+                                     out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rows(const void* x, const float* s_x, int B, int C, int HW, long long sb,
+                long long sc, long long sp, int C16, int8_t* out, cudaStream_t s) {
+  static std::atomic<bool> ready[kMaxDevices];
+  static Card cache[kMaxDevices];
+  Card c;
+  const cudaError_t e = card(quant_pack_rows_kernel<T>, ready, cache, &c);
+  if (e != cudaSuccess) return (int)e;
+  const long long resident = (long long)c.sms * c.per_sm;
+  const long long blocks = ((long long)B * HW * (C16 / 16) + kQThreads - 1) / kQThreads;
+  quant_pack_rows_kernel<T><<<(unsigned)(blocks < resident ? blocks : resident), kQThreads, 0,
+                              s>>>(static_cast<const T*>(x), s_x, B, C, HW, sb, sc, sp, C16,
+                                   out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_quant_pack(const void* x, const float* s_x, int B, int C, int HW, long long sb,
+                      long long sc, long long sp, int C16, int vec, int8_t* out,
+                      cudaStream_t s) {
+  return sp == 1 ? launch_planes<T>(x, s_x, B, C, HW, sb, sc, C16, vec, out, s)
+                 : launch_rows<T>(x, s_x, B, C, HW, sb, sc, sp, C16, out, s);
 }
 
 // ------------------------------------------------------------------ conv_s8
@@ -416,8 +606,6 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 template <int BM, int BN>
 int launch_conv(const int8_t* x, const int8_t* w, const float* s_x, const float* s_w,
                 const float* bias, int B, int H, int W, int C16, int Co, int ks, int stride,
@@ -450,33 +638,27 @@ int launch_conv(const int8_t* x, const int8_t* w, const float* s_x, const float*
 extern "C" {
 
 // x (B, C, H, W) of float32 (dtype 0), bfloat16 (dtype 1) or int8 (dtype 2,
-// already quantized: copied unscaled) with images sb,
-// channels sc and the pixels of an (H, W) plane sp elements apart (sp 1 for
-// NCHW, C for a channels-last view); s_x a float32
-// scalar on the card; out (B, H, W, C16) int8 with C16 a multiple of 16 and
-// >= C. Launches on `stream` and returns cudaGetLastError() (0 on success);
-// 1 (cudaErrorInvalidValue) for a dtype it does not know.
+// already quantized: copied unscaled) with images sb, channels sc and the
+// pixels of an (H, W) plane sp elements apart (sp 1 for NCHW planes, C for a
+// channels-last view); s_x a float32 scalar on the card; out (B, H, W, C16)
+// int8, 16-byte aligned, with C16 a multiple of 16 and >= C. For sp 1, vec
+// (1 or 0) says that x, sb and sc put every plane at a multiple of 16
+// bytes, so that whole runs take 16-byte loads. Launches on `stream` and
+// returns cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for
+// a dtype it does not know.
 int cerberus_quant_pack_s8(const void* x, int dtype, const float* s_x, int B, int C, int H,
-                           int W, long long sb, long long sc, long long sp, int C16,
-                           int8_t* out,
-                           void* stream) {
+                           int W, long long sb, long long sc, long long sp, int C16, int vec,
+                           int8_t* out, void* stream) {
   const int HW = H * W;
   if (B <= 0 || HW <= 0) return 0;
-  const dim3 grid((HW + kQP - 1) / kQP, (C16 + kQC - 1) / kQC, B);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    quant_pack_s8_kernel<float><<<grid, kQThreads, 0, s>>>(
-        static_cast<const float*>(x), s_x, C, HW, sb, sc, sp, C16, out);
-  } else if (dtype == 1) {
-    quant_pack_s8_kernel<__nv_bfloat16><<<grid, kQThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), s_x, C, HW, sb, sc, sp, C16, out);
-  } else if (dtype == 2) {
-    quant_pack_s8_kernel<int8_t><<<grid, kQThreads, 0, s>>>(
-        static_cast<const int8_t*>(x), s_x, C, HW, sb, sc, sp, C16, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_quant_pack<float>(x, s_x, B, C, HW, sb, sc, sp, C16, vec, out, s);
+  if (dtype == 1)
+    return launch_quant_pack<__nv_bfloat16>(x, s_x, B, C, HW, sb, sc, sp, C16, vec, out, s);
+  if (dtype == 2)
+    return launch_quant_pack<int8_t>(x, s_x, B, C, HW, sb, sc, sp, C16, vec, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x (B, H, W, C16) int8 and w (Co, ks, ks, C16) int8, both 16-byte aligned,

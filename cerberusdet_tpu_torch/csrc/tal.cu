@@ -12,15 +12,25 @@
 // count, first positive gt and argmax overlap down an anchor column over all
 // M gts), so the work is split by direction:
 //
-//   tal_select  one block per (image, gt row). A gt that is not valid writes
-//               -1s and ends. A valid one computes its row of
-//               metric = align * in_gt into shared memory (N * 4 B), then
-//               picks the first-occurrence top-k: each thread keeps the best
-//               of its own strided anchors (scanned in index order), a
-//               (value desc, index asc) warp-shuffle and block reduction
-//               gives the winner, and only the winner's owner rescans. It
-//               writes sel (B, M, k): the anchor index where the anchor is
-//               inside the gt, else -1.
+//   tal_select  a grid of what the card holds at once (8 warps a block).
+//               Each block ranks the valid gt rows by a prefix count of
+//               mask_gt and takes ranks j, j + G, ...: the rows that are not
+//               valid cost their -1 writes, and no block waits behind them.
+//               In a row each warp takes the 32-anchor chunks warp,
+//               warp + 8, ... (the anchors inside a gt cluster in index, so
+//               interleaving spreads them), tests all its anchors against
+//               the gt first, then gathers the inside ones' score, box and
+//               arctan 4 at a time and computes metric = align * in_gt into
+//               shared memory as order-preserving keys (N * 4 B); each lane
+//               keeps its 4 best (key desc, index asc) in registers. The
+//               warp's first-occurrence top-k comes by warp reductions alone:
+//               redux.sync max of the lanes' heads, min of the indices
+//               holding it; the owner pops its head, and rescans its keys
+//               only when its 4 run out. After one barrier one warp merges
+//               the 8 sorted lists under the same order. Exact: under a
+//               strict total order the global top-k lies in the union of the
+//               per-warp top-k, ties at 0 included. It writes sel (B, M, k):
+//               the anchor index where the anchor is inside the gt, else -1.
 //   tal_assign  a block per 256 anchors of an image. The block gathers the
 //               sel entries that fall in its anchor range into shared-memory
 //               counters (atomicAdd for the count, atomicMin for the first
@@ -44,8 +54,14 @@
 // What bounds it on this card: neither bytes nor operations. At the flagship
 // shapes (B 8, M 300 with 40 valid, N 8400) the work is ~2.7 M (gt, anchor)
 // pairs, ~0.2 G fp32 operations, and ~12 MB in and out; the three launches,
-// the k dependent block reductions of tal_select and the M-row argmax of
-// each multiply claimed anchor in tal_assign set the time.
+// the dependent steps of tal_select and the M-row argmax of each multiply
+// claimed anchor in tal_assign set the time. tal_select took one block per
+// (image, gt row): the 2080 blocks of rows that are not valid held slots the
+// valid rows waited for, each lane waited on an L2 round trip for its
+// anchors and another for their inputs every 4 anchors, and the top-k had k
+// rounds of block-wide reductions, two barriers each, and a rescan by one
+// thread. Timed apart on an H100, each of the three took longer than the
+// CIoU arithmetic.
 //
 // Exactness: the CIoU follows the plain version's operation order,
 // arctan(w / (h + eps)) arrives precomputed per box, every operation is an
@@ -123,70 +139,232 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
 }
 
 // ---------------------------------------------------------------- tal_select
-__global__ void __launch_bounds__(kThreads)
+constexpr int kSelThreads = 256;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelBatch = 4;  // inside anchors whose inputs a lane gathers at once
+constexpr int kLaneTop = 4;   // the best anchors a lane keeps in registers
+
+// The top-k's key of a metric v >= 0: its bits, +0 and -0 alike, plus one,
+// so that unsigned order is the metric's order and 0 lies below every
+// anchor (a picked anchor, an empty entry).
+__device__ __forceinline__ unsigned metric_key(float v) {
+  return __float_as_uint(__fadd_rn(v, 0.f)) + 1u;
+}
+
+// (ka, ia) before (kb, ib) in the top-k's order: larger key, then lower index
+__device__ __forceinline__ bool ahead(unsigned ka, unsigned ia, unsigned kb, unsigned ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+// Insert (kv, n) into a lane's sorted best list (entries of key 0: empty).
+__device__ __forceinline__ void lane_insert(unsigned (&ck)[kLaneTop], unsigned (&ci)[kLaneTop],
+                                            unsigned kv, unsigned n) {
+  if (!ahead(kv, n, ck[kLaneTop - 1], ci[kLaneTop - 1])) return;
+#pragma unroll
+  for (int p = 0; p < kLaneTop; ++p) {
+    if (ahead(kv, n, ck[p], ci[p])) {
+      const unsigned tk = ck[p], ti = ci[p];
+      ck[p] = kv;
+      ci[p] = n;
+      kv = tk;
+      n = ti;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSelThreads, 3)
 tal_select_kernel(const float* __restrict__ scores, const float4* __restrict__ pd_boxes,
                   const float2* __restrict__ anchors, const float* __restrict__ at_pd,
                   const int64_t* __restrict__ labels, const float4* __restrict__ gt_boxes,
                   const float* __restrict__ at_gt, const uint8_t* __restrict__ mask_gt,
-                  int N, int M, int nc, int k, int beta, int32_t* __restrict__ sel) {
-  extern __shared__ float metric[];  // N floats
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int pick;
+                  int B, int N, int M, int nc, int k, int beta, int32_t* __restrict__ sel) {
+  // N keys of the row, then each warp's top-k list: k keys, k indices
+  extern __shared__ unsigned key[];
+  unsigned* list_key = key + N;
+  unsigned* list_idx = list_key + kSelWarps * k;
+  __shared__ int s_count[kSelWarps];
+  __shared__ int s_rows[kSelThreads];
+  __shared__ int s_nrows;
+  __shared__ unsigned s_pick[kSelThreads];  // the merge's picks, at most kSelThreads a pass
 
-  const int m = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const size_t row = (size_t)b * M + m;
-  int32_t* out = sel + row * k;
-  if (!mask_gt[row]) {
-    for (int j = tid; j < k; j += kThreads) out[j] = -1;
-    return;
-  }
-  const float4 g = gt_boxes[row];
-  const float atg = at_gt[row];
-  const int label = clip_label(labels[row], nc);
-  const float* sc = scores + (size_t)b * N * nc + label;
-  const float4* pb = pd_boxes + (size_t)b * N;
-  const float* atp = at_pd + (size_t)b * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // the row, and each thread's best (first max in index order)
-  float bv = __int_as_float(0xff800000);  // -inf
-  int bi = N;
-  for (int n = tid; n < N; n += kThreads) {
-    float v = 0.f;
-    if (inside(anchors[n], g))
-      v = align_metric(sc[(size_t)n * nc], ciou_clip(g, pb[n], atg, atp[n]), beta);
-    metric[n] = v;
-    if (v > bv) { bv = v; bi = n; }
+  // The valid rows, ranked in row order, go to the blocks in turn: block j
+  // takes ranks j, j + G, ... (G = the grid, what the card holds at once),
+  // so no block waits behind a row that is not valid, and each writes the
+  // -1s of the rows j, j + G, ... that are not valid. Thread t ranks rows
+  // [t * per, (t + 1) * per) by a block-wide prefix count. (Loads here and
+  // below take clamped indices and no branch, so that the compiler issues a
+  // batch of them before the first use.)
+  const int BM = B * M, G = gridDim.x;
+  const int per = (BM + kSelThreads - 1) / kSelThreads;
+  const int r0 = min(tid * per, BM), r1 = min(r0 + per, BM);
+  auto flags = [&](int base) {  // bit j: row base + j is valid (and in the slice)
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      bits |= (unsigned)(mask_gt[min(base + j, BM - 1)] != 0 && base + j < r1) << j;
+    return bits;
+  };
+  int count = 0;
+  for (int base = r0; base < r1; base += 16) count += __popc(flags(base));
+  int incl = count;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
   }
-  for (int r = 0; r < k; ++r) {
-    float v = bv;
-    int i = bi;
-    warp_best(v, i);
-    if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
+  if (lane == 31) s_count[warp] = incl;
+  if (tid == 0) s_nrows = 0;
+  __syncthreads();
+  int rank = incl - count;
+  for (int w = 0; w < warp; ++w) rank += s_count[w];
+  for (int base = r0; base < r1; base += 16) {
+    const unsigned bits = flags(base);
+    for (int r = base; r < min(base + 16, r1); ++r) {
+      if (bits >> (r - base) & 1) {
+        if (rank % G == (int)blockIdx.x) s_rows[atomicAdd(&s_nrows, 1)] = r;
+        ++rank;
+      } else if (r % G == (int)blockIdx.x) {
+        for (int j = 0; j < k; ++j) sel[(size_t)r * k + j] = -1;
+      }
+    }
+  }
+  __syncthreads();
+  const int nrows = s_nrows;
+
+  // a warp's anchors are the 32-anchor chunks warp, warp + kSelWarps, ...:
+  // lane l's at 32 (warp + kSelWarps j) + l. Interleaved, so that the
+  // anchors inside a gt, which lie in a few runs of the index (its rows of
+  // each grid), spread over the warps.
+  constexpr int kStride = 32 * kSelWarps;
+  const int first = 32 * warp + lane;
+  for (int i = 0; i < nrows; ++i) {
+    const int row = s_rows[i];
+    const int b = row / M;
+    int32_t* out = sel + (size_t)row * k;
+    const float4 g = gt_boxes[row];
+    const float atg = at_gt[row];
+    const int label = clip_label(labels[row], nc);
+    const float* sc = scores + (size_t)b * N * nc + label;
+    const float4* pb = pd_boxes + (size_t)b * N;
+    const float* atp = at_pd + (size_t)b * N;
+
+    // the keys of the lane's anchors, 32 at a time: first the in-gt test of
+    // all 32 (metric 0 outside), then the inside ones' inputs gathered
+    // kSelBatch at a time, so a lane waits on few dependent round trips. The
+    // lane keeps its kLaneTop best (key desc, index asc) in registers.
+    unsigned ck[kLaneTop], ci[kLaneTop];
+#pragma unroll
+    for (int p = 0; p < kLaneTop; ++p) { ck[p] = 0; ci[p] = 0xffffffffu; }
+    // (seg0 is the warp's, so that every lane takes the same trips and
+    // reaches the warp-wide vote below)
+    for (int seg0 = 32 * warp; seg0 < N; seg0 += 32 * kStride) {
+      const int seg = seg0 + lane;
+      unsigned in_mask = 0;
+#pragma unroll
+      for (int j0 = 0; j0 < 32; j0 += 8) {
+        float2 a[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[j] = anchors[min(seg + kStride * (j0 + j), N - 1)];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = seg + kStride * (j0 + j);
+          if (n < N) {
+            if (inside(a[j], g)) {
+              in_mask |= 1u << (j0 + j);
+            } else {
+              key[n] = 1u;  // metric_key(0)
+              lane_insert(ck, ci, 1u, n);
+            }
+          }
+        }
+      }
+      // kSelBatch inside anchors at a time, all of them computed (a slot
+      // past the lane's last takes anchor `first`'s inputs and is dropped),
+      // so that their loads and arithmetic overlap
+      while (__any_sync(0xffffffffu, in_mask)) {
+        int nn[kSelBatch];
+        float4 p[kSelBatch];
+        float s[kSelBatch], t[kSelBatch];
+#pragma unroll
+        for (int u = 0; u < kSelBatch; ++u) {
+          nn[u] = in_mask ? seg + kStride * (__ffs(in_mask) - 1) : -1;
+          in_mask &= in_mask - 1;
+          const int n = nn[u] >= 0 ? nn[u] : min(first, N - 1);
+          p[u] = pb[n];
+          s[u] = sc[(size_t)n * nc];
+          t[u] = atp[n];
+        }
+#pragma unroll
+        for (int u = 0; u < kSelBatch; ++u) {
+          const unsigned kv = metric_key(align_metric(s[u], ciou_clip(g, p[u], atg, t[u]), beta));
+          if (nn[u] >= 0) {
+            key[nn[u]] = kv;
+            lane_insert(ck, ci, kv, nn[u]);
+          }
+        }
+      }
+    }
+
+    // the warp's first-occurrence top-k, by warp reductions alone: the
+    // largest of the lanes' heads, the lowest index holding it; its owner
+    // pops it (and marks it picked), refilling its list from its keys when
+    // the list runs dry. A warp with fewer than k anchors ends its list with
+    // key 0.
+    unsigned* lk = list_key + warp * k;
+    unsigned* li = list_idx + warp * k;
+    for (int r = 0; r < k; ++r) {
+      const unsigned mk = __reduce_max_sync(0xffffffffu, ck[0]);
+      const unsigned mi = __reduce_min_sync(0xffffffffu, ck[0] == mk ? ci[0] : 0xffffffffu);
+      if (lane == 0) { lk[r] = mk; li[r] = mi; }
+      if (mk == 0) break;
+      if (lane == (int)(mi & 31)) {
+        key[mi] = 0;
+#pragma unroll
+        for (int p = 0; p + 1 < kLaneTop; ++p) { ck[p] = ck[p + 1]; ci[p] = ci[p + 1]; }
+        ck[kLaneTop - 1] = 0;
+        ci[kLaneTop - 1] = 0xffffffffu;
+        if (ck[0] == 0) {
+          for (int n = first; n < N; n += kStride) {
+            const unsigned kv = key[n];
+            if (kv) lane_insert(ck, ci, kv, n);
+          }
+        }
+      }
+    }
     __syncthreads();
+
+    // one warp merges the lists, each in (key desc, index asc) order, under
+    // the same order: the global top-k lies in their union, and they hold at
+    // least k anchors between them where k <= N (the wrapper's k), so key-0
+    // entries never win
     if (warp == 0) {
-      v = lane < kWarps ? red_v[lane] : __int_as_float(0xff800000);
-      i = lane < kWarps ? red_i[lane] : N;
-      warp_best(v, i);
-      if (lane == 0) {
-        pick = i;
-        out[r] = (i < N && inside(anchors[i], g)) ? i : -1;
+      int h = 0;
+      unsigned hk = 0, hi = 0xffffffffu;
+      if (lane < kSelWarps) { hk = list_key[lane * k]; hi = list_idx[lane * k]; }
+      for (int r0 = 0; r0 < k; r0 += kSelThreads) {
+        const int rn = min(k - r0, kSelThreads);
+        for (int r = 0; r < rn; ++r) {
+          const unsigned mk = __reduce_max_sync(0xffffffffu, hk);
+          const unsigned mi = __reduce_min_sync(0xffffffffu, hk == mk ? hi : 0xffffffffu);
+          // (mk 0: the lists ran out, which only k > N can make happen)
+          if (lane == 0) s_pick[r] = mk != 0 ? mi : 0xffffffffu;
+          if (hk == mk && hi == mi) {
+            ++h;
+            hk = h < k ? list_key[lane * k + h] : 0;
+            hi = h < k ? list_idx[lane * k + h] : 0xffffffffu;
+          }
+        }
+        __syncwarp();
+        for (int r = lane; r < rn; r += 32) {
+          const unsigned mi = s_pick[r];
+          out[r0 + r] = mi != 0xffffffffu && inside(anchors[mi], g) ? (int32_t)mi : -1;
+        }
+        __syncwarp();
       }
     }
-    __syncthreads();
-    const int j = pick;
-    if (j < N && j % kThreads == tid) {  // the owner drops its pick and rescans
-      metric[j] = __int_as_float(0xff800000);
-      bv = __int_as_float(0xff800000);
-      bi = N;
-      for (int n = tid; n < N; n += kThreads) {
-        const float w = metric[n];
-        if (w > bv) { bv = w; bi = n; }
-      }
-    }
-    // red_v / red_i / pick are rewritten only after the next round's first
-    // barrier, which every thread reaches after reading `pick`
+    __syncthreads();  // the lists and keys are rewritten by the next row
   }
 }
 
@@ -330,14 +508,28 @@ int cerberus_tal_select(const float* scores, const float* pd_boxes, const float*
                         const float* at_pd, const int64_t* labels, const float* gt_boxes,
                         const float* at_gt, const uint8_t* mask_gt, int B, int N, int M,
                         int nc, int k, int beta, int32_t* sel, void* stream) {
-  const size_t smem = (size_t)N * sizeof(float);
+  const size_t smem = ((size_t)N + 2 * kSelWarps * (size_t)k) * sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(
       tal_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tal_select_kernel<<<dim3(M, B), kThreads, smem, (cudaStream_t)stream>>>(
+  // the grid: what the card holds at once, and enough blocks that none
+  // takes more than kSelThreads valid rows
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tal_select_kernel, kSelThreads,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = B * M;
+  int grid = sms * (per_sm > 0 ? per_sm : 1);
+  grid = max(grid, (rows + kSelThreads - 1) / kSelThreads);
+  grid = min(grid, rows);
+  if (grid <= 0) return 0;
+  tal_select_kernel<<<grid, kSelThreads, smem, (cudaStream_t)stream>>>(
       scores, reinterpret_cast<const float4*>(pd_boxes),
       reinterpret_cast<const float2*>(anchors), at_pd, labels,
-      reinterpret_cast<const float4*>(gt_boxes), at_gt, mask_gt, N, M, nc, k, beta, sel);
+      reinterpret_cast<const float4*>(gt_boxes), at_gt, mask_gt, B, N, M, nc, k, beta, sel);
   return (int)cudaGetLastError();
 }
 

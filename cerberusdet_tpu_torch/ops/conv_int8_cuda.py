@@ -7,9 +7,10 @@ A quantized Conv on the card is two launches (csrc/conv_int8.cu):
   JAX package's quantize_act) and writes them NHWC int8 with the
   channels zero-padded to Ci16 = ceil(Ci / 16) * 16. int8 activations are
   already quantized (quantize_act passes them through): they are packed
-  unscaled. It is bound by bytes; a
-  shared-memory transpose tile keeps the read along W and the write along C
-  coalesced.
+  unscaled. It is bound by bytes: 16-byte loads along each plane, a
+  transpose in registers, one 16-byte store of 16 channels a pixel
+  (`pack_vectorized` tells the kernel whether every plane takes 16-byte
+  loads).
 - `conv_s8` replaces cerberusdet_tpu/ops/conv_int8_pallas.py:_conv_kernel and
   serves every quantized Conv of the int8 serving path: k in {1, 3}, stride in
   {1, 2}, padding k // 2, groups 1, dilation 1. It is an implicit GEMM (M =
@@ -136,8 +137,18 @@ def quant_pack_s8_plain(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.
     return F.pad(q.permute(0, 2, 3, 1), (0, ci16 - x.shape[1])).contiguous()
 
 
+def pack_vectorized(base_bytes: int, sb: int, sc: int, itemsize: int) -> bool:
+    """Whether every plane of an NCHW input starts at a multiple of 16
+    bytes (the data at byte address base_bytes, images sb and channels sc
+    elements apart), so that quant_pack_s8 reads whole runs with 16-byte
+    loads; otherwise, and at the ragged end of each plane, it reads element
+    by element."""
+    return base_bytes % 16 == 0 and (sb * itemsize) % 16 == 0 and (sc * itemsize) % 16 == 0
+
+
 _QP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p, ctypes.c_void_p])
 
 
 def quant_pack_s8(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor:
@@ -168,8 +179,9 @@ def quant_pack_s8(x: torch.Tensor, s_x: torch.Tensor, ci16: int) -> torch.Tensor
     fn = cuda_build.load(SOURCE, "cerberus_quant_pack_s8", _QP_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        vec = pack_vectorized(x.data_ptr(), x.stride(0), x.stride(1), x.element_size())
         err = fn(x.data_ptr(), _ACT_DTYPES[x.dtype], s_x.data_ptr(), b, c, h, w,
-                 x.stride(0), x.stride(1), sp, ci16, out.data_ptr(), stream)
+                 x.stride(0), x.stride(1), sp, ci16, int(vec), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"quant_pack_s8 kernel launch failed: CUDA error {err}")
     quant_pack_s8.launches += 1

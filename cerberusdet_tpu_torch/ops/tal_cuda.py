@@ -3,11 +3,12 @@
 The kernels (csrc/tal.cu) replace cerberusdet_tpu/ops/tal_pallas.py:
 _pass1_kernel and _pass2_kernel. They run as three launches, each with its
 own launch count: `select_kernel` (per valid gt row, the top-k of
-align * in_gt), `assign_kernel` (per anchor, the resolved gt and the gathered
-targets, per gt the maxima of align and CIoU) and `norm_kernel` (the
-normalised target scores). csrc/tal.cu says how the work is split and why it
-is exact. Bound: at the flagship shapes the launches and the top-k's
-dependent block reductions, not bytes (~12 MB) or operations (~0.2 G).
+align * in_gt: per-warp top-k lists by warp reductions, then one merge),
+`assign_kernel` (per anchor, the resolved gt and the gathered targets, per
+gt the maxima of align and CIoU) and `norm_kernel` (the normalised target
+scores). csrc/tal.cu says how the work is split and why it is exact. Bound:
+at the flagship shapes the launches and the dependent steps of the top-k and
+of the multi-claim argmax, not bytes (~12 MB) or operations (~0.2 G).
 
 `task_aligned_assign` launches them for tensors on the card, or raises on
 anything they do not take, and runs the plain version, `TaskAlignedAssigner`
@@ -30,9 +31,10 @@ __all__ = ["AssignResult", "TaskAlignedAssigner", "task_aligned_assign", "select
            "assign_kernel", "norm_kernel", "selection_mask", "kernel_inputs", "build"]
 
 SOURCE = cuda_build.CSRC / "tal.cu"
-MAX_N = 49152   # one gt row of metrics in shared memory: 192 KB
+MAX_N = 49152   # one gt row of top-k keys in shared memory: 192 KB
 MAX_M = 8192    # gt boxes, arctans and labels in shared memory: 24 B each
 MAX_BETA = 16
+MAX_TOPK = 512  # tal_select's 8 per-warp lists beside the keys: 64 B a rank
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SELECT_ARGS = [_P] * 8 + [_I] * 6 + [_P, _P]
@@ -168,8 +170,8 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, 
 
     Tensors on the CPU, or use_kernel=False, take the plain version. On the
     card the kernels take float32 scores and boxes, int64 labels, a bool
-    mask, contiguous, alpha = 0.5 and an integer beta in 1..MAX_BETA, and
-    raise on anything else."""
+    mask, contiguous, alpha = 0.5, an integer beta in 1..MAX_BETA and topk in
+    1..MAX_TOPK, and raise on anything else."""
     if not use_kernel or pd_scores.device.type == "cpu":
         plain = TaskAlignedAssigner(topk, num_classes, alpha, beta, eps)
         return plain(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt)
@@ -178,6 +180,8 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, 
     if alpha != 0.5 or not float(beta).is_integer() or not 1 <= beta <= MAX_BETA:
         raise ValueError(f"TAL kernels take alpha = 0.5 and an integer beta in "
                          f"1..{MAX_BETA}, got {alpha} and {beta}")
+    if not 1 <= topk <= MAX_TOPK:
+        raise ValueError(f"TAL kernels take topk in 1..{MAX_TOPK}, got {topk}")
     inp = kernel_inputs(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt,
                         num_classes)
     k = min(topk, pd_scores.shape[1])

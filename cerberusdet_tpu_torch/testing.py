@@ -139,6 +139,19 @@ def crowded_tal_scene(seed: int, B: int = 2, NC: int = 7, M: int = 72):
     return pd_scores, pd_bboxes, anc, gt_labels, gt_bboxes, mask_gt
 
 
+def sparse_tal_scene(seed: int, B: int = 2, N: int = 333, NC: int = 7, M: int = 12):
+    """tal_scene at an N that need not be a multiple of 32 or of a kernel
+    block, with gt 0 of each image valid and shrunk to a 5 x 5 box around
+    anchor 0, so that its row holds fewer than 10 anchors: its top-10 ends
+    in zeros outside it, which select as -1. Returns the arrays of
+    tal_scene."""
+    scene = tal_scene(seed, B=B, N=N, NC=NC, M=M)
+    cx, cy = scene[2][0]
+    scene[4][:, 0] = [cx - 2.5, cy - 2.5, cx + 2.5, cy + 2.5]
+    scene[5][:, 0] = True
+    return scene
+
+
 def tied_tal_scene(seed: int, B: int = 2, side: int = 24, NC: int = 5, M: int = 10):
     """A TAL input with many exactly tied metrics: anchors on a side x side
     grid of stride 4; large gts, so that each holds dozens of anchors; the

@@ -1,17 +1,26 @@
-"""Time the int8 conv kernel's block tiles at the flagship's conv shapes.
+"""Time the int8 serving kernels at the flagship's conv shapes.
 
 Run from the repository root on a machine with the card:
 
-    python3 -m cerberusdet_tpu_torch.tools.bench_conv_int8 [--batch 1 8]
+    python3 -m cerberusdet_tpu_torch.tools.bench_conv_int8 [--batch 1 8] [--kernels conv pack]
 
 It builds 2-task CerberusDet-v8x at 640 px with int8="all" (seeded
-random weights, noise calibration), records the input of every quantized
-Conv of one forward per batch size, and times `conv_s8` (bf16 out, SiLU, as
-the path runs it) at every distinct shape with each block tile the kernel
-has, by the profiler's CUDA trace (the mean of 10 launches). Prints one line
-per shape and tile, then the forward's conv time summed over its 143 convs
-for each fixed tile, for the wrapper's choice (`conv_tile`) and for the best
-tile of each shape, and the card's name and power limit.
+random weights, noise calibration) and records the input of every quantized
+Conv of one forward per batch size. Kernel times come from the profiler's
+CUDA trace (the mean of 10 launches).
+
+- conv: `conv_s8` (bf16 out, SiLU, as the path runs it) at every distinct
+  shape with each block tile the kernel has; one line per shape and tile,
+  then the forward's conv time summed over its 143 convs for each fixed
+  tile, for the wrapper's choice (`conv_tile`) and for the best tile of each
+  shape.
+- pack: `quant_pack_s8` at every distinct input (shape, layout and dtype as
+  the forward hands it over); one line per input with its launches a
+  forward, bytes (the input read once, the NHWC int8 output written once),
+  GB/s and the share of its bytes bound at 3.35 TB/s, then the sums over
+  the forward.
+
+The last line gives the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,23 +41,48 @@ from cerberusdet_tpu_torch.quant import conv_layers
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FLAGSHIP = os.path.join(ROOT, "configs", "models", "yolov8x_2task.yaml")
 INT8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
-def kernel_ms(fn, iters: int = 10) -> float:
-    """Mean device time of the conv kernel per fn() call, from the profiler."""
+def kernel_ms(fn, name: str, iters: int = 10) -> float:
+    """Mean device time of the kernel whose name holds `name` per fn() call,
+    from the profiler."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if "conv_s8_kernel" in e.key]
+    hits = [e for e in prof.key_averages() if name in e.key]
     return sum(e.device_time_total for e in hits) / 1e3 / max(sum(e.count for e in hits), 1)
+
+
+def bench_pack(bs: int, inputs, card: str) -> None:
+    """quant_pack_s8 at each distinct input of a forward: {key: (launches,
+    (x, s_x, ci16))}."""
+    total_ms = total_bound = 0.0
+    for key in sorted(inputs, key=str):
+        n, (x, s_x, ci16) = inputs[key]
+        ms = kernel_ms(lambda: conv_int8_cuda.quant_pack_s8(x, s_x, ci16), "quant_pack")
+        nbytes = x.numel() * x.element_size() + x.numel() // x.shape[1] * ci16
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        total_ms += n * ms
+        total_bound += n * bound
+        layout = "NCHW planes" if (x.stride(3) if x.shape[3] > 1 else x.stride(2)) == 1 \
+            else "channels-last"
+        print(f"batch {bs} quant_pack_s8 {tuple(x.shape)} {str(x.dtype).split('.')[-1]} "
+              f"{layout}{'' if x.is_contiguous() else ' view'} -> Ci16 {ci16} (x{n}): "
+              f"{ms:.4f} ms, {nbytes / 1e6:.3f} MB, {nbytes / ms / 1e6:.1f} GB/s, bound "
+              f"{bound:.4f} ms ({100 * bound / ms:.1f}%)", flush=True)
+    print(f"batch {bs} forward, quant_pack_s8 summed over its launches: {total_ms:.3f} ms, "
+          f"bound {total_bound:.3f} ms ({100 * total_bound / total_ms:.1f}%)  [{card}]",
+          flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
+    ap.add_argument("--kernels", nargs="+", choices=("conv", "pack"), default=["conv", "pack"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_conv_int8: no CUDA device")
@@ -62,20 +96,28 @@ def main(argv=None) -> int:
                                device=dev, int8="all")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for bs in args.batch:
-        shapes = {}
+        shapes, packs = {}, {}
 
         def capture(mod, a):
             x = a[0]
             key = (mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3])
             n, _ = shapes.get(key, (0, None))
             shapes[key] = (n + 1, (mod, x))
+            key = (tuple(x.shape), x.stride(), x.dtype, mod.w_q.shape[3])
+            n, _ = packs.get(key, (0, None))
+            packs[key] = (n + 1, (x, mod.s_x, mod.w_q.shape[3]))
 
         hooks = [m.register_forward_pre_hook(capture) for _, m in conv_layers(inf.model)]
-        x = torch.rand((bs, 3, 640, 640), generator=torch.Generator().manual_seed(bs)).to(
-            dev, torch.bfloat16)
+        # an NHWC batch seen as NCHW, as predict hands the model its input
+        x = torch.rand((bs, 640, 640, 3), generator=torch.Generator().manual_seed(bs)).to(
+            dev, torch.bfloat16).permute(0, 3, 1, 2)
         inf.model(x)
         for h in hooks:
             h.remove()
+        if "pack" in args.kernels:
+            bench_pack(bs, packs, card)
+        if "conv" not in args.kernels:
+            continue
         total = {t: 0.0 for t in TILES}
         chosen = best = macs = 0.0
         for key in sorted(shapes):
@@ -87,7 +129,8 @@ def main(argv=None) -> int:
                 * ((xq.shape[2] + 2 * (k // 2) - k) // s + 1)
             times = {}
             for tile in TILES:
-                times[tile] = kernel_ms(lambda: conv_int8_cuda.conv_s8(*call, tile=tile))
+                times[tile] = kernel_ms(lambda: conv_int8_cuda.conv_s8(*call, tile=tile),
+                                        "conv_s8_kernel")
                 total[tile] += n * times[tile]
             pick = conv_int8_cuda.conv_tile(m, co, sms)
             chosen += n * times[pick]

@@ -13,7 +13,8 @@ Phases, each of which fails the run on anything wrong:
      negative scores, one image, duplicate boxes) and the three TAL
      assigner kernels, stage by stage (identical integer and bool outputs,
      scores within rtol 1e-5, atol 1e-6) on the scenes of the CPU tests
-     and on the flagship train shapes;
+     (N 5 below k, N 333 and 8400, not multiples of 32, a row with fewer
+     than k inside anchors, included) and on the flagship train shapes;
   3. serve the flagship program, 2-task CerberusDet-v8x (voc/animals,
      nc 20/19) at 640 px in bfloat16 with seeded random weights, through
      CerberusPreprocessor and CerberusDetInference.predict at batch 1 and 8:
@@ -23,12 +24,16 @@ Phases, each of which fails the run on anything wrong:
      conv kernel's SASS must hold int8 tensor-core instructions (cuobjdump);
      the two int8 kernels against their plain versions at every distinct
      quantized conv shape of a batch-8 request (quant_pack_s8 on the
-     request's conv inputs in bf16, float32 and int8; conv_s8 in raw int32
-     and the float32 / bf16 / int8 epilogues, and at edge cases), all
-     identical;
+     request's conv inputs in bf16, float32 and int8, and at edge cases:
+     misaligned 15x20 planes, channel slices at odd offsets, channels-last
+     views, HW 1; conv_s8 in raw int32 and the float32 / bf16 / int8
+     epilogues, and at edge cases), all identical;
      3 + 3 requests with one launch of each kernel per quantized Conv and
-     request, identical results with the plain int8 path and NMS, agreement
-     with bf16, and timings (torch._int_mm as the yardstick of a 1x1 conv);
+     request, identical results with the plain int8 path and NMS (also for
+     a letterboxed batch-1 frame, whose maps go down to 15x20), agreement
+     with bf16, and timings (torch._int_mm as the yardstick of a 1x1 conv;
+     a plain copy of quant_pack_s8's largest input as the card's streaming
+     rate);
   4. train the flagship: MultiTaskTrainer.step at 640 px, bf16 compute,
      per-task batch 8, 300 gt rows of which 40 are real, seeded batches and
      init; 2 warm-up and 5 timed steps with finite losses, every TAL kernel
@@ -186,7 +191,7 @@ def tal_stages(inp, nc: int, use_kernel: bool):
     from cerberusdet_tpu_torch.ops import tal_cuda
 
     if use_kernel:
-        sel = tal_cuda.select_kernel(inp, 10, 6)
+        sel = tal_cuda.select_kernel(inp, min(10, inp["scores"].shape[1]), 6)
         tgt, fg, labels, boxes, align, pos = tal_cuda.assign_kernel(inp, sel, 6)
         scores = tal_cuda.norm_kernel(tgt, fg, labels, align, pos, nc, 1e-9)
         return tal_cuda.selection_mask(sel, inp["scores"].shape[1]), \
@@ -363,6 +368,20 @@ def tensor_core_instructions(lib, kernel: str):
     return count, tool
 
 
+# quant_pack_s8's edge cases: (name, storage shape, the view the kernel takes)
+PACK_EDGE_CASES = [
+    ("letterboxed batch 1, 15x20 (bf16 and int8 planes not 16-byte aligned)", (1, 640, 15, 20),
+     lambda t: t),
+    ("misaligned planes at batch 8, Ci 400, 15x20", (8, 400, 15, 20), lambda t: t),
+    ("channel slice at odd offset, 15x20", (2, 161, 15, 20), lambda t: t[:, 1:81]),
+    ("channel slice at odd offset, 40x40 (aligned planes)", (8, 321, 40, 40),
+     lambda t: t[:, 3:163]),
+    ("channels-last, Ci 3, 480x640 at batch 1", (1, 480, 640, 3), lambda t: t.permute(0, 3, 1, 2)),
+    ("channels-last, Ci 80, 20x20", (2, 20, 20, 80), lambda t: t.permute(0, 3, 1, 2)),
+    ("HW 1, Ci 5", (3, 5, 1, 1), lambda t: t),
+]
+
+
 def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     """The int8 serving path at full width: check that the conv kernel runs on
     the int8 tensor cores, hold quant_pack_s8 and conv_s8 against their plain
@@ -376,7 +395,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    from cerberusdet_tpu_torch.infer import CerberusDetInference
+    from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
     from cerberusdet_tpu_torch.nn.module import quantize_act
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
@@ -433,6 +452,16 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     log(f"[quant_pack_s8 vs plain] the inputs of the {len(cases)} distinct quantized convs of "
         f"a batch-8 request (Ci 3 included), in bf16, in float32 and already quantized to "
         f"int8 (packed unscaled): identical")
+    s_x = torch.tensor(0.029, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for name, shape, view in PACK_EDGE_CASES:
+        base = torch.randn(shape, generator=gen, device=dev) * 2.5
+        for xt in (base.to(torch.bfloat16), base, quantize_act(base, s_x)):
+            x = view(xt)
+            ci16 = conv_int8_cuda.padded_channels(x.shape[1])
+            pack_err = max(pack_err, quant_pack_compare(x, s_x, ci16))
+        log(f"[quant_pack_s8 vs plain] edge case {name}: x {tuple(view(base).shape)} strides "
+            f"{view(base).stride()}, in bf16, float32 and int8: identical")
     log(f"[conv_s8 vs plain] {len(cases)} distinct (Ci, Co, k, s, H, W) of the flagship's "
         f"quantized convs at batch 8, on a request's activations, in int32 / float32 / "
         f"bf16 / int8: identical (max |diff| {max_err})")
@@ -525,8 +554,17 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     same_results(out, plain, score_rtol=0.0)
     log("[int8] batch 8 with the plain int8 convs and the plain NMS loop on the card: "
         "identical results")
+    boxed, boxed_shapes = CerberusPreprocessor(img_size=640, auto=True, device=dev).preprocess(
+        frames[1][0])
+    out = inf.predict(boxed, original_shape=boxed_shapes)
+    plain = inf.predict(boxed, original_shape=boxed_shapes, use_kernel=False)
+    same_results(out, plain, score_rtol=0.0)
+    log(f"[int8] a letterboxed batch-1 frame, input {tuple(boxed.shape[1:3])} (maps down to "
+        f"{boxed.shape[1] // 32}x{boxed.shape[2] // 32}), with the plain int8 convs and NMS: "
+        f"identical results ({sum(map(len, out))} detections)")
 
-    # the forward in int8 beside bf16, and the kernels' share of it
+    # the forward in int8 beside bf16, and the kernels' share of it (the
+    # bounds scale the batch-8 request's work: both batches are 640x640)
     for bs in (1, 8):
         bt, _ = pre.preprocess(frames[bs][0])
         x = bt.permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -538,24 +576,24 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
         ms16 = cuda_ms(lambda: inf_bf16.model(x), iters=3)
         log(f"[int8 stages] batch {bs}: int8 forward {ms8:.3f} ms, bf16 forward {ms16:.3f} ms, "
             f"int8 / bf16 {ms8 / ms16:.2f} (CUDA events, 3 calls)  [{card}]")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        inf.model(x)
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    all_us = sum(e.device_time_total for e in ev)
-    share = {}
-    for kern in ("conv_s8_kernel", "quant_pack_s8_kernel"):
-        us = sum(e.device_time_total for e in ev if kern in e.key)
-        share[kern] = (us, sum(e.count for e in ev if kern in e.key))
-    (conv_us, conv_n), (pack_us, pack_n) = share["conv_s8_kernel"], share["quant_pack_s8_kernel"]
-    log(f"[int8 stages] batch 8 forward: {fwd_macs / 1e12:.4f} TMAC in {n_q} quantized "
-        f"convs; profiler: conv_s8 {conv_us / 1e3:.3f} ms in {conv_n} launches "
-        f"(bound {2 * fwd_macs / INT8_OPS_PER_S * 1e3:.3f} ms), quant_pack_s8 "
-        f"{pack_us / 1e3:.3f} ms in {pack_n} launches (bound "
-        f"{pack_bytes[0] / HBM_BYTES_PER_S * 1e3:.3f} ms), of {all_us / 1e3:.3f} ms device "
-        f"time (conv_s8 {100 * conv_us / max(all_us, 1e-9):.1f}%, quant_pack_s8 "
-        f"{100 * pack_us / max(all_us, 1e-9):.1f}%), of a {ms8:.3f} ms forward (events)  "
-        f"[{card}]")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            inf.model(x)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        all_us = sum(e.device_time_total for e in ev)
+        share = {}
+        for kern in ("conv_s8_kernel", "quant_pack"):
+            us = sum(e.device_time_total for e in ev if kern in e.key)
+            share[kern] = (us, sum(e.count for e in ev if kern in e.key))
+        (conv_us, conv_n), (pack_us, pack_n) = share["conv_s8_kernel"], share["quant_pack"]
+        log(f"[int8 stages] batch {bs} forward: {fwd_macs * bs / 8 / 1e12:.4f} TMAC in {n_q} "
+            f"quantized convs; profiler: conv_s8 {conv_us / 1e3:.3f} ms in {conv_n} launches "
+            f"(bound {2 * fwd_macs * bs / 8 / INT8_OPS_PER_S * 1e3:.3f} ms), quant_pack_s8 "
+            f"{pack_us / 1e3:.3f} ms in {pack_n} launches (bound "
+            f"{pack_bytes[0] * bs / 8 / HBM_BYTES_PER_S * 1e3:.3f} ms), of {all_us / 1e3:.3f} ms "
+            f"device time (conv_s8 {100 * conv_us / max(all_us, 1e-9):.1f}%, quant_pack_s8 "
+            f"{100 * pack_us / max(all_us, 1e-9):.1f}%), of a {ms8:.3f} ms forward (events)  "
+            f"[{card}]")
 
     # the kernels alone at the path's most expensive shapes (MACs a launch; on
     # the flagship the Detect cls tower's 3x3 320->320 at 80x80 and the 1x1
@@ -622,13 +660,19 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     key = max(cases, key=lambda c: cases[c][1].numel())
     mod, x = cases[key]
     ci16 = mod.w_q.shape[3]
-    q_ms, how = kernel_ms(lambda: quant_pack_s8(x, mod.s_x, ci16), 20, "quant_pack_s8_kernel")
+    q_ms, how = kernel_ms(lambda: quant_pack_s8(x, mod.s_x, ci16), 20, "quant_pack")
     qp_ms = cuda_ms(lambda: conv_int8_cuda.quant_pack_s8_plain(x, mod.s_x, ci16), iters=5)
     q_bytes = x.numel() * x.element_size() + x.numel() // x.shape[1] * ci16
     q_bound = q_bytes / HBM_BYTES_PER_S * 1e3
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), iters=20)
+    del y
     log(f"[quant_pack_s8 at main-path shapes] x {tuple(x.shape)} bf16 -> (B, H, W, {ci16}) "
         f"int8: kernel {q_ms:.4f} ms ({how}), {q_bytes / q_ms / 1e6:.1f} GB/s, bound "
-        f"{q_bound:.4f} ms ({100 * q_bound / q_ms:.1f}%); plain {qp_ms:.3f} ms  [{card}]")
+        f"{q_bound:.4f} ms ({100 * q_bound / q_ms:.1f}%); plain {qp_ms:.3f} ms; for context, "
+        f"a plain copy of x (torch.empty_like(x).copy_(x), {2 * x.numel() * x.element_size() / 1e6:.1f} "
+        f"MB moved) {copy_ms:.4f} ms by events, {2 * x.numel() * x.element_size() / copy_ms / 1e6:.1f} "
+        f"GB/s  [{card}]")
     entries.append({
         "name": "quant_pack_s8",
         "route": "cuda",
@@ -670,6 +714,7 @@ def main() -> int:
         crowded_tal_scene,
         duplicate_candidates,
         random_candidates,
+        sparse_tal_scene,
         tal_scene,
         tied_tal_scene,
         train_batches,
@@ -740,6 +785,9 @@ def main() -> int:
         ("tied zeros", tied_tal_scene(0), 5),
         ("tied zeros B3 M16", tied_tal_scene(1, B=3, M=16), 5),
         ("crowded: most anchors claimed by several gts", crowded_tal_scene(0), 7),
+        ("sparse N333: a row with fewer than k inside anchors", sparse_tal_scene(4), 7),
+        ("N 5, below k", sparse_tal_scene(5, N=5), 7),
+        ("N 8400, not a multiple of 32", sparse_tal_scene(6, N=8400, M=40), 7),
     ]
     tal_err = {"tal_select": 0, "tal_assign": 0.0, "tal_norm": 0.0}
     for name, scene, nc in tal_cases:

@@ -7,6 +7,7 @@ the plain version must equal lax.conv_general_dilated(int32) and the Pallas
 kernel (interpret mode) bit for bit. Everything float is held to the limits
 stated at each test."""
 
+import itertools
 import os
 
 import jax
@@ -36,6 +37,7 @@ from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     conv_s8,
     conv_s8_plain,
     conv_tile,
+    pack_vectorized,
     pack_weight,
     padded_channels,
     quant_pack_s8,
@@ -149,6 +151,144 @@ def test_quant_pack_plain_matches_jax_quantize_act(dtype, ci):
         assert not view.is_contiguous()
         assert torch.equal(quant_pack_s8(view, torch.tensor(s_x), ci16), ours)
     assert quant_pack_s8.launches == before
+
+
+# ------------------------------------- a CPU model of quant_pack_s8's tiling
+
+# (name, storage shape, view): layouts the kernel takes, each view made from
+# a contiguous storage tensor so that its offset and strides are known
+_PACK_CASES = [
+    ("Ci 3, 15x20", (2, 3, 15, 20), lambda t: t),
+    ("Ci 5, 1x1", (3, 5, 1, 1), lambda t: t),
+    ("Ci 80, 15x20", (2, 80, 15, 20), lambda t: t),
+    ("Ci 400, 15x20", (1, 400, 15, 20), lambda t: t),
+    ("Ci 400, 8x8", (2, 400, 8, 8), lambda t: t),
+    ("Ci 160, 12x12", (2, 160, 12, 12), lambda t: t),
+    ("Ci 320, 7x9", (1, 320, 7, 9), lambda t: t),
+    ("Ci 640, 4x5", (2, 640, 4, 5), lambda t: t),
+    ("Ci 80 slice at channel 1, 15x20", (2, 161, 15, 20), lambda t: t[:, 1:81]),
+    ("Ci 80 slice at channel 3, 8x8", (2, 163, 8, 8), lambda t: t[:, 3:83]),
+    ("Ci 3 channels-last, 15x20", (2, 15, 20, 3), lambda t: t.permute(0, 3, 1, 2)),
+    ("Ci 80 channels-last, 8x8", (2, 8, 8, 80), lambda t: t.permute(0, 3, 1, 2)),
+]
+_PACK_DTYPES = [torch.float32, torch.bfloat16, torch.int8]
+_S_X = 0.029
+
+
+def _pack_input(case, dtype, device="cpu"):
+    """(view, storage) of _PACK_CASES[case] in dtype on device, with ties at
+    half steps and values past the clip."""
+    _, shape, view = _PACK_CASES[case]
+    rng = np.random.default_rng(case)
+    if dtype == torch.int8:
+        flat = torch.from_numpy(rng.integers(-127, 128, int(np.prod(shape)), dtype=np.int8))
+    else:
+        a = rng.normal(0, 2.5, int(np.prod(shape))).astype(np.float32)
+        ties = min(20, a.size)
+        a[:ties] = (np.arange(ties) - 10 + 0.5) * np.float32(_S_X)
+        flat = torch.from_numpy(a).to(dtype)
+    flat = flat.to(device)
+    return view(flat.reshape(shape)), flat
+
+
+def _pack_model(x, flat, ci16):
+    """quant_pack_s8's decomposition, in numpy: which element of the
+    storage each output byte comes from, by which path. For planes at pixel
+    stride 1 the threads take runs of V = 16 / itemsize pixels in the order
+    (image, group of 32 pixels, 16-channel chunk, run in the group: lp = 32
+    / V of them); a thread reads its run of each of its chunk's 16 channels,
+    as one 16-byte load where pack_vectorized holds and the run is whole
+    (it must then be 16-byte aligned, the storage being so), else element by
+    element up to the plane's end; zero past C; then it writes one 16-byte
+    chunk for each of its pixels. Any other layout: a thread per pixel and
+    chunk. Returns ((B, HW, ci16) int8, {path: runs})."""
+    b_, c_, h, w = x.shape
+    hw = h * w
+    sb, sc = x.stride(0), x.stride(1)
+    sp = x.stride(3) if w > 1 else x.stride(2)
+    off = x.storage_offset()
+    size = x.element_size()
+    if x.dtype == torch.int8:
+        codes = flat.numpy().astype(np.int16)
+    else:
+        codes = quantize_act(flat, torch.tensor(_S_X)).numpy().astype(np.int16)
+    out = np.full((b_, hw, ci16), 999, np.int16)  # 999: not written
+    paths = {"vector": 0, "element": 0, "rows": 0}
+    K = ci16 // 16
+    if sp != 1:
+        for t in range(b_ * hw * K):
+            k, bp = t % K, t // K
+            b, p = divmod(bp, hw)
+            for i in range(16):
+                c = 16 * k + i
+                assert out[b, p, c] == 999
+                out[b, p, c] = codes[off + b * sb + p * sp + c * sc] if c < c_ else 0
+            paths["rows"] += 1
+        return out.astype(np.int8), paths
+    v = 16 // size
+    lp = 32 // v
+    vec = pack_vectorized(off * size, sb, sc, size)
+    groups = -(-hw // 32)
+    for b in range(b_):
+        for g in range(groups):
+            for k, pl in itertools.product(range(K), range(lp)):
+                c0 = 16 * k
+                p = g * 32 + pl * v
+                n = hw - p
+                if n <= 0:
+                    continue
+                raw = np.zeros((16, v), np.int16)
+                for i in range(16):
+                    if c0 + i >= c_:
+                        continue
+                    base = off + b * sb + (c0 + i) * sc + p
+                    if vec and n >= v:
+                        assert (base * size) % 16 == 0 and p + v <= hw
+                        raw[i] = codes[base:base + v]
+                        paths["vector"] += 1
+                    else:
+                        raw[i, :min(n, v)] = codes[base:base + min(n, v)]
+                        paths["element"] += 1
+                for j in range(min(n, v)):
+                    assert (out[b, p + j, c0:c0 + 16] == 999).all()
+                    out[b, p + j, c0:c0 + 16] = raw[:, j]
+    assert (out != 999).all(), "an output byte was not written"
+    return out.astype(np.int8), paths
+
+
+@pytest.mark.parametrize("dtype", _PACK_DTYPES)
+@pytest.mark.parametrize("case", range(len(_PACK_CASES)))
+def test_pack_model_matches_plain(case, dtype):
+    """The kernel's tiling, index map and edge masks (the CPU model above)
+    write every output byte once and give quant_pack_s8_plain's packing
+    (flattened over H, W): Ci 3, 5, 80, 160, 320, 400 and 640, HW 300
+    (15x20, misaligned planes in bf16 and int8) and 1, ragged ends, channel
+    slices at odd offsets, channels-last views, in float32, bf16 and int8."""
+    x, flat = _pack_input(case, dtype)
+    ci16 = padded_channels(x.shape[1])
+    got, _ = _pack_model(x, flat, ci16)
+    want = quant_pack_s8_plain(x, torch.tensor(_S_X), ci16).reshape(got.shape)
+    np.testing.assert_array_equal(got, want.numpy(), err_msg=_PACK_CASES[case][0])
+
+
+@pytest.mark.parametrize("dtype", _PACK_DTYPES)
+def test_pack_model_cases_reach_every_path(dtype):
+    """The cases reach the vector path, the element path (misaligned planes
+    and ragged ends) and the channels-last kernel in every dtype."""
+    total = {"vector": 0, "element": 0, "rows": 0}
+    for case in range(len(_PACK_CASES)):
+        x, flat = _pack_input(case, dtype)
+        for key, n in _pack_model(x, flat, padded_channels(x.shape[1]))[1].items():
+            total[key] += n
+    assert all(total.values()), total
+
+
+def test_pack_vectorized():
+    """The vector path's test: every plane starts at a multiple of 16 bytes."""
+    assert pack_vectorized(0, 400 * 400, 400, 2)
+    assert not pack_vectorized(600, 80 * 300, 300, 2)  # a slice at channel 1 of 15x20 bf16
+    assert not pack_vectorized(0, 80 * 300, 300, 1)
+    assert pack_vectorized(1200, 80 * 300, 300, 4)
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -422,9 +562,18 @@ def test_kernel_matches_plain_on_card():
     sums with every block tile.
     The cases add Ci 400 (a multiple of 16,
     not of 32), Co 80 against the 160-wide tile, a batch-1 20x20 map (M below
-    the 128-row tile) and stride 2 on an odd H."""
+    the 128-row tile) and stride 2 on an odd H; quant_pack_s8 also takes the
+    layouts of the CPU model's cases (misaligned 15x20 planes, HW 1, channel
+    slices at odd offsets, channels-last views) in each dtype."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    s_x = torch.tensor(_S_X, device="cuda")
+    for case in range(len(_PACK_CASES)):
+        for dtype in _PACK_DTYPES:
+            x, _ = _pack_input(case, dtype, "cuda")
+            ci16 = padded_channels(x.shape[1])
+            assert torch.equal(quant_pack_s8(x, s_x, ci16), quant_pack_s8_plain(x, s_x, ci16)), \
+                (_PACK_CASES[case][0], dtype)
     rng = np.random.default_rng(0)
     for ci, co, k, s, hw in EDGE_CASES:
         p = {key: v.cuda() for key, v in _torch_leaf(_ptq_params(rng, ci, co, k)).items()}
