@@ -48,8 +48,15 @@
 //               keeps align at its gt, and folds align and CIoU into the
 //               gt's maxima pos (B, M, 2) with atomicMax on the int bits
 //               (exact: the values are >= +0).
-//   tal_norm    one thread per (image, anchor, class): target_scores =
-//               (fg and class == label) ? align * pos_ov / (pos_align + eps) : 0.
+//   tal_norm    target_scores = (fg and class == label) ?
+//               align * pos_ov / (pos_align + eps) : 0, a block per 256
+//               anchors: each anchor's inputs read once by one thread, its
+//               (class, value) staged in shared memory, and the block's
+//               contiguous 256 * nc floats of output written as 16-byte
+//               stores (bytes-bound: the output is 5.4 MB of the ~6.8 MB it
+//               moves at the flagship shapes; the thread per (anchor, class)
+//               it replaces re-read an anchor's inputs nc times, divided by
+//               nc in 64 bits and stored 4 bytes a thread).
 //
 // What bounds it on this card: neither bytes nor operations. At the flagship
 // shapes (B 8, M 300 with 40 valid, N 8400) the work is ~2.7 M (gt, anchor)
@@ -476,22 +483,55 @@ tal_assign_kernel(const float* __restrict__ scores, const float4* __restrict__ p
 }
 
 // ------------------------------------------------------------------ tal_norm
+// A block per kNormAnchors consecutive anchors of the flat (B * N) range.
+// Phase 1, a thread per anchor: its class (-1 for background) and value,
+// each input read once, into shared memory. Phase 2: the block's output is
+// the contiguous run of n * nc floats from a0 * nc, which starts 16-byte
+// aligned for any nc (a0 * nc * 4 is a multiple of kNormAnchors * 4); the
+// threads sweep it as float4, each element's anchor and class taken from its
+// index, and store the ragged tail (fewer than 4 floats) one by one.
+constexpr int kNormAnchors = kThreads;
+
 __global__ void __launch_bounds__(kThreads)
 tal_norm_kernel(const int64_t* __restrict__ tgt, const uint8_t* __restrict__ fg,
                 const int64_t* __restrict__ label, const float* __restrict__ align,
                 const float* __restrict__ pos, int N, int M, int nc, float eps,
-                int64_t total, float* __restrict__ target_scores) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int64_t a = i / nc;
-  const int c = (int)(i - a * nc);
+                int64_t anchors, float* __restrict__ target_scores) {
+  __shared__ int s_cls[kNormAnchors];
+  __shared__ float s_val[kNormAnchors];
+  const int64_t a0 = (int64_t)blockIdx.x * kNormAnchors;
+  const int64_t a = a0 + threadIdx.x;
+  int cls = -1;
   float v = 0.f;
-  if (fg[a] && c == label[a]) {
+  if (a < anchors && fg[a]) {
     const int64_t b = a / N;
     const float* pg = pos + (b * M + tgt[a]) * 2;
+    cls = (int)label[a];
     v = __fdiv_rn(__fmul_rn(align[a], pg[1]), __fadd_rn(pg[0], eps));
   }
-  target_scores[i] = v;
+  s_cls[threadIdx.x] = cls;
+  s_val[threadIdx.x] = v;
+  __syncthreads();
+
+  const int64_t left = anchors - a0;
+  const int count = (left < kNormAnchors ? (int)left : kNormAnchors) * nc;
+  float* out = target_scores + a0 * nc;
+  const int nvec = count >> 2;
+  for (int q = threadIdx.x; q < nvec; q += kThreads) {
+    int e = q << 2;
+    int an = e / nc, c = e - an * nc;
+    float r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r[j] = s_cls[an] == c ? s_val[an] : 0.f;
+      if (++c == nc) { c = 0; ++an; }
+    }
+    reinterpret_cast<float4*>(out)[q] = make_float4(r[0], r[1], r[2], r[3]);
+  }
+  for (int e = (nvec << 2) + threadIdx.x; e < count; e += kThreads) {
+    const int an = e / nc;
+    out[e] = s_cls[an] == e - an * nc ? s_val[an] : 0.f;
+  }
 }
 
 }  // namespace
@@ -552,14 +592,15 @@ int cerberus_tal_assign(const float* scores, const float* pd_boxes, const float*
   return (int)cudaGetLastError();
 }
 
-// target_scores (B, N, nc) f32 is written.
+// target_scores (B, N, nc) f32, 16-byte aligned, is written.
 int cerberus_tal_norm(const int64_t* tgt, const uint8_t* fg, const int64_t* label,
                       const float* align, const float* pos, int B, int N, int M, int nc,
                       float eps, float* target_scores, void* stream) {
-  const int64_t total = (int64_t)B * N * nc;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  const int64_t anchors = (int64_t)B * N;
+  const unsigned blocks = (unsigned)((anchors + kNormAnchors - 1) / kNormAnchors);
+  if (blocks == 0) return 0;
   tal_norm_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tgt, fg, label, align, pos, N, M, nc, eps, total, target_scores);
+      tgt, fg, label, align, pos, N, M, nc, eps, anchors, target_scores);
   return (int)cudaGetLastError();
 }
 

@@ -4,21 +4,27 @@ Counterpart of cerberusdet_tpu/infer/inference.py: forward over all heads ->
 per-task NMS -> global class-id remap -> cross-task suppression -> boxes
 scaled to the original shapes -> [{box, score, label, label_name, task}] per
 image. Everything up to the formatting runs on the device; `predict` syncs
-once, to copy the fixed-shape result to the host.
+once, to copy the fixed-shape result to the host. On the card that device
+part is one CUDA graph per key, captured at the key's first request and
+replayed after (infer/graphs.py), as the JAX package jits `_predict_impl`.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from cerberusdet_tpu_torch import resolve_device
+from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
 from cerberusdet_tpu_torch.manager.weights import load_jax_params
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
 from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8
 from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, non_max_suppression
+from cerberusdet_tpu_torch.ops.nms_cuda import greedy_nms_cuda
 from cerberusdet_tpu_torch.quant import (
     calibrate_amax,
     conv_layers,
@@ -29,6 +35,8 @@ from cerberusdet_tpu_torch.quant import (
 )
 
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
+# the kernel wrappers that predict_device reaches on the card
+SERVING_KERNELS = (greedy_nms_cuda, quant_pack_s8, conv_s8)
 
 
 def build_category_map(names: Dict[str, Sequence[str]]):
@@ -55,12 +63,26 @@ class CerberusDetInference:
     overrides `half` when given. The decode and NMS run in float32 as in the
     JAX package.
 
+    On the card, `predict` runs one CUDA graph per key (`program_key`: the
+    batch's shape and dtype, the compute dtype, the int8 mode and the
+    static arguments conf_thres, iou_thres, iou_thres_between_tasks,
+    agnostic and max_det, as the JAX package's jit cache keys
+    `_predict_impl`). The first request of a key runs `predict_device`
+    eagerly once and captures it; later requests copy their batch into the
+    graph's static input, replay, and copy the result to the host in one
+    transfer. The graphs share one memory pool. They hold the addresses of
+    the model's parameters and buffers: after a capture the weights may
+    change only in place (`copy_`), and load_jax_params and quantization
+    run before it (construction does both). On the CPU, and with
+    use_kernel=False, `predict` runs `predict_device` eagerly.
+
     warmup_batch=n runs one `predict` on zeros of batch n at `img_size` at
-    construction, which builds the kernels and lets cuDNN choose its
-    algorithms before the first request. With warmup_batch None there is no
-    warm-up: that is the one difference from the JAX package, which always
-    warms up (at batch 1 by default) because its warm-up compiles the
-    program; here a forward on the CPU at 640 px would cost seconds.
+    construction, which builds the kernels and, on the card, captures the
+    program of that batch and the default thresholds, as the JAX package's
+    warm-up compiles it. With warmup_batch None there is no warm-up: that
+    is the one difference from the JAX package, which always warms up (at
+    batch 1 by default); here a forward on the CPU at 640 px would cost
+    seconds.
 
     int8: "off" | "deep" | "all", post-training quantization of the fused
     Convs (quant/ptq.py): "all" every Conv, "deep" those with at least 256
@@ -121,7 +143,11 @@ class CerberusDetInference:
                             select=select_all if int8 == "all" else select_deep(),
                             weights=fused)
             del fused
+        self.int8 = int8
         self.int8_convs = [m for _, m in conv_layers(self.model) if m.int8]
+        self.programs: Dict[tuple, CapturedProgram] = {}
+        self._pool = None
+        self._lock = threading.Lock()
         self.names = dict(names)
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -133,6 +159,12 @@ class CerberusDetInference:
         self.task_order = list(self.names.keys())
         if warmup_batch is not None:
             self.predict(np.zeros((warmup_batch, img_size, img_size, 3), np.float32))
+
+    def program_key(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,
+                    iou_bt: float, agnostic: bool, max_det: int) -> tuple:
+        """The key of `predict`'s captured program for this request."""
+        return (tuple(batch.shape), batch.dtype, self.dtype, self.int8, float(conf_thres),
+                float(iou_thres), float(iou_bt), bool(agnostic), int(max_det))
 
     @torch.no_grad()
     def predict_device(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,
@@ -178,20 +210,33 @@ class CerberusDetInference:
         (CerberusPreprocessor's output). Returns per image a list of
         {box, score, label, label_name, task} dicts, by descending score.
         use_kernel=False runs the plain NMS loop and the plain int8 convs
-        instead of their kernels (a test hook; see ops/nms.py and
+        instead of their kernels, eagerly (a test hook; see ops/nms.py and
         nn/module.py:conv2d_int8)."""
         conf_thres = self.conf_thres if conf_thres is None else conf_thres
         iou_thres = self.iou_thres if iou_thres is None else iou_thres
         iou_bt = (self.iou_thres_between_tasks if iou_thres_between_tasks is None
                   else iou_thres_between_tasks)
         max_det = self.max_det if max_det is None else max_det
-        batch = torch.as_tensor(batch, device=self.device)
-        merged, task_idx, keep = self.predict_device(
-            batch, conf_thres, iou_thres, iou_bt, bool(agnostic_nms), int(max_det),
-            use_kernel)
-        merged = merged.cpu().numpy()
-        task_idx = task_idx.cpu().numpy()
-        keep = keep.cpu().numpy()
+        batch = torch.as_tensor(batch)
+        args = (float(conf_thres), float(iou_thres), float(iou_bt), bool(agnostic_nms),
+                int(max_det))
+        if self.device.type == "cuda" and use_kernel is not False:
+            key = self.program_key(batch, *args)
+            with self._lock:
+                prog = self.programs.get(key)
+                if prog is None:
+                    if self._pool is None:
+                        self._pool = torch.cuda.graph_pool_handle()
+                    prog = CapturedProgram(
+                        lambda x: pack_outputs(*self.predict_device(x, *args)), batch,
+                        self.device, self._pool, SERVING_KERNELS)
+                    self.programs[key] = prog
+                host = prog.run(batch).cpu()
+        else:
+            host = pack_outputs(*self.predict_device(batch.to(self.device), *args,
+                                                     use_kernel)).cpu()
+        merged, task_idx, keep = unpack_outputs(host.numpy(), batch.shape[0],
+                                                len(self.task_order) * int(max_det))
 
         net_shape = tuple(batch.shape[1:3])
         results: List[List[Dict]] = []
@@ -216,3 +261,20 @@ class CerberusDetInference:
                 })
             results.append(image_results)
         return results
+
+
+def pack_outputs(merged: torch.Tensor, task_idx: torch.Tensor,
+                 keep: torch.Tensor) -> torch.Tensor:
+    """predict_device's outputs as the bytes of one buffer, for one copy to
+    the host: merged float32, task_idx int32, keep bool."""
+    return torch.cat([merged.float().reshape(-1).view(torch.uint8),
+                      task_idx.to(torch.int32).reshape(-1).view(torch.uint8),
+                      keep.reshape(-1).view(torch.uint8)])
+
+
+def unpack_outputs(buf: np.ndarray, b: int, m: int):
+    """pack_outputs's buffer on the host -> (merged (b, m, 6), task_idx (b, m), keep (b, m))."""
+    n = b * m
+    return (buf[:24 * n].view(np.float32).reshape(b, m, 6),
+            buf[24 * n:28 * n].view(np.int32).reshape(b, m),
+            buf[28 * n:].view(np.bool_).reshape(b, m))

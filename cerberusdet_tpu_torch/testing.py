@@ -152,6 +152,24 @@ def sparse_tal_scene(seed: int, B: int = 2, N: int = 333, NC: int = 7, M: int = 
     return scene
 
 
+def norm_scene(seed: int, B: int, N: int, M: int, nc: int, fg_share: float = 0.3):
+    """tal_norm's inputs as tal_assign writes them: tgt (B, N) int64 in
+    [0, M), fg (B, N) bool (about fg_share of the anchors; 0 for an
+    all-background batch), labels (B, N) int64 in [0, nc), align (B, N)
+    float32 and pos (B, M, 2) float32 (each gt's max align and max CIoU),
+    all >= 0, with exact zeros among them."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.integers(0, M, (B, N)).astype(np.int64)
+    fg = rng.uniform(0, 1, (B, N)) < fg_share
+    labels = rng.integers(0, nc, (B, N)).astype(np.int64)
+    align = rng.uniform(0, 1, (B, N)).astype(np.float32)
+    align[rng.uniform(0, 1, (B, N)) < 0.1] = 0.0
+    pos = rng.uniform(0, 1, (B, M, 2)).astype(np.float32)
+    pos[..., 0] = np.maximum(pos[..., 0], 0.05)
+    pos[:, 0, 1] = 0.0
+    return tgt, fg, labels, align, pos
+
+
 def tied_tal_scene(seed: int, B: int = 2, side: int = 24, NC: int = 5, M: int = 10):
     """A TAL input with many exactly tied metrics: anchors on a side x side
     grid of stride 4; large gts, so that each holds dozens of anchors; the

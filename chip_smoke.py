@@ -15,11 +15,23 @@ Phases, each of which fails the run on anything wrong:
      scores within rtol 1e-5, atol 1e-6) on the scenes of the CPU tests
      (N 5 below k, N 333 and 8400, not multiples of 32, a row with fewer
      than k inside anchors, included) and on the flagship train shapes;
+     tal_norm identical with the plain normalise on the same inputs, on
+     those scenes and at nc 20, 19 and 1, on an all-background batch and
+     where B * N is not a multiple of its 256-anchor block;
   3. serve the flagship program, 2-task CerberusDet-v8x (voc/animals,
      nc 20/19) at 640 px in bfloat16 with seeded random weights, through
-     CerberusPreprocessor and CerberusDetInference.predict at batch 1 and 8:
-     every NMS launch is counted, and the results equal those of the same
-     batches (1 and 8) with the plain NMS loop on the card;
+     CerberusPreprocessor and CerberusDetInference.predict at batch 1 and 8.
+     The first request of each key captures predict's CUDA graph; later
+     requests replay it, and the NMS launches they count are the captured
+     launches times the replays (checked against the profiler's trace of a
+     replay, by kernel name). The results equal those of the same batches
+     with the plain NMS loop run eagerly; each replay equals predict_device
+     run eagerly, bit for bit, for the capturing request and for one with
+     other frames; a new threshold captures a new key, and there is one
+     capture per key. Eager and replayed requests are timed, with their
+     device-busy shares and the graph pool's size. The preprocessor
+     letterboxes 4 source shapes on the card (each replay identical with
+     its eager run) and sends a fifth to the host;
   3b. serve the same model in int8 (int8="all", noise calibration): the
      conv kernel's SASS must hold int8 tensor-core instructions (cuobjdump);
      the two int8 kernels against their plain versions at every distinct
@@ -28,12 +40,12 @@ Phases, each of which fails the run on anything wrong:
      misaligned 15x20 planes, channel slices at odd offsets, channels-last
      views, HW 1; conv_s8 in raw int32 and the float32 / bf16 / int8
      epilogues, and at edge cases), all identical;
-     3 + 3 requests with one launch of each kernel per quantized Conv and
-     request, identical results with the plain int8 path and NMS (also for
-     a letterboxed batch-1 frame, whose maps go down to 15x20), agreement
-     with bf16, and timings (torch._int_mm as the yardstick of a 1x1 conv;
-     a plain copy of quant_pack_s8's largest input as the card's streaming
-     rate);
+     3 + 3 replayed requests with one launch of each kernel per quantized
+     Conv and request, identical results with the plain int8 path and NMS
+     (also for a letterboxed batch-1 frame, whose maps go down to 15x20),
+     replays identical with eager runs, agreement with bf16, and timings
+     (torch._int_mm as the yardstick of a 1x1 conv; a plain copy of
+     quant_pack_s8's largest input as the card's streaming rate);
   4. train the flagship: MultiTaskTrainer.step at 640 px, bf16 compute,
      per-task batch 8, 300 gt rows of which 40 are real, seeded batches and
      init; 2 warm-up and 5 timed steps with finite losses, every TAL kernel
@@ -41,7 +53,8 @@ Phases, each of which fails the run on anything wrong:
      the plain assigner giving the same losses;
   5. check against a reference on a small input: yolov8n_2task at 64 px in
      float64 on the card against the port's CPU path, for predict and for
-     one train step.
+     one train step; the float64 replay equals an eager run, also after an
+     in-place weight update, which it sees.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -208,21 +221,203 @@ def tal_stages(inp, nc: int, use_kernel: bool):
         scores
 
 
-def tal_compare(inp, nc: int):
-    """Each TAL kernel against its plain stage on the same inputs. Returns
-    (max |diff| per kernel, the plain stage-1 positives)."""
+def norm_compare(tgt, fg, labels, align, pos, nc: int) -> float:
+    """tal_norm against the plain normalise on the same per-anchor inputs
+    (tal_assign's outputs; the plain version takes the resolved mask and
+    the align metric scattered to (B, M, N) at each anchor's gt). Returns
+    the largest |kernel - plain| (0); raises on any difference."""
     import torch
+
+    from cerberusdet_tpu_torch.ops import tal_cuda
+
+    b, n = tgt.shape
+    m = pos.shape[1]
+    got = tal_cuda.norm_kernel(tgt, fg, labels, align, pos, nc, 1e-9)
+    zeros = torch.zeros((b, m, n), device=tgt.device)
+    mask_pos = zeros.scatter(1, tgt[:, None], fg[:, None].float())
+    align3 = zeros.scatter(1, tgt[:, None], align[:, None])
+    want = tal_cuda.TaskAlignedAssigner(10, nc).normalise(
+        labels, fg, mask_pos, align3, pos[..., 0], pos[..., 1], torch.float32)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        log(f"[tal_norm vs plain] B,N,nc={tuple(got.shape)}: {int((got != want).sum())} of "
+            f"{got.numel()} values differ")
+        raise AssertionError("tal_norm disagrees with the plain normalise")
+    return float((got - want).abs().max())
+
+
+def tal_compare(inp, nc: int):
+    """Each TAL kernel against its plain stage on the same inputs (tal_norm
+    on tal_assign's outputs, identical; the scores of the whole assignment
+    within rtol 1e-5, atol 1e-6). Returns (max |diff| per kernel, the plain
+    stage-1 positives)."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops import tal_cuda
 
     pk, ak, sk = tal_stages(inp, nc, use_kernel=True)
     pp, ap, sp = tal_stages(inp, nc, use_kernel=False)
     torch.cuda.synchronize()
+    sel = tal_cuda.select_kernel(inp, min(10, inp["scores"].shape[1]), 6)
+    tgt, fg, labels, _, align, pos = tal_cuda.assign_kernel(inp, sel, 6)
     err = {"tal_select": int((pk != pp).sum()),
            "tal_assign": max(float((x.double() - y.double()).abs().max()) for x, y in zip(ak, ap)),
-           "tal_norm": float((sk - sp).abs().max())}
+           "tal_norm": norm_compare(tgt, fg, labels, align, pos, nc)}
     torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
     if err["tal_select"] or err["tal_assign"]:
         raise AssertionError(f"TAL kernels disagree with the plain stages: {err}")
     return err, pp
+
+
+# the symbols of the serving kernels, by wrapper (ops/nms_cuda.py, ops/conv_int8_cuda.py)
+KERNEL_SYMBOLS = {"greedy_nms_cuda": "nms_kernel", "quant_pack_s8": "quant_pack",
+                  "conv_s8": "conv_s8_kernel"}
+
+
+def pool_mib(pool) -> float:
+    """MiB of device memory the allocator holds in the graph memory pool
+    `pool` (its segments)."""
+    import torch
+
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id") or ()) == tuple(pool)) / 2**20
+
+
+def graph_kernel_names(graph) -> list:
+    """Names of the kernel nodes of a captured torch.cuda.CUDAGraph that
+    kept its cudaGraph_t, read through the driver API."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+            (f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p, name = KernelNodeParams(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams")
+        check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def replay_matches_eager(inf, batch, args) -> None:
+    """A request through predict (its key's graph, captured on first use)
+    against predict_device run eagerly on the same batch: the packed
+    outputs (merged, task_idx, keep) must be identical, bit for bit."""
+    import torch
+
+    from cerberusdet_tpu_torch.infer.inference import pack_outputs
+
+    conf, iou, iou_bt, agnostic, max_det = args
+    inf.predict(batch, conf_thres=conf, iou_thres=iou, iou_thres_between_tasks=iou_bt,
+                agnostic_nms=agnostic, max_det=max_det)
+    xb = torch.as_tensor(batch)
+    replayed = inf.programs[inf.program_key(xb, *args)].run(xb).clone()
+    eager = pack_outputs(*inf.predict_device(xb.to(inf.device), *args))
+    if not torch.equal(replayed, eager):
+        raise AssertionError(f"a replayed request differs from predict_device run eagerly "
+                             f"(batch {tuple(xb.shape)}, {xb.dtype}, args {args})")
+
+
+def graph_timings(inf, bt, args, card: str, label: str):
+    """Eager against replayed on the device batch `bt`, whose program is
+    captured: the device request (predict_device and one copy of its packed
+    outputs to the host, against a replay and the same copy) by host clock,
+    median of 5 after 2 warm-ups; the device part alone by CUDA events over
+    5 calls; each one's device-busy share, the profiler's device time of
+    one request over the host-clock median (the tracing lengthens the
+    profiled call itself, whose time is printed beside). The launches the
+    capture recorded must equal the graph's own kernel nodes, by name: what
+    every replay runs. The profiler's trace of one replay, by name, may show
+    fewer (CUPTI drops records when a graph's thousands of launches outrun
+    it; kernel_ms sees the same with eager launches) but never more, and
+    the line says how many it showed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberusdet_tpu_torch.infer.inference import pack_outputs
+
+    prog = inf.programs[inf.program_key(bt, *args)]
+    fns = {"eager": lambda: pack_outputs(*inf.predict_device(bt, *args)).cpu(),
+           "replayed": lambda: prog.run(bt).cpu()}
+    host, busy, wall, traces = {}, {}, {}, {}
+    for name, fn in fns.items():
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        host[name] = 1e3 * float(np.median(times))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            wall[name] = 1e3 * (time.perf_counter() - t)
+        traces[name] = prof.key_averages()
+        busy[name] = sum(e.device_time_total for e in traces[name]) / 1e3
+    dev_eager = cuda_ms(lambda: inf.predict_device(bt, *args), iters=5)
+    dev_replay = cuda_ms(prog.graph.replay, iters=5)
+    recorded = {w.__name__: n for w, n in zip(prog.counted, prog.launches) if n}
+    nodes = graph_kernel_names(prog.graph)
+    in_graph = {w: sum(KERNEL_SYMBOLS[w] in k for k in nodes) for w in recorded}
+    if in_graph != recorded:
+        raise AssertionError(f"{label}: the graph holds {in_graph} kernel nodes, the capture "
+                             f"recorded {recorded}")
+    seen = {w: sum(e.count for e in traces["replayed"] if KERNEL_SYMBOLS[w] in e.key)
+            for w in recorded}
+    if any(seen[w] > n for w, n in recorded.items()):
+        raise AssertionError(f"{label}: one replay's trace shows {seen}, more than the graph's "
+                             f"{recorded}")
+    how = (f"the graph's {len(nodes)} kernel nodes hold the captured launches {recorded}; "
+           f"the trace of one replay shows {seen}"
+           + ("" if seen == recorded else " (the trace dropped records)"))
+    share = {k: busy[k] / host[k] for k in host}
+    log(f"[graphs] {label} batch {bt.shape[0]}: device request (predict_device + one copy to "
+        f"the host) eager {host['eager']:.3f} ms, replayed {host['replayed']:.3f} ms (host "
+        f"clock, median of 5), {host['eager'] / host['replayed']:.2f}x; device part alone eager "
+        f"{dev_eager:.3f} ms, replayed {dev_replay:.3f} ms (CUDA events, 5 calls); device busy "
+        f"eager {busy['eager']:.3f} ms = {100 * share['eager']:.1f}%, replayed "
+        f"{busy['replayed']:.3f} ms = {100 * share['replayed']:.1f}% (the profiler's device "
+        f"time of one request over the host-clock median; the profiled call itself took "
+        f"{wall['eager']:.3f} / {wall['replayed']:.3f} ms); {how}  [{card}]")
+
+
+def first_requests(inf, pre, frames, label: str, card: str):
+    """The first request of each batch size (1 and 8) with the default
+    arguments: it runs predict_device eagerly, captures it and replays.
+    Logs each one's host time and the graph pool's size after it."""
+    import torch
+
+    for bs in (1, 8):
+        batch, shapes = pre.preprocess(frames[bs][0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inf.predict(batch, original_shape=shapes)
+        took = time.perf_counter() - t
+        log(f"[graphs] {label} batch {bs}: first request of the key (eager run + capture + "
+            f"replay) {took:.3f} s; graph pool {pool_mib(inf._pool):.1f} MiB after it  [{card}]")
 
 
 def tal_work(inp, positives, nc: int):
@@ -435,8 +630,8 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
 
     macs, pack_bytes = [0], [0]
     hooks = [m.register_forward_pre_hook(capture) for m in inf.int8_convs]
-    batch8, shapes8 = pre.preprocess(frames[8][0])
-    inf.predict(batch8, original_shape=shapes8)
+    batch8, _ = pre.preprocess(frames[8][0])
+    inf.predict_device(batch8, CONF, 0.45, 0.8, False, 300)  # eager: the hooks see one forward
     for h in hooks:
         h.remove()
     fwd_macs = macs[0]
@@ -498,10 +693,10 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
             f"{s}: identical with the chosen tile and with each of {conv_int8_cuda.TILES}")
     del edge
 
-    # the main path: 3 requests at batch 1 and 3 at batch 8
-    for bs in (1, 8):  # warmup
-        batch, shapes = pre.preprocess(frames[bs][0])
-        inf.predict(batch, original_shape=shapes)
+    # the main path: 3 requests at batch 1 and 3 at batch 8, after the first
+    # request of each batch size has captured its program
+    first_requests(inf, pre, frames, "int8", card)
+    programs = dict(inf.programs)
     torch.cuda.synchronize()
     conv_s8.launches = 0
     quant_pack_s8.launches = 0
@@ -528,6 +723,9 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
             or nms_launches != len(TASKS) * n_requests:
         raise AssertionError("the int8 path did not launch quant_pack_s8 and conv_s8 once per "
                              "quantized Conv and request, or NMS once per task and request")
+    if inf.programs != programs or sum(p.replays for p in programs.values()) != n_requests + 2:
+        raise AssertionError("the int8 requests did not replay the graphs captured by the first "
+                             "request of each batch size")
     for bs, times in per_bs.items():
         ms = 1e3 * float(np.median(times))
         log(f"[int8] batch {bs}: {ms:.2f} ms/request (median of {len(times)}, preprocess + "
@@ -562,6 +760,21 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     log(f"[int8] a letterboxed batch-1 frame, input {tuple(boxed.shape[1:3])} (maps down to "
         f"{boxed.shape[1] // 32}x{boxed.shape[2] // 32}), with the plain int8 convs and NMS: "
         f"identical results ({sum(map(len, out))} detections)")
+
+    args = (CONF, 0.45, 0.8, False, 300)
+    for bs in (1, 8):
+        for imgs in frames[bs][:2]:  # the capturing request, then other frames
+            replay_matches_eager(inf, pre.preprocess(imgs)[0], args)
+    keys = {inf.program_key(torch.zeros(shape), *args)
+            for shape in [(1, 640, 640, 3), (8, 640, 640, 3), tuple(boxed.shape)]}
+    if set(inf.programs) != keys or any(inf.programs[k] is not p for k, p in programs.items()):
+        raise AssertionError(f"int8: {len(inf.programs)} programs for {len(keys)} keys")
+    log(f"[graphs] int8: replayed == predict_device run eagerly, bit for bit, at batch 1 and "
+        f"8, for the capturing request and one with other frames; {len(inf.programs)} "
+        f"captures for {len(keys)} distinct keys (the letterboxed frame's included); graph "
+        f"pool {pool_mib(inf._pool):.1f} MiB  [{card}]")
+    for bs in (1, 8):
+        graph_timings(inf, pre.preprocess(frames[bs][0])[0], args, card, "int8")
 
     # the forward in int8 beside bf16, and the kernels' share of it (the
     # bounds scale the batch-8 request's work: both batches are 640x640)
@@ -702,6 +915,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
+    from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda, tal_cuda
     from cerberusdet_tpu_torch.ops.nms import (
@@ -713,6 +927,7 @@ def main() -> int:
         boundary_candidates,
         crowded_tal_scene,
         duplicate_candidates,
+        norm_scene,
         random_candidates,
         sparse_tal_scene,
         tal_scene,
@@ -797,6 +1012,16 @@ def main() -> int:
         log(f"[tal kernels vs plain] {name}: B,M,N={tuple(pos.shape)} positives "
             f"{int(pos.sum())} max|diff| {err}")
 
+    norm_cases = [("the flagship's B 8, N 8400, nc 20", 8, 8400, 20, 0.3),
+                  ("nc 19", 8, 8400, 19, 0.3), ("nc 1", 3, 333, 1, 0.5),
+                  ("an all-background batch", 8, 8400, 20, 0.0),
+                  ("B * N 999, not a multiple of 256", 3, 333, 19, 0.3)]
+    for name, b, n, nc, share in norm_cases:
+        t = [torch.from_numpy(x).to(dev) for x in norm_scene(n + nc, b, n, 12, nc, share)]
+        tal_err["tal_norm"] = max(tal_err["tal_norm"], norm_compare(*t, nc))
+        log(f"[tal_norm vs plain] {name}: B,N,nc=({b}, {n}, {nc}), {int(t[1].sum())} fg "
+            f"anchors: identical")
+
     # ---- 3. the main path at full width
     names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
     t0 = time.perf_counter()
@@ -811,9 +1036,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     frames = {bs: [list(rng.integers(0, 256, (bs, 480, 640, 3), dtype=np.uint8))
                    for _ in range(3)] for bs in (1, 8)}
-    for bs in (1, 8):  # warmup: cuDNN algorithm choice, allocator
-        batch, shapes = pre.preprocess(frames[bs][0])
-        inf.predict(batch, original_shape=shapes)
+    first_requests(inf, pre, frames, "bf16", card)
+    programs = dict(inf.programs)
     torch.cuda.synchronize()
 
     nms_cuda.greedy_nms_cuda.launches = 0
@@ -835,9 +1059,12 @@ def main() -> int:
     if launches != len(TASKS) * n_requests:
         raise AssertionError("the main path did not launch the NMS kernel once per task "
                              "and request")
+    if inf.programs != programs or sum(p.replays for p in programs.values()) != n_requests + 2:
+        raise AssertionError("the requests did not replay the graphs captured by the first "
+                             "request of each batch size")
     for bs, times in per_bs.items():
         ms = 1e3 * float(np.median(times))
-        log(f"[main] batch {bs}: {ms:.2f} ms/request (median of {len(times)}, "
+        log(f"[main] batch {bs}: {ms:.2f} ms/request (median of {len(times)}, replayed, "
             f"preprocess + predict, host clock), {bs / ms * 1e3:.1f} img/s  [{card}]")
     for batch, shapes, out in served:
         assert len(out) == batch.shape[0]
@@ -857,6 +1084,36 @@ def main() -> int:
         plain = inf.predict(batch, original_shape=shapes, use_kernel=False)
         same_results(out, plain, score_rtol=0.0)
     log("[main] batch 1 and batch 8 with the plain NMS loop on the card: identical results")
+
+    # the captured programs: one per key, each replay identical with an eager run
+    args = (CONF, 0.45, 0.8, False, 300)
+    for bs in (1, 8):
+        for imgs in frames[bs][:2]:  # the capturing request, then other frames
+            replay_matches_eager(inf, pre.preprocess(imgs)[0], args)
+    bt1 = pre.preprocess(frames[1][0])[0]
+    replay_matches_eager(inf, bt1, (CONF, 0.5, 0.8, False, 300))
+    keys = {inf.program_key(bt1, *args), inf.program_key(served[-1][0], *args),
+            inf.program_key(bt1, CONF, 0.5, 0.8, False, 300)}
+    if set(inf.programs) != keys or any(inf.programs[k] is not p for k, p in programs.items()):
+        raise AssertionError(f"bf16: {len(inf.programs)} programs for {len(keys)} keys")
+    log(f"[graphs] bf16: replayed == predict_device run eagerly, bit for bit, at batch 1 and "
+        f"8, for the capturing request and one with other frames; iou_thres 0.5 captured a "
+        f"new key: {len(inf.programs)} captures for {len(keys)} distinct keys; graph pool "
+        f"{pool_mib(inf._pool):.1f} MiB  [{card}]")
+
+    # the preprocessor: one letterbox graph per source shape and batch, at most 4 shapes
+    for hw in [(720, 1280), (1080, 1920), (640, 640)]:
+        imgs = list(rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8))
+        out, _ = pre.preprocess(imgs)
+        eager = pre._device_fn(*hw)(torch.from_numpy(np.stack(imgs)).to(dev))
+        if not isinstance(out, torch.Tensor) or not torch.equal(out, eager):
+            raise AssertionError(f"the device letterbox of {hw} differs from its eager run")
+    fifth, _ = pre.preprocess(list(rng.integers(0, 256, (2, 300, 400, 3), dtype=np.uint8)))
+    if not isinstance(fifth, np.ndarray) or len(pre._device_fns) != 4:
+        raise AssertionError("a fifth source shape did not take the host letterbox")
+    log(f"[graphs] preprocessor: 4 source shapes letterboxed on the card, each replay "
+        f"identical with its eager run ({len(pre._programs)} graphs); a fifth shape took the "
+        f"host path")
 
     # where the time goes: each stage alone, CUDA events around 5 calls
     # (a stage that is launch-bound shows its host time here)
@@ -878,6 +1135,17 @@ def main() -> int:
         log(f"[stages] batch {bs}: preprocess {pre_ms:.3f} ms, forward {fwd_ms:.3f} ms, "
             f"NMS x{len(TASKS)} {nms_ms:.3f} ms, cross-task {ct_ms:.3f} ms, "
             f"forward+NMS+cross-task {dev_ms:.3f} ms  [{card}]")
+        # the same stages each captured alone and replayed: their device time
+        fwd_g = CapturedProgram(inf.model, x, dev, None)
+        ct_g = CapturedProgram(lambda m: cross_task_suppress(m, task_idx, 0.8, scan_rows=300),
+                               merged, dev, None)
+        log(f"[stages, replayed] batch {bs}: forward {cuda_ms(fwd_g.graph.replay, iters=5):.3f} "
+            f"ms, cross-task {cuda_ms(ct_g.graph.replay, iters=5):.3f} ms (each stage captured "
+            f"alone, CUDA events around 5 replays)  [{card}]")
+        del fwd_g, ct_g
+
+    for bs in (1, 8):
+        graph_timings(inf, pre.preprocess(frames[bs][0])[0], args, card, "bf16")
 
     # kernel at the main path's shapes: the candidates of the last batch-8 request
     task_ms = {}
@@ -919,7 +1187,7 @@ def main() -> int:
     # ---- 3b. the int8 serving path at full width
     kernels.extend(serve_int8(inf, pre, frames, served, names, card, dev))
 
-    del inf, model, preds, served
+    del inf, model, preds, served, programs, pre
     torch.cuda.empty_cache()
 
     # ---- 4. the train path at full width
@@ -961,6 +1229,7 @@ def main() -> int:
         kern.launches = 0
     step_times, items_log = [], []
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30  # before the first step, earlier phases' too
     for ni in range(WARMUP_STEPS + TIMED_STEPS):
         lrs, mom = warmup_lrs(ni, 100, 0.0, 0.01, 1.0)
         timed = ni >= WARMUP_STEPS
@@ -994,7 +1263,8 @@ def main() -> int:
             stage[name] += a.elapsed_time(b) / TIMED_STEPS
     step_ms = 1e3 * float(np.median(step_times))
     log(f"[train] step {step_ms:.2f} ms (median of {TIMED_STEPS}, host clock), "
-        f"{2 * TRAIN_BATCH / step_ms * 1e3:.1f} img/s, peak memory {peak_gb:.2f} GiB  [{card}]")
+        f"{2 * TRAIN_BATCH / step_ms * 1e3:.1f} img/s, peak memory {peak_gb:.2f} GiB, of which "
+        f"{held_gb:.2f} GiB was allocated before the first step  [{card}]")
 
     # each TAL kernel and plain stage alone at the flagship shapes
     beta = 6
@@ -1100,6 +1370,19 @@ def main() -> int:
     assert all(sum(d["task"] == t for r in a for d in r) > 0 for t in ("a", "b"))
     log(f"[reference] yolov8n_2task 64 px float64: card == CPU on "
         f"{sum(map(len, a))} detections")
+    args = (CONF, 0.45, 0.8, False, 300)
+    replay_matches_eager(on_card, xs, args)
+    xb = torch.from_numpy(xs)
+    before = on_card.programs[on_card.program_key(xb, *args)].run(xb).clone()
+    bias = on_card.model.block(on_card.model.head_uid("a")).cls0[2].b
+    with torch.no_grad():
+        bias.copy_(bias + 0.5)  # in place: the graph reads the same tensor
+    replay_matches_eager(on_card, xs, args)
+    after = on_card.programs[on_card.program_key(xb, *args)].run(xb)
+    if torch.equal(before, after) or len(on_card.programs) != 1:
+        raise AssertionError("the replay did not see an in-place weight update")
+    log("[graphs] float64: replayed == predict_device run eagerly, bit for bit, before and "
+        "after an in-place update of a Detect bias, which the replay sees; 1 capture")
 
     # one train step, float64, the same state and batches on the card and the CPU.
     # The BatchNorm statistics are float32 sums (as in the JAX package), which

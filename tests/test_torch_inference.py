@@ -185,3 +185,130 @@ def test_dtype_overrides_half_and_warmup_batch_predicts_once(monkeypatch):
     inf = CerberusDetInference(model=model, names=NAMES, img_size=64, half=False,
                                dtype=torch.float64, device="cpu", warmup_batch=3)
     assert inf.dtype == torch.float64 and calls == [(3, 64, 64, 3)]
+
+
+def _route_log(pre, log):
+    """Record on `log` which of pre's two paths each preprocess call takes."""
+    for name in ("preprocess_device", "preprocess_host"):
+        real = getattr(pre, name)
+        setattr(pre, name, lambda *a, real=real, name=name: log.append(name) or real(*a))
+
+
+def test_preprocessor_routes_as_jax():
+    """Device or host, call by call, in both packages: 5 distinct uniform
+    source shapes (the fifth beyond MAX_DEVICE_SHAPES goes to the host), a
+    repeat of the first (cached: device), a ragged list (host), and
+    auto=True and prefer_device=False preprocessors (host)."""
+    from cerberusdet_tpu.infer.preprocessor import MAX_DEVICE_SHAPES as JAX_MAX
+    from cerberusdet_tpu_torch.infer.preprocessor import MAX_DEVICE_SHAPES
+
+    assert MAX_DEVICE_SHAPES == JAX_MAX == 4
+    rng = np.random.default_rng(4)
+
+    def frames(*shapes):
+        return [rng.integers(0, 256, (*s, 3), dtype=np.uint8) for s in shapes]
+
+    calls = [frames(s, s) for s in [(40, 50), (64, 64), (30, 90), (70, 20), (33, 33)]]
+    calls += [frames((40, 50), (40, 50)), frames((40, 50), (64, 64))]
+    routes = {}
+    for label, (ours, ref) in {
+        "default": (CerberusPreprocessor(img_size=64, device="cpu"),
+                    JaxPreprocessor(img_size=64)),
+        "auto": (CerberusPreprocessor(img_size=64, device="cpu", auto=True),
+                 JaxPreprocessor(img_size=64, auto=True)),
+        "prefer_device=False": (CerberusPreprocessor(img_size=64, device="cpu",
+                                                     prefer_device=False),
+                                JaxPreprocessor(img_size=64, prefer_device=False)),
+    }.items():
+        logs = ([], [])
+        _route_log(ours, logs[0])
+        _route_log(ref, logs[1])
+        for imgs in calls if label == "default" else calls[:1]:
+            _, shapes = ours.preprocess(imgs)
+            _, ref_shapes = ref.preprocess(imgs)
+            assert shapes == ref_shapes
+        assert logs[0] == logs[1], label
+        assert len(ours._device_fns) <= MAX_DEVICE_SHAPES
+        routes[label] = logs[0]
+    dev, host = "preprocess_device", "preprocess_host"
+    assert routes == {"default": [dev] * 4 + [host, dev, host], "auto": [host],
+                      "prefer_device=False": [host]}
+
+
+def _small_inference(**kw):
+    model = CerberusModel(CFG, TASKS, NCS, device="cpu").init(0)
+    kw = {"dtype": torch.float32, **kw}
+    return CerberusDetInference(model=model, names=NAMES, conf_thres=1e-4, img_size=64,
+                                device="cpu", **kw)
+
+
+def test_program_key_follows_jax_static_arguments():
+    """predict's program key changes with the batch's shape or dtype, the
+    compute dtype, the int8 mode and each of JAX's static arguments, and
+    is the same for the same request."""
+    inf = _small_inference()
+    batch = torch.zeros((2, 64, 64, 3))
+    args = (0.25, 0.45, 0.8, False, 300)
+    key = inf.program_key(batch, *args)
+    assert key == inf.program_key(torch.ones((2, 64, 64, 3)), *args)
+    others = [inf.program_key(torch.zeros((1, 64, 64, 3)), *args),
+              inf.program_key(torch.zeros((2, 64, 96, 3)), *args),
+              inf.program_key(batch.double(), *args),
+              _small_inference(dtype=torch.bfloat16).program_key(batch, *args),
+              _small_inference(int8="all").program_key(batch, *args)]
+    for i in range(len(args)):
+        changed = list(args)
+        changed[i] = (not changed[i]) if isinstance(changed[i], bool) else changed[i] / 2
+        others.append(inf.program_key(batch, *changed))
+    assert len({key, *others}) == len(others) + 1
+
+
+def test_cpu_predict_never_touches_the_card(monkeypatch):
+    """On the CPU predict runs eagerly: no capture, no stream, no CUDA call."""
+    inf = _small_inference(warmup_batch=1)
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.cuda was called on the CPU path")
+
+    for name in ("_lazy_init", "CUDAGraph", "graph", "graph_pool_handle", "Stream", "stream",
+                 "current_stream", "synchronize", "is_available", "device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    out = inf.predict(x, original_shape=[(64, 64)] * 2)
+    assert sum(map(len, out)) > 0 and inf.programs == {}
+    pre = CerberusPreprocessor(img_size=64, device="cpu")
+    batch, _ = pre.preprocess([np.zeros((40, 50, 3), np.uint8)] * 2)
+    assert batch.device.type == "cpu" and pre._programs == {}
+
+
+@pytest.mark.cuda
+def test_replayed_predict_matches_eager_on_card():
+    """On the card: predict replays one captured graph per key, and its
+    result equals predict_device run eagerly, bit for bit, for the
+    capturing request, a later one with other frames, and after an in-place
+    weight update; a new threshold captures a new key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cerberusdet_tpu_torch.infer.inference import pack_outputs
+
+    model = CerberusModel(CFG, TASKS, NCS, device="cuda").init(0)
+    inf = CerberusDetInference(model=model, names=NAMES, conf_thres=1e-4, img_size=64,
+                               device="cuda")
+    rng = np.random.default_rng(0)
+    args = (1e-4, 0.45, 0.8, False, 300)
+
+    def check(x):
+        xb = torch.from_numpy(x).cuda()
+        inf.predict(x)
+        prog = inf.programs[inf.program_key(xb, *args)]
+        replayed = prog.run(xb).clone()
+        assert torch.equal(replayed, pack_outputs(*inf.predict_device(xb, *args)))
+
+    for _ in range(2):
+        check(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    assert len(inf.programs) == 1
+    with torch.no_grad():
+        inf.model.block(inf.model.head_uid("a")).cls0[2].b.add_(0.5)
+    check(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    inf.predict(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32), iou_thres=0.5)
+    assert len(inf.programs) == 2

@@ -21,6 +21,7 @@ from cerberusdet_tpu_torch.ops.tal_cuda import (
 )
 from cerberusdet_tpu_torch.testing import (
     crowded_tal_scene,
+    norm_scene,
     sparse_tal_scene,
     tal_scene,
     tied_tal_scene,
@@ -282,6 +283,90 @@ def test_select_model_matches_plain_on_scenes(name):
         np.testing.assert_array_equal(mask_pos[b, m].numpy() > 0, want, err_msg=f"{name} {b} {m}")
 
 
+# ------------------------------------------- a CPU model of tal_norm's design
+
+
+def _plain_norm(tgt, fg, labels, align, pos, nc, eps=1e-9):
+    """The plain stage 3 (TaskAlignedAssigner.normalise) on tal_norm's
+    per-anchor inputs: the resolved mask and the align metric scattered to
+    (B, M, N) at each anchor's gt."""
+    t = [torch.from_numpy(x) for x in (tgt, fg, labels, align, pos)]
+    tgt, fg, labels, align, pos = t
+    b, n = tgt.shape
+    m = pos.shape[1]
+    mask_pos = torch.zeros((b, m, n)).scatter_(1, tgt[:, None], fg[:, None].float())
+    align3 = torch.zeros((b, m, n)).scatter_(1, tgt[:, None], align[:, None])
+    plain = TaskAlignedAssigner(10, nc, eps=eps)
+    return plain.normalise(labels, fg, mask_pos, align3, pos[..., 0], pos[..., 1],
+                           torch.float32).numpy()
+
+
+def _norm_model(tgt, fg, labels, align, pos, nc, eps=1e-9, block=256):
+    """tal_norm's decomposition, in numpy: a block per `block` anchors of
+    the flat (B * N) range; phase 1 a thread per anchor, its class (-1 for
+    background) and value v = align * pos_ov / (pos_align + eps) rounded at
+    each operation; phase 2 the block's contiguous block * nc floats from
+    a0 * nc, swept as 4-float stores (anchor and class of the first element
+    by division, then stepped by one with a wrap at nc, as the kernel
+    steps), and the ragged tail one float at a time. Returns (the output
+    (B, N, nc), the count of writes per element, the byte offsets of the
+    vector stores)."""
+    b, n = tgt.shape
+    anchors = b * n
+    img = np.arange(anchors) // n
+    p = pos[img, tgt.reshape(-1)]                                # (anchors, 2)
+    eps32 = np.float32(eps)
+    val = np.where(fg.reshape(-1), (align.reshape(-1) * p[:, 1]) / (p[:, 0] + eps32),
+                   np.float32(0.0)).astype(np.float32)
+    cls = np.where(fg.reshape(-1), labels.reshape(-1), -1)
+    out = np.full(anchors * nc, np.nan, np.float32)
+    writes = np.zeros(anchors * nc, np.int64)
+    offsets = []
+    for a0 in range(0, anchors, block):
+        s_cls, s_val = cls[a0:a0 + block], val[a0:a0 + block]
+        count = len(s_cls) * nc
+        base = a0 * nc
+        q = np.arange(count >> 2)
+        e = q * 4
+        an, c = e // nc, e % nc
+        for j in range(4):
+            idx = base + e + j
+            out[idx] = np.where(s_cls[an] == c, s_val[an], np.float32(0.0))
+            np.add.at(writes, idx, 1)
+            c = c + 1
+            wrap = c == nc
+            c[wrap] = 0
+            an = an + wrap
+        offsets.append(4 * (base + e))
+        for t in range(len(q) * 4, count):
+            out[base + t] = s_val[t // nc] if s_cls[t // nc] == t % nc else np.float32(0.0)
+            writes[base + t] += 1
+    return out.reshape(b, n, nc), writes, np.concatenate(offsets)
+
+
+@pytest.mark.parametrize("nc", [1, 19, 20, 80])
+@pytest.mark.parametrize("n", [5, 333, 8400])
+@pytest.mark.parametrize("b", [1, 8])
+def test_norm_model_matches_plain(b, n, nc):
+    """tal_norm's index map writes every output element exactly once, every
+    vector store lands on a 16-byte boundary (the output's base is 16-byte
+    aligned), and the values equal the plain normalise bit for bit: nc not a
+    multiple of 4 (19, 1), B * N not a multiple of the 256-anchor block."""
+    inputs = norm_scene(b * 100 + n + nc, b, n, 12, nc)
+    got, writes, offsets = _norm_model(*inputs, nc)
+    assert (writes == 1).all()
+    assert (offsets % 16 == 0).all()
+    np.testing.assert_array_equal(got.view(np.uint32), _plain_norm(*inputs, nc).view(np.uint32))
+
+
+def test_norm_model_all_background():
+    """An all-background batch: +0 everywhere."""
+    inputs = norm_scene(5, 3, 333, 12, 19, fg_share=0.0)
+    got, writes, _ = _norm_model(*inputs, 19)
+    assert (writes == 1).all() and (got.view(np.uint32) == 0).all()
+    assert (_plain_norm(*inputs, 19).view(np.uint32) == 0).all()
+
+
 def test_selection_mask():
     sel = torch.tensor([[[2, -1, 0], [-1, -1, -1]]], dtype=torch.int32)
     mask = selection_mask(sel, 4)
@@ -321,3 +406,20 @@ def test_kernels_match_plain_on_card():
         for f in EXACT:
             assert torch.equal(getattr(k, f), getattr(p, f)), (name, f)
         torch.testing.assert_close(k.target_scores, p.target_scores, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_norm_kernel_matches_plain_on_card():
+    """On the card: tal_norm bit for bit with the plain normalise at the
+    flagship's B 8, N 8400, nc 20, at nc 19 and 1, on an all-background
+    batch and where B * N is not a multiple of the 256-anchor block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for b, n, nc, share in [(8, 8400, 20, 0.3), (8, 8400, 19, 0.3), (3, 333, 1, 0.5),
+                            (3, 333, 19, 0.0), (1, 5, 80, 1.0)]:
+        inputs = norm_scene(n + nc, b, n, 12, nc, fg_share=share)
+        t = [torch.from_numpy(x).cuda() for x in inputs]
+        got = tal_cuda.norm_kernel(*t, nc, 1e-9)
+        torch.cuda.synchronize()
+        want = _plain_norm(*inputs, nc)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32))
