@@ -1,0 +1,188 @@
+"""Standalone evaluation entry point of the port, with the `--task speed`
+benchmark mode:
+
+    python -m cerberusdet_tpu_torch.cli.val --weights w.ckpt.npz --data data.yaml
+
+Counterpart of the JAX package's val.py (the reference's
+cerberusdet/val.py:436-495), with its flags and defaults, except that
+--platform / --compile-cache give way to --device (the card, "cuda", by
+default; "cpu" runs on the CPU). The reference protocol: rect batches with
+pad 0.5, conf 0.001, IoU 0.6, multi-label NMS, max_det 300, the model fused.
+Float32 (the default) is float32 arithmetic on the card: cuDNN's TF32 is
+switched off for the run; --bf16 computes in bfloat16.
+Not ported yet: .pt weights (pt_import, ROADMAP.md queue 1, item 5), the
+MLflow upload (--mlflow-url) and the PR-curve and confusion-matrix plots
+(utils, queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from cerberusdet_tpu_torch import resolve_device
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--weights", required=True, help="a .ckpt.npz written by either package")
+    p.add_argument("--data", required=True)
+    p.add_argument("--cfg", default="", help="model yaml (overrides the checkpoint's)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--imgsz", "--img-size", type=int, default=640)
+    p.add_argument("--conf-thres", type=float, default=0.001)
+    p.add_argument("--iou-thres", type=float, default=0.6)
+    p.add_argument("--max-det", type=int, default=300)
+    p.add_argument("--task", default="val", choices=["train", "val", "test", "speed"])
+    p.add_argument("--no-rect", action="store_true",
+                   help="disable rect (aspect-grouped) batching; the reference "
+                        "evaluates with rect=True pad=0.5 (val.py:231-246)")
+    p.add_argument("--bf16", "--half", action="store_true", dest="bf16",
+                   help="compute in bfloat16 (reference --half)")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--single-cls", action="store_true",
+                   help="treat as single-class dataset (val.py:285,318,339)")
+    p.add_argument("--labels-from-xml", action="store_true")
+    p.add_argument("--use-multi-labels", action="store_true")
+    p.add_argument("--use-soft-labels", action="store_true")
+    p.add_argument("--workers", type=int, default=None,
+                   help="dataloader decode threads (reference --workers)")
+    p.add_argument("--project", default="runs/val")
+    p.add_argument("--name", default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--mlflow-url", default="", help="not ported: raises when given")
+    p.add_argument("--experiment-name", default="cerberusdet")
+    p.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
+    p.add_argument("--int8", default="off", choices=["off", "deep", "all"],
+                   help="post-training int8 quantization of the fused convs "
+                        "(deep: c_in>=256 only); activation scales are "
+                        "calibrated on the first val batches (quant/ptq.py)")
+    return p.parse_args(argv)
+
+
+def load_model_for_eval(weights: str, cfg: str, device):
+    """The port's CerberusModel from a .ckpt.npz (its `ema` when it holds
+    one), fused, in eval mode, in float32 on `device`."""
+    from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint
+    from cerberusdet_tpu_torch.manager.weights import load_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+
+    if weights.endswith(".pt"):
+        raise NotImplementedError(".pt weights need pt_import, not ported yet "
+                                  "(ROADMAP.md queue 1, item 5)")
+    ckpt = load_checkpoint(weights)
+    meta = ckpt["meta"]
+    model = CerberusModel(cfg or meta["cfg"], meta["task_ids"], meta["nc"], device=device)
+    load_jax_params(model, ckpt["ema"] if ckpt.get("ema") else ckpt["params"])
+    # standalone eval runs fused like the reference's attempt_load(.fuse())
+    return model.fuse().eval()
+
+
+@torch.no_grad()
+def speed_benchmark(model, imgsz: int, batch: int, dtype, iters: int = 20):
+    """All-task forward timing (val.py:219,297-308 semantics): host clock
+    around `iters` forwards of zeros that end in a synchronise, after one
+    warm-up forward."""
+    device = next(model.parameters()).device
+    x = torch.zeros((batch, 3, imgsz, imgsz), dtype=dtype, device=device)
+    model.eval()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    model(x)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model(x)
+    sync()
+    dt = (time.perf_counter() - t0) / iters
+    return {"ms_per_image": dt / batch * 1e3, "images_per_sec": batch / dt}
+
+
+def quantize_for_eval(model, data_dict, opt, dtype, weights, n_calib_batches: int = 2):
+    """PTQ of the fused model in place, with activation scales calibrated in
+    `dtype` on the first val batches of task 0 (square batches of at most 8,
+    quant/ptq.py) and weights quantized from `weights`, the fused float32
+    weights taken before the cast (quant/ptq.py:fused_conv_weights)."""
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.quant import calibrate_amax, quantize_params, select_all
+    from cerberusdet_tpu_torch.quant.ptq import select_deep
+
+    _, loader = create_dataloader(
+        data_dict["val"][0], imgsz=opt.imgsz, batch_size=min(opt.batch_size, 8),
+        augment=False, classnames=data_dict["names"][0],
+        task="int8_calib", num_threads=opt.workers, host_sharded=False)
+    batches = []
+    for batch in loader:
+        batches.append(batch["img"].astype("float32") / 255.0)
+        if len(batches) >= n_calib_batches:
+            break
+    amax = calibrate_amax(model, batches, dtype=dtype)
+    select = select_all if opt.int8 == "all" else select_deep()
+    return quantize_params(model, amax, select=select, weights=weights)
+
+
+def main(argv=None):
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.evaluation.val import run_task
+    from cerberusdet_tpu_torch.manager.run_manager import increment_path, parse_data_config
+    from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
+
+    opt = parse_opt(argv)
+    if opt.mlflow_url:
+        raise NotImplementedError("--mlflow-url: the MLflow upload is not ported yet "
+                                  "(ROADMAP.md queue 1, item 9)")
+    device = resolve_device(opt.device)
+    data_dict = parse_data_config(opt.data, check=True)
+    model = load_model_for_eval(opt.weights, opt.cfg, device)
+    save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
+    save_dir.mkdir(parents=True, exist_ok=True)
+
+    dtype = torch.bfloat16 if opt.bf16 else torch.float32
+    fused = fused_conv_weights(model) if opt.int8 != "off" else None
+    model.to(dtype)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        if opt.int8 != "off":
+            quantize_for_eval(model, data_dict, opt, dtype, fused)
+            del fused
+        if opt.task == "speed":
+            out = speed_benchmark(model, opt.imgsz, opt.batch_size, dtype)
+            print(json.dumps(out))
+            return out
+
+        results = {}
+        for ti, task in enumerate(data_dict["task_ids"]):
+            # the requested split, falling back to val when the key is missing
+            # or a null placeholder like `test:` (reference val.py:226)
+            split = opt.task if opt.task in ("train", "val", "test") else "val"
+            paths = data_dict.get(split) or data_dict["val"]
+            path = paths[ti] if paths[ti] is not None else data_dict["val"][ti]
+            # the reference's standalone-val protocol: rect=True, pad=0.5
+            # (cerberusdet/val.py:231-246), one letterbox shape per batch
+            _, loader = create_dataloader(
+                path, imgsz=opt.imgsz, batch_size=opt.batch_size, augment=False,
+                rect=not opt.no_rect, pad=0.5,
+                classnames=data_dict["names"][ti], task=f"{task}_val",
+                use_xml=opt.labels_from_xml, multi_label=opt.use_multi_labels,
+                soft_label=opt.use_soft_labels, single_cls=opt.single_cls,
+                num_threads=opt.workers)
+            out = run_task(
+                model, task, loader, nc=data_dict["nc"][ti], names=data_dict["names"][ti],
+                conf_thres=opt.conf_thres, iou_thres=opt.iou_thres, max_det=opt.max_det,
+                verbose=True, single_cls=opt.single_cls,
+                use_multi_labels=opt.use_multi_labels, plots=True, plots_dir=save_dir)
+            results[task] = out
+            mp, mr, map50, mAP = out["results"][:4]
+            print(f"{task}: P={mp:.4f} R={mr:.4f} mAP50={map50:.4f} mAP={mAP:.4f}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

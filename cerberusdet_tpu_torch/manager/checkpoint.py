@@ -1,19 +1,35 @@
-"""Reader of the `.ckpt.npz` checkpoints that the JAX package writes.
+"""The `.ckpt.npz` checkpoints of the JAX package: writer and reader.
 
-A numpy-only copy of the npz branch of cerberusdet_tpu/manager/checkpoint.py:
-one .npz holding `params/...`, `ema/...`, `opt/...` arrays under '/'-joined
-tree paths, and the JSON metadata under `__meta__`. float16 arrays are upcast
-to float32, as there.
+A numpy-only copy of the npz branch of cerberusdet_tpu/manager/checkpoint.py
+(save_checkpoint :44-81, load_checkpoint): one .npz holding `params/...`,
+`ema/...` and `opt/...` arrays under '/'-joined tree paths, and the JSON
+metadata under `__meta__`. save_checkpoint writes float32 leaves of params
+and ema as float16 (half=True) and the optimizer state as it is; the reader
+upcasts float16 to float32. Files move between the two packages both ways.
+The JAX package's orbax directories (a path not ending in .npz) are not
+ported.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict
+from pathlib import Path
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 SEP = "/"
+
+
+def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{SEP}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -25,6 +41,37 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return tree
+
+
+def save_checkpoint(path, params: Dict[str, Any], meta: Dict[str, Any],
+                    ema_params: Optional[Dict[str, Any]] = None,
+                    opt_momentum: Optional[Dict[str, Any]] = None,
+                    half: bool = True) -> None:
+    """Write `params` (a JAX-layout tree of numpy arrays, e.g.
+    manager/weights.py:export_jax_params) with its JSON-serialisable `meta`
+    (cfg, task_ids, nc, names, epoch, ...) to the .npz file `path`."""
+    if not str(path).endswith(".npz"):
+        raise ValueError(f"{path}: the port writes .npz checkpoints only (the JAX "
+                         "package's orbax directories are not ported)")
+    arrays: Dict[str, np.ndarray] = {}
+
+    def cast(x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        return x.astype(np.float16) if (half and x.dtype == np.float32) else x
+
+    for k, v in flatten_tree(params).items():
+        arrays[f"params{SEP}{k}"] = cast(v)
+    if ema_params is not None:
+        for k, v in flatten_tree(ema_params).items():
+            arrays[f"ema{SEP}{k}"] = cast(v)
+    if opt_momentum is not None:
+        for k, v in flatten_tree(opt_momentum).items():
+            arrays[f"opt{SEP}{k}"] = np.asarray(v)  # optimizer state stays as it is
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta, default=float).encode(), dtype=np.uint8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
 
 
 def load_checkpoint(path) -> Dict[str, Any]:

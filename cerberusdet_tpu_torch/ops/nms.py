@@ -79,7 +79,8 @@ def non_max_suppression(prediction, nc: int, conf_thres: float = 0.25,
     plain loop on the CPU; False forces the plain loop (a test hook, used to
     hold the kernel against it on the card). On the kernel path `max_nms` is
     clamped to the kernel's 16384 candidates, as on the JAX package's Pallas
-    path.
+    path; a comparison with the plain loop passes max_nms=MAX_K so that
+    both see the same candidates.
 
     Returns (dets (B, max_det, 6), counts (B,))."""
     if use_kernel is None:

@@ -1,6 +1,7 @@
-"""Inputs that hold the kernels against their plain versions, and seeded train
-batches, shared by the tests and chip_smoke.py. numpy only; every case is
-made from a seed."""
+"""Inputs that hold the kernels against their plain versions, seeded train
+batches, seeded val sets and a BatchNorm calibration for seeded models,
+shared by the tests and chip_smoke.py. numpy; cv2 and torch only inside the
+helpers that write images or touch a model. Every case is made from a seed."""
 
 from __future__ import annotations
 
@@ -223,3 +224,90 @@ def train_batches(tasks, ncs, batch: int, imgsz: int, max_labels: int, n_real: i
             "prob": np.ones((batch, max_labels), np.float32),
         }
     return out
+
+
+def write_val_set(root, n: int, sizes, seed: int = 0, n_labels: int = 0, nc: int = 1):
+    """Write n JPEG images under root/images/val, their native sizes (w, h)
+    cycling through `sizes`: 15 x 20 uniform noise upsampled (bicubic) with 6
+    flat rectangles over it. With n_labels, each image gets a txt label file
+    under root/labels/val of n_labels rows "cls cx cy w h", classes in
+    [0, nc), boxes inside the image. Returns the image directory."""
+    import os
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images", "val")
+    lb_dir = os.path.join(root, "labels", "val")
+    os.makedirs(img_dir, exist_ok=True)
+    for i in range(n):
+        w, h = sizes[i % len(sizes)]
+        im = cv2.resize(rng.integers(0, 256, (15, 20, 3), dtype=np.uint8), (w, h),
+                        interpolation=cv2.INTER_CUBIC)
+        for _ in range(6):
+            rw, rh = int(rng.integers(w // 16, w // 3)), int(rng.integers(h // 16, h // 3))
+            x1, y1 = int(rng.integers(0, w - rw)), int(rng.integers(0, h - rh))
+            im[y1:y1 + rh, x1:x1 + rw] = rng.integers(0, 256, 3)
+        cv2.imwrite(os.path.join(img_dir, f"{i:04d}.jpg"), im, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        if n_labels:
+            os.makedirs(lb_dir, exist_ok=True)
+            wh = rng.uniform(0.05, 0.5, (n_labels, 2))
+            c = wh / 2 + rng.uniform(0, 1, (n_labels, 2)) * (1 - wh)
+            cls = rng.integers(0, nc, n_labels)
+            with open(os.path.join(lb_dir, f"{i:04d}.txt"), "w") as f:
+                f.writelines(f"{k} {x:.6f} {y:.6f} {bw:.6f} {bh:.6f}\n"
+                             for k, (x, y), (bw, bh) in zip(cls, c, wh))
+    return img_dir
+
+
+def write_labels(dets) -> int:
+    """Write the txt labels of the images in `dets` ({image path: (n, 6)
+    [x1, y1, x2, y2, conf, cls] in the image's native pixels}, as
+    evaluation/val.py:run_task returns them): a row "cls cx cy w h"
+    (normalised) for each box at least 1 px wide and high. Returns the rows
+    written."""
+    import os
+
+    import cv2
+
+    n = 0
+    for path, det in dets.items():
+        h, w = cv2.imread(path).shape[:2]
+        rows = [(int(c), (x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h)
+                for x1, y1, x2, y2, _, c in det if x2 - x1 > 1 and y2 - y1 > 1]
+        lb = path.replace(f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}")
+        os.makedirs(os.path.dirname(lb), exist_ok=True)
+        with open(lb.rsplit(".", 1)[0] + ".txt", "w") as f:
+            f.writelines(f"{c} {x:.6f} {y:.6f} {bw:.6f} {bh:.6f}\n" for c, x, y, bw, bh in rows)
+        n += len(rows)
+    return n
+
+
+def calibrate_bn(model, x) -> None:
+    """Set every BatchNorm's running statistics of the (unfused) port model to
+    the batch statistics of its input in one eval forward of x (B, 3, H, W),
+    in place. A random init alone lets the activations of the deep nets
+    vanish (~1e-7 at the Detect towers of yolov8n and yolov8x), so that
+    every anchor scores the prior bias whatever the image; with statistics
+    from a batch each layer's input is normalised as in training, and the
+    predictions depend on the image."""
+    import torch
+
+    from cerberusdet_tpu_torch.nn.module import BatchNorm
+
+    def take_stats(bn, args):
+        mean, var, _ = bn.batch_stats(args[0])
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)
+
+    hooks = [m.register_forward_pre_hook(take_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    was_training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)

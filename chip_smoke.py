@@ -54,7 +54,22 @@ Phases, each of which fails the run on anything wrong:
   5. check against a reference on a small input: yolov8n_2task at 64 px in
      float64 on the card against the port's CPU path, for predict and for
      one train step; the float64 replay equals an eager run, also after an
-     in-place weight update, which it sees.
+     in-place weight update, which it sees;
+  6. validate the flagship through the val entry point (cli/val.py:main):
+     a seeded 2-task val set of 96 JPEGs a task at mixed native sizes (three
+     rect shapes a task at batch 32, pad 0.5, two of them 672 px on a side),
+     the seeded model (BatchNorm statistics from 8 of the images) saved as a
+     .ckpt.npz and labelled with its own bf16 detections at conf >= 0.25,
+     then main in float32, --bf16 and --bf16 --int8 all (conf 0.001, IoU
+     0.6, multi-label): bf16 re-finds every label (recall 1.0 at IoU 0.5),
+     run_task with the NMS kernel and with the plain loop gives identical
+     statistics, and so does the int8 model with conv_s8 / quant_pack_s8
+     and with their plain versions; both int8 kernels equal their plain
+     versions at every quantized conv shape of every rect batch; one NMS
+     launch per batch and task, one conv_s8 and one quant_pack_s8 per
+     quantized Conv and batch. Prints P, R, mAP50, mAP and the speed terms
+     per task and precision, the NMS kernel at val traffic and conv_s8
+     summed over one int8 batch.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -906,6 +921,395 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     return entries
 
 
+
+# the val phase: native (w, h) sizes of the seeded val images; at imgsz 640,
+# batch 32 and pad 0.5 each task's 96 images sort into 3 rect batches,
+# (512, 672), (672, 672) and (672, 512), wider or taller than 640
+VAL_SIZES = [(500, 375), (375, 500), (640, 480), (1280, 720), (333, 500)]
+VAL_IMAGES, VAL_BATCH = 96, 32
+LABEL_CONF = 0.25  # detections at or above it become the val set's labels
+
+
+def val_stats(out):
+    """run_task's accumulated (tp, conf, pred_cls, target_cls), concatenated."""
+    import numpy as np
+
+    return [np.concatenate(x, 0) for x in zip(*out["metrics"].stats)]
+
+
+def same_val(a, b, what: str) -> None:
+    """Identical val statistics and results, or raise."""
+    import numpy as np
+
+    sa, sb = val_stats(a), val_stats(b)
+    if any(x.shape != y.shape or not np.array_equal(x, y) for x, y in zip(sa, sb)) \
+            or a["results"] != b["results"] or a["seen"] != b["seen"]:
+        raise AssertionError(f"{what}: the val statistics or results differ")
+
+
+def recall50(out) -> float:
+    """The share of labels matched at IoU 0.5 by a detection of their class."""
+    tp, _, _, target = val_stats(out)
+    return float(tp[:, 0].sum()) / max(len(target), 1)
+
+
+def val_batch_convs(model, x, task, checked, calls):
+    """One forward of the int8 `model`'s `task` branch on x, holding
+    quant_pack_s8 and conv_s8 against their plain versions at each quantized
+    conv's input whose (B, Ci, Co, k, s, H, W) is not in `checked` yet, as
+    conv2d_int8 calls them there (raising on any difference);
+    checked[shape] takes the plain versions' times (conv, pack) by CUDA
+    events, the largest |kernel - plain| of each (conv, pack), and the
+    kernels' times (conv, pack), each the mean of 5 launches by CUDA
+    events; calls[shape] counts the shape's calls in this forward. The
+    comparisons' and timings' launches are taken back."""
+    import torch
+
+    from cerberusdet_tpu_torch.nn.layers import Conv
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+
+    before = (ci.conv_s8.launches, ci.quant_pack_s8.launches)
+
+    def hook(mod, args):
+        x = args[0]
+        key = (x.shape[0], mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3])
+        calls[key] = calls.get(key, 0) + 1
+        if key in checked:
+            return
+        ci16 = mod.w_q.shape[3]
+        q_plain = ci.quant_pack_s8_plain(x, mod.s_x, ci16)
+        q_kernel = ci.quant_pack_s8(x, mod.s_x, ci16)
+        pack_err = int((q_kernel.int() - q_plain.int()).abs().max())
+        if pack_err:
+            raise AssertionError(f"quant_pack_s8 differs from its plain version at {key}")
+        out = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        conv = (q_plain, mod.w_q, mod.s_x, mod.s_w, mod.b, mod.s[0], mod.p[0], bool(mod.act),
+                out)
+        got = ci.conv_s8(*conv)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ci.conv_s8_plain(*conv)
+        mid = torch.cuda.Event(enable_timing=True)
+        mid.record()
+        ci.quant_pack_s8_plain(x, mod.s_x, ci16)
+        end.record()
+        torch.cuda.synchronize()
+        conv_err = float((got.double() - want.double()).abs().max())
+        if conv_err or not torch.equal(got, want):
+            raise AssertionError(f"conv_s8 differs from its plain version at {key}")
+        checked[key] = (start.elapsed_time(mid), mid.elapsed_time(end), conv_err, pack_err,
+                        cuda_ms(lambda: ci.conv_s8(*conv), iters=5),
+                        cuda_ms(lambda: ci.quant_pack_s8(x, mod.s_x, ci16), iters=5))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, Conv) and m.int8]
+    try:
+        model(x, tasks=[task])
+    finally:
+        for h in hooks:
+            h.remove()
+    ci.conv_s8.launches, ci.quant_pack_s8.launches = before
+
+
+def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+             n_images: int = VAL_IMAGES, batch: int = VAL_BATCH, workers: int = 8):
+    """The validation path at full width: a seeded 2-task val set on disk,
+    labelled with the seeded model's own bf16 detections at conf >= 0.25,
+    evaluated by the entry point's main (cli/val.py) in float32, bf16 and
+    bf16 + int8 'all', with its gates (recall 1.0 in bf16, NMS kernel and
+    int8 kernels against their plain versions over whole val runs and at
+    every quantized conv shape of each rect batch, launch counts). Returns
+    the kernels-line entries of the val path."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.cli import val as cli
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.evaluation.val import run_task
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.run_manager import parse_data_config
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn.layers import Conv
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
+    from cerberusdet_tpu_torch.ops.nms import select_candidates
+    from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_labels, write_val_set
+
+    conv_s8, quant_pack_s8 = conv_int8_cuda.conv_s8, conv_int8_cuda.quant_pack_s8
+    nms = nms_cuda.greedy_nms_cuda
+    saved = (nms.launches, conv_s8.launches, quant_pack_s8.launches)
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    root = tempfile.mkdtemp(prefix="cerberus_val_")
+    try:
+        # ---- the val set, the seeded model and its checkpoint
+        t0 = time.perf_counter()
+        dirs = {t: write_val_set(os.path.join(root, t), n_images, VAL_SIZES, seed=20 + i)
+                for i, t in enumerate(TASKS)}
+        data_yaml = os.path.join(root, "data.yaml")
+        with open(data_yaml, "w") as f:
+            yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS],
+                            "train": [dirs[t] for t in TASKS],
+                            "val": [dirs[t] for t in TASKS]}, f)
+        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+        distinct_heads(model, seed=1)
+        calib, _ = create_dataloader(dirs[TASKS[0]], imgsz, 8, task="bn", cache_dir=root)
+        x = torch.from_numpy(np.stack([calib[i][0] for i in range(8)])).to(dev)
+        calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
+        ckpt = os.path.join(root, "seeded.ckpt.npz")
+        save_checkpoint(ckpt, export_jax_params(model), {
+            "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS]},
+            half=False)
+        del model, x, calib
+        log(f"[val] {n_images} JPEGs a task at native sizes {VAL_SIZES}, the seeded "
+            f"{os.path.basename(cfg)} (BatchNorm statistics from 8 of them) saved as a "
+            f".ckpt.npz, in {time.perf_counter() - t0:.2f} s")
+
+        def loaders():
+            return {t: create_dataloader(dirs[t], imgsz, batch, rect=True, pad=0.5,
+                                         classnames=names[t], task=f"{t}_val",
+                                         num_threads=workers)[1] for t in TASKS}
+
+        # ---- labels: the seeded model's own bf16 detections at conf >= 0.25
+        bf16 = cli.load_model_for_eval(ckpt, "", dev).to(torch.bfloat16)
+        n_labels = {}
+        for ti, (task, loader) in enumerate(loaders().items()):
+            dets = run_task(bf16, task, loader, NCS[ti], return_dets=True)["dets"]
+            keep = {p: d[d[:, 4] >= LABEL_CONF] for p, d in dets.items()}
+            n_labels[task] = write_labels(keep)
+            per_image = [len(d) for d in keep.values()]
+            log(f"[val] {task}: {n_labels[task]} labels from bf16 detections at conf >= "
+                f"{LABEL_CONF} ({sum(n > 0 for n in per_image)} of {len(per_image)} images "
+                f"have some, at most {max(per_image)})")
+            if not n_labels[task]:
+                raise AssertionError(f"{task}: the seeded model detects nothing at conf >= "
+                                     f"{LABEL_CONF}")
+        for t in TASKS:  # the labels changed: drop the label caches
+            for f in os.listdir(os.path.join(root, t, "labels", "val")):
+                if f.endswith(".cache.npy"):
+                    os.remove(os.path.join(root, t, "labels", "val", f))
+        shapes = {t: sorted({tuple(int(v) for v in s) for s in loader.dataset.batch_shapes})
+                  for t, loader in loaders().items()}
+        log(f"[val] rect letterbox shapes (h, w) per task at batch {batch}, pad 0.5: {shapes}")
+
+        # ---- the entry point's main, three times
+        common = ["--weights", ckpt, "--data", data_yaml, "--device", str(dev), "--imgsz",
+                  str(imgsz), "--batch-size", str(batch), "--project",
+                  os.path.join(root, "runs"), "--exist-ok", "--workers", str(workers)]
+        n_batches = {t: len(loader) for t, loader in loaders().items()}
+        runs = {}
+        for label, extra in (("float32", []), ("bf16", ["--bf16"]),
+                             ("int8", ["--bf16", "--int8", "all"])):
+            torch.cuda.synchronize()
+            nms.launches = conv_s8.launches = quant_pack_s8.launches = 0
+            t = time.perf_counter()
+            out = cli.main(common + extra)
+            wall = time.perf_counter() - t
+            launches = (nms.launches, conv_s8.launches, quant_pack_s8.launches)
+            runs[label] = (out, wall, launches)
+            want = sum(n_batches.values())
+            log(f"[val {label}] main: {wall:.2f} s for {sum(o['seen'] for o in out.values())} "
+                f"images; NMS launches {launches[0]} (expected {want}: one per batch and "
+                f"task), conv_s8 {launches[1]}, quant_pack_s8 {launches[2]}  [{card}]")
+            if launches[0] != want:
+                raise AssertionError(f"{label} val: NMS launched {launches[0]} times, not once "
+                                     f"per batch and task ({want})")
+            stage_s = 0.0
+            for task, o in out.items():
+                mp, mr, map50, mAP = o["results"][:4]
+                pre, inf, nms_t = o["speed"]
+                stage_s += sum(sum(x[1:]) for x in o["times"])
+                log(f"[val {label}] {task}: P {mp:.4f} R {mr:.4f} mAP50 {map50:.4f} mAP "
+                    f"{mAP:.4f}; speed (ms per image) preprocess {pre:.3f}, inference {inf:.3f}, "
+                    f"NMS {nms_t:.3f}; per batch (h, w): (preprocess, inference, NMS) ms "
+                    + ", ".join(f"{s}: ({1e3 * a:.1f}, {1e3 * b:.1f}, {1e3 * c:.1f})"
+                                for s, a, b, c in o["times"]) + f"  [{card}]")
+            log(f"[val {label}] wall {wall:.2f} s: the three timed stages {stage_s:.2f} s "
+                f"({100 * stage_s / wall:.1f}%), the rest (decode waits, matching and AP on "
+                f"the host, model load{', quantization' if label == 'int8' else ''}) "
+                f"{wall - stage_s:.2f} s  [{card}]")
+        for task in TASKS:
+            r = recall50(runs["bf16"][0][task])
+            log(f"[val bf16] {task}: recall at IoU 0.5 {r:.4f} of {n_labels[task]} labels "
+                f"(the labels are the same model's bf16 detections)")
+            if r != 1.0:
+                raise AssertionError(f"{task}: bf16 val re-found {r:.4f} of the labels, not all: "
+                                     "the letterbox -> native chain loses boxes")
+            log(f"[val] {task}: int8 mAP50 {runs['int8'][0][task]['results'][2]:.4f}, mAP "
+                f"{runs['int8'][0][task]['results'][3]:.4f}; float32 "
+                f"{runs['float32'][0][task]['results'][2]:.4f}, "
+                f"{runs['float32'][0][task]['results'][3]:.4f}; against the bf16-derived labels "
+                f"(seeded weights, synthetic images)")
+
+        # ---- the NMS kernel against the plain loop over the whole bf16 val
+        for ti, (task, loader) in enumerate(loaders().items()):
+            t = time.perf_counter()
+            a = run_task(bf16, task, loader, NCS[ti])
+            rt_wall = time.perf_counter() - t
+            rt_stages = sum(sum(x[1:]) for x in a["times"])
+            log(f"[val bf16] {task}: run_task alone {rt_wall:.3f} s, of which the three timed "
+                f"stages {rt_stages:.3f} s ({100 * rt_stages / rt_wall:.1f}%); the rest is the "
+                f"host's (waits for decode, matching and AP)  [{card}]")
+            b = run_task(bf16, task, loader, NCS[ti], use_kernel=False, max_nms=nms_cuda.MAX_K)
+            same_val(a, b, f"{task}: NMS kernel against the plain loop")
+            same_val(a, runs["bf16"][0][task], f"{task}: this bf16 model against main's")
+            log(f"[val bf16] {task}: run_task with the NMS kernel and with the plain loop "
+                f"(use_kernel=False, max_nms {nms_cuda.MAX_K}): identical stats and results "
+                f"({len(val_stats(a)[0])} detections), identical to main's bf16 run")
+        nms.launches = 0
+
+        # ---- the int8 kernels against their plain versions
+        opt = argparse.Namespace(imgsz=imgsz, batch_size=batch, workers=workers, int8="all")
+        m8 = cli.load_model_for_eval(ckpt, "", dev)
+        fused = fused_conv_weights(m8)
+        m8.to(torch.bfloat16)
+        cli.quantize_for_eval(m8, parse_data_config(data_yaml, check=True), opt,
+                              torch.bfloat16, fused)
+        del fused
+        per_task = {t: sum(1 for st in m8.plan([t]) for m in m8.block(st.uid).modules()
+                           if isinstance(m, Conv) and m.int8) for t in TASKS}
+        want = sum(per_task[t] * n_batches[t] for t in TASKS)
+        if runs["int8"][2][1:] != (want, want):
+            raise AssertionError(f"int8 val launched conv_s8 / quant_pack_s8 "
+                                 f"{runs['int8'][2][1:]} times, not once per quantized Conv of "
+                                 f"each batch's task ({want})")
+        log(f"[val int8] main launched conv_s8 and quant_pack_s8 {want} times each: one per "
+            f"quantized Conv of each batch's branch ({per_task} a forward)")
+        for ti, (task, loader) in enumerate(loaders().items()):
+            a = run_task(m8, task, loader, NCS[ti])
+            b = run_task(m8, task, loader, NCS[ti], use_kernel=False, max_nms=nms_cuda.MAX_K)
+            same_val(a, b, f"{task}: int8 kernels against their plain versions")
+            same_val(a, runs["int8"][0][task], f"{task}: this int8 model against main's")
+            log(f"[val int8] {task}: with conv_s8 / quant_pack_s8 and with their plain versions "
+                f"(use_kernel=False, max_nms {nms_cuda.MAX_K}): identical stats and results "
+                f"({len(val_stats(a)[0])} detections), identical to main's int8 run")
+        checked, calls_by_shape = {}, {}
+        for ti, (task, loader) in enumerate(loaders().items()):
+            for bt in loader:
+                xb = (torch.from_numpy(bt["img"]).to(dev).permute(0, 3, 1, 2).float()
+                      / 255.0).to(torch.bfloat16)
+                calls = {}
+                val_batch_convs(m8, xb, task, checked, calls)
+                calls_by_shape[(task, xb.shape[2], xb.shape[3])] = (xb, calls)
+        log(f"[val int8] quant_pack_s8 and conv_s8 identical to their plain versions at "
+            f"{len(checked)} distinct (B, Ci, Co, k, s, H, W) of the quantized convs of every "
+            f"rect batch of both tasks")
+
+        # ---- timings at val traffic
+        task = TASKS[0]
+        big = max((k for k in calls_by_shape if k[0] == task), key=lambda k: k[1] * k[2])
+        xb, calls = calls_by_shape[big]
+        # every launch of the batch's forward, each at its shape's mean time
+        k_conv = sum(checked[k][4] * n for k, n in calls.items())
+        k_pack = sum(checked[k][5] * n for k, n in calls.items())
+        conv_plain = sum(checked[k][0] * n for k, n in calls.items())
+        pack_plain = sum(checked[k][1] * n for k, n in calls.items())
+        macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
+                   * ((w + 2 * (k // 2) - k) // s + 1)
+                   for (b, ci, co, k, s, h, w), n in calls.items())
+        conv_bound = 2 * macs / INT8_OPS_PER_S * 1e3
+        pack_bytes = sum(n * b * h * w * (2 * ci + conv_int8_cuda.padded_channels(ci))
+                         for (b, ci, co, k, s, h, w), n in calls.items())
+        pack_bound = pack_bytes / HBM_BYTES_PER_S * 1e3
+        n_calls = sum(calls.values())
+        log(f"[val int8] one {task} batch {tuple(xb.shape)}: conv_s8 {k_conv:.3f} ms summed over "
+            f"its {n_calls} launches ({len(calls)} shapes, each at the mean of 5 launches by "
+            f"CUDA events), bound {conv_bound:.3f} ms ({2 * macs / 1e12:.3f} T int8 ops), plain "
+            f"{conv_plain:.1f} ms; quant_pack_s8 {k_pack:.3f} ms summed alike, bound "
+            f"{pack_bound:.3f} ms, plain {pack_plain:.1f} ms  [{card}]")
+
+        # the NMS kernel on each bf16 val batch's candidates: picks against the
+        # plain loop, time a launch, and the work its inputs need
+        nms_err, per_batch = 0, []
+        for ti, (tk, loader) in enumerate(loaders().items()):
+            for bt in loader:
+                xv = (torch.from_numpy(bt["img"]).to(dev).permute(0, 3, 1, 2).float()
+                      / 255.0).to(torch.bfloat16)
+                pred = bf16(xv, tasks=[tk])[tk][0]
+                _, conf, _, offset_boxes = select_candidates(pred, NCS[ti], 0.001, True, None,
+                                                             nms_cuda.MAX_K, False)
+                positives = (conf > 0).sum(1)
+                idx_k, val_k = nms(offset_boxes, conf, 0.6, 300)
+                idx_p, val_p = nms_cuda.greedy_nms(offset_boxes, conf, 0.6, 300)
+                err = max(int((idx_k.long() - idx_p.long()).abs().max()),
+                          int((val_k.long() - val_p.long()).abs().max()))
+                if err:
+                    raise AssertionError(f"{tk}: the NMS kernel disagrees with the plain loop "
+                                         "at val traffic")
+                nms_err = max(nms_err, err)
+                k_ms, how = kernel_ms(lambda: nms(offset_boxes, conf, 0.6, 300), 10,
+                                      "nms_kernel")
+                p_ms = cuda_ms(lambda: nms_cuda.greedy_nms(offset_boxes, conf, 0.6, 300),
+                               iters=1, warmup=1)
+                cand_ms = cuda_ms(lambda: select_candidates(
+                    pred, NCS[ti], 0.001, True, None, nms_cuda.MAX_K, False), iters=3)
+                ops, steps = nms_work(offset_boxes, conf, 0.6, 300)
+                b, k = conf.shape
+                nbytes = b * k * (16 + 4) + b * 300 * (4 + 1)
+                per_batch.append((k_ms, p_ms, nbytes / HBM_BYTES_PER_S * 1e3,
+                                  ops / FP32_OPS_PER_S * 1e3))
+                log(f"[nms at val traffic] {tk} batch of {tuple(xv.shape[2:])}: B,K={b, k}, "
+                    f"positive candidates per image {int(positives.min())}-"
+                    f"{int(positives.max())}, mean {float(positives.float().mean()):.0f} "
+                    f"(shared memory holds 10240), steps per image {min(steps)}-{max(steps)}: "
+                    f"picks identical with the plain loop; kernel {k_ms:.4f} ms a launch "
+                    f"({how}), plain {p_ms:.2f} ms, bound {max(per_batch[-1][2:]):.5f} ms; "
+                    f"the candidates (stable sort of {b} x {pred.shape[1] * NCS[ti]} scores) "
+                    f"{cand_ms:.3f} ms (events)  [{card}]")
+        nms_k, nms_plain, nms_bytes_ms, nms_ops_ms = (float(np.mean(v)) for v in zip(*per_batch))
+        nms_bound = max(nms_bytes_ms, nms_ops_ms)
+        log(f"[nms at val traffic] mean over the {len(per_batch)} bf16 val batches: kernel "
+            f"{nms_k:.4f} ms a launch, plain {nms_plain:.2f} ms, bound {nms_bound:.5f} ms  "
+            f"[{card}]")
+        launches = {"nms": runs["bf16"][2][0], "conv": runs["int8"][2][1],
+                    "pack": runs["int8"][2][2]}
+        return [{
+            "name": "nms (val: multi-label, conf 0.001, K 16384, B 32; mean over the batches)",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/nms.cu",
+            "replaces": "cerberusdet_tpu/ops/nms_pallas.py:34",
+            "launches": launches["nms"],
+            "max_abs_err": nms_err,
+            "ms": nms_k,
+            "plain_ms": nms_plain,
+            "bound_ms": nms_bound,
+            "bound_by": "bytes" if nms_bytes_ms >= nms_ops_ms else "operations",
+            "library_ms": None,
+        }, {
+            "name": f"conv_s8 (val: one batch {tuple(xb.shape)}, all {n_calls} launches summed)",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
+            "launches": launches["conv"],
+            "max_abs_err": max(c[2] for c in checked.values()),
+            "ms": k_conv,
+            "plain_ms": conv_plain,
+            "bound_ms": conv_bound,
+            "bound_by": "operations",
+            "library_ms": None,
+        }, {
+            "name": f"quant_pack_s8 (val: one batch {tuple(xb.shape)}, all {n_calls} launches "
+                    "summed)",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas kernel; "
+                        "part of conv_s8's redesign)",
+            "launches": launches["pack"],
+            "max_abs_err": max(c[3] for c in checked.values()),
+            "ms": k_pack,
+            "plain_ms": pack_plain,
+            "bound_ms": pack_bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+        }]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        nms.launches, conv_s8.launches, quant_pack_s8.launches = saved
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1408,6 +1812,12 @@ def main() -> int:
     worst = close_updates(sd_card, sd_cpu, init_sd, 5e-3, "float64 train step")
     log(f"[reference] yolov8n_2task 64 px float64 train step: card == CPU, losses "
         f"{it_card} vs {it_cpu}, tensors within {worst:.3g} of their change (limit 5e-3)")
+
+    # ---- 6. the validation path at full width
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    kernels.extend(validate(card, dev))
+    log(f"[val] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

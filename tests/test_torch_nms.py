@@ -191,6 +191,58 @@ def test_non_max_suppression_kernel_path_clamp_on_cpu():
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
 
 
+VAL_NMS = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, multi_label=True)
+
+
+def test_kernel_path_clamp_invisible_at_val_traffic():
+    """The val protocol (conf 0.001, multi-label) on dense clustered
+    predictions, ~166k candidates an image: the kernel path's 16384 cap
+    selects the same 300 rows as the plain path's 30000, which equals the
+    JAX XLA path (no clamp) bit for bit. Same data as
+    tests/test_nms_clamp.py."""
+    rng = np.random.default_rng(0)
+    B, N, nc = 4, 8400, 20
+    centers = rng.uniform(100, 540, (B, 40, 2))
+    pick = rng.integers(0, 40, (B, N))
+    xy = centers[np.arange(B)[:, None], pick] + rng.normal(0, 30, (B, N, 2))
+    wh = rng.uniform(20, 120, (B, N, 2))
+    scores = rng.uniform(0.0005, 0.05, (B, N, nc)).astype(np.float32)
+    strong = rng.integers(0, N, (B, 50))
+    for b in range(B):
+        scores[b, strong[b], rng.integers(0, nc, 50)] = rng.uniform(0.3, 0.95, 50)
+    pred = np.concatenate([np.concatenate([xy, wh], -1), scores], -1).astype(np.float32)
+    assert (scores > 0.001).sum() / B > 100_000
+    dk, ck = non_max_suppression(torch.from_numpy(pred), nc=nc, use_kernel=True, **VAL_NMS)
+    dp, cp = non_max_suppression(torch.from_numpy(pred), nc=nc, **VAL_NMS)
+    dj, cj = jax_nms(jnp.asarray(pred), nc=nc, use_pallas=False, **VAL_NMS)
+    np.testing.assert_array_equal(cp.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(dp.numpy(), np.asarray(dj))
+    np.testing.assert_array_equal(ck.numpy(), cp.numpy())
+    for b in range(B):  # the same rows; the order may differ on equal scores
+        k = {tuple(r) for r in dk[b, : int(ck[b])].tolist()}
+        assert k == {tuple(r) for r in dp[b, : int(cp[b])].tolist()}
+
+
+def test_clamp_follows_the_route():
+    """Only the kernel path clamps: >16384 near-identical boxes that
+    outscore 50 small ones leave 1 detection at 16384 candidates and 51 at
+    30000 (the boundary of tests/test_nms_clamp.py); the plain path keeps
+    JAX's unclamped answer."""
+    N = 18050
+    pred = np.zeros((1, N, 5), np.float32)
+    pred[0, :18000, :4] = [300, 300, 40, 40]
+    pred[0, :18000, :4] += np.random.default_rng(0).normal(0, 0.5, (18000, 4))
+    pred[0, :18000, 4] = np.linspace(0.9, 0.5, 18000)
+    for i in range(50):
+        pred[0, 18000 + i, :4] = [30 + 12 * i, 30 + 12 * i, 10, 10]
+        pred[0, 18000 + i, 4] = 0.1
+    kw = dict(VAL_NMS, multi_label=False)
+    _, ck = non_max_suppression(torch.from_numpy(pred), nc=1, use_kernel=True, **kw)
+    _, cp = non_max_suppression(torch.from_numpy(pred), nc=1, use_kernel=False, **kw)
+    _, cj = jax_nms(jnp.asarray(pred), nc=1, use_pallas=False, **kw)
+    assert int(ck[0]) == 1 and int(cp[0]) == int(cj[0]) == 51
+
+
 def _task_major_cases(n_cases, seed):
     """Batches of random task-major detection sets built like the differential
     fuzz of tests/test_nms.py: clustered boxes, occasional exact ties,
