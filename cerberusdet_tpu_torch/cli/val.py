@@ -66,20 +66,11 @@ def parse_opt(argv=None):
 
 def load_model_for_eval(weights: str, cfg: str, device):
     """The port's CerberusModel from a .ckpt.npz (its `ema` when it holds
-    one), fused, in eval mode, in float32 on `device`."""
-    from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint
-    from cerberusdet_tpu_torch.manager.weights import load_jax_params
-    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    one), fused like the reference's attempt_load(.fuse()), in eval mode, in
+    float32 on `device` (manager/attempt_load.py:load_single)."""
+    from cerberusdet_tpu_torch.manager.attempt_load import load_single
 
-    if weights.endswith(".pt"):
-        raise NotImplementedError(".pt weights need pt_import, not ported yet "
-                                  "(ROADMAP.md queue 1, item 5)")
-    ckpt = load_checkpoint(weights)
-    meta = ckpt["meta"]
-    model = CerberusModel(cfg or meta["cfg"], meta["task_ids"], meta["nc"], device=device)
-    load_jax_params(model, ckpt["ema"] if ckpt.get("ema") else ckpt["params"])
-    # standalone eval runs fused like the reference's attempt_load(.fuse())
-    return model.fuse().eval()
+    return load_single(weights, cfg or None, fuse=True, device=device)[0].eval()
 
 
 @torch.no_grad()
@@ -130,7 +121,7 @@ def quantize_for_eval(model, data_dict, opt, dtype, weights, n_calib_batches: in
 
 def main(argv=None):
     from cerberusdet_tpu_torch.data.loaders import create_dataloader
-    from cerberusdet_tpu_torch.evaluation.val import run_task
+    from cerberusdet_tpu_torch.evaluation.val import eval_flags, run_task
     from cerberusdet_tpu_torch.manager.run_manager import increment_path, parse_data_config
     from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
 
@@ -147,8 +138,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if opt.bf16 else torch.float32
     fused = fused_conv_weights(model) if opt.int8 != "off" else None
     model.to(dtype)
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
-                                    allow_tf32=False):
+    with eval_flags():
         if opt.int8 != "off":
             quantize_for_eval(model, data_dict, opt, dtype, fused)
             del fused

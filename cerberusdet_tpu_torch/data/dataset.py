@@ -1,27 +1,44 @@
-"""Per-task detection dataset, its evaluation side: file lists, the label
-cache, rect batch shapes, the RAM image cache and the letterbox.
+"""Per-task detection dataset: file lists, the label cache, rect batch
+shapes, the RAM image cache, the letterbox, and the training side's mosaic,
+mixup, affine and pixel augmentation.
 
 Counterpart of cerberusdet_tpu/data/dataset.py (DetectionDataset, after the
 reference's LoadImagesAndLabels, cerberusdet/data/datasets.py:171-542), with
 the same items bit for bit: HWC RGB uint8 images and (n, 6) [cls, prob, xywhn]
-labels, which the loader pads to a fixed count (data/loaders.py).
-The training side (augment=True: mosaic, mixup, affine and pixel
-augmentation), the native scaled JPEG decoder (fast_decode=True) and the
-packed disk cache (cache_images="disk") come with ROADMAP.md queue 1, item 2,
-and raise NotImplementedError until then.
+labels, which the loader pads to a fixed count (data/loaders.py). Under
+augment=True each item draws from its own random.Random(hash((seed, epoch,
+index))), so that items do not depend on the loader's threads. The native
+scaled JPEG decoder (fast_decode, on by default under augment) is the port's
+own copy (native/). The packed disk cache (cache_images="disk") comes with
+ROADMAP.md queue 1, item 2, and raises NotImplementedError until then.
 """
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from cerberusdet_tpu_torch.data.augment import (
+    PixelAugment,
+    augment_hsv,
+    flip_lr,
+    flip_ud,
+    mixup,
+    random_perspective,
+)
 from cerberusdet_tpu_torch.data.labels import build_label_cache, img2label_paths, list_images
 from cerberusdet_tpu_torch.ops.letterbox import letterbox_host
 
-TRAIN_SIDE = "is the data pipeline's training side, not ported yet (ROADMAP.md queue 1, item 2)"
+TRAIN_SIDE = ("is not ported yet: it comes with the data pipeline's next slice "
+              "(ROADMAP.md queue 1, item 2)")
+DEFAULT_HYP = dict(
+    mosaic=0.0, mixup=0.0, degrees=0.0, translate=0.0, scale=0.0, shear=0.0,
+    perspective=0.0, scaleup=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
+    flipud=0.0, fliplr=0.0,
+)
 
 
 def xywhn2xyxy_np(x, w, h, padw=0.0, padh=0.0):
@@ -45,6 +62,30 @@ def xyxy2xywhn_np(x, w, h, clip=True, eps=1e-3):
     return y
 
 
+def mosaic_layout(s: int, yc: int, xc: int, dims):
+    """Placement geometry of the 4-image mosaic (datasets.py:489-506).
+
+    dims: [(h, w)] x 4 tile sizes. Returns per tile
+    ((x1a, y1a, x2a, y2a) canvas rect, (x1b, y1b, x2b, y2b) source rect,
+    (h, w))."""
+    out = []
+    for i, (h, w) in enumerate(dims):
+        if i == 0:  # top left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+        elif i == 1:  # top right
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+            x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+        elif i == 2:  # bottom left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+        else:  # bottom right
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+            x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+        out.append(((x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b), (h, w)))
+    return out
+
+
 class DetectionDataset:
     """One task's dataset. `__getitem__` returns
     (img HWC-RGB uint8, labels (n, 6) [cls, prob, xywhn], meta dict), with
@@ -61,6 +102,7 @@ class DetectionDataset:
         path,
         imgsz: int = 640,
         augment: bool = False,
+        hyp: Optional[Dict[str, Any]] = None,
         rect: bool = False,
         stride: int = 32,
         pad: float = 0.0,
@@ -72,25 +114,25 @@ class DetectionDataset:
         cache_images="",  # False/"" | True/"ram"
         task: str = "task",
         cache_dir: Optional[str] = None,
+        seed: int = 0,
         single_cls: bool = False,
         fast_decode: Optional[bool] = None,
     ):
         cache_mode = {True: "ram", False: ""}.get(cache_images, cache_images or "")
-        if augment:
-            raise NotImplementedError(f"augment=True {TRAIN_SIDE}")
-        if fast_decode:
-            raise NotImplementedError(f"fast_decode=True (the native JPEG decoder) {TRAIN_SIDE}")
         if cache_mode == "disk":
             raise NotImplementedError(f'cache_images="disk" (the packed cache) {TRAIN_SIDE}')
         if cache_mode not in ("", "ram"):
             raise ValueError(f"cache_images must be '', 'ram' or True, got {cache_images!r}")
         self.imgsz = imgsz
+        self.seed = seed
         self.epoch = 0
         self.augment = augment
+        self.hyp = {**DEFAULT_HYP, **(hyp or {})}
         self.rect = rect
         self.stride = stride
         self.pad = pad
         self.task = task
+        self.mosaic_border = [-imgsz // 2, -imgsz // 2]
 
         self.img_files = list_images(path)
         if not self.img_files:
@@ -138,8 +180,13 @@ class DetectionDataset:
                 np.ceil(np.array(shapes) * imgsz / stride + pad).astype(int) * stride)
 
         self._im_cache: Optional[Dict[int, Tuple]] = {} if cache_mode == "ram" else None
+        self._pixel_aug = PixelAugment()
+        # the reference protocol decodes full size for eval: fast_decode
+        # follows augment unless asked for
+        self.fast_decode = augment if fast_decode is None else fast_decode
 
     def set_epoch(self, epoch: int):
+        """Move the augmentation draws to `epoch`'s."""
         self.epoch = epoch
 
     def __len__(self) -> int:
@@ -155,36 +202,115 @@ class DetectionDataset:
         return out
 
     def _decode_image(self, i: int):
-        """cv2 decode of the full image, then a resize of the longest side to
-        imgsz: INTER_AREA when it shrinks, INTER_LINEAR when it grows."""
+        """Decode, then resize the longest side to imgsz: INTER_LINEAR under
+        augment or when it grows, else INTER_AREA. fast_decode takes the
+        native scaled decoder where it can, cv2's full decode otherwise."""
         import cv2
 
-        im = cv2.imread(self.img_files[i])  # BGR
+        im = None
+        h0 = w0 = 0
+        if self.fast_decode:
+            from cerberusdet_tpu_torch.native import imread_scaled
+
+            scaled = imread_scaled(self.img_files[i], self.imgsz)
+            if scaled is not None:
+                im, (h0, w0) = scaled  # RGB, at least the target size
         if im is None:
-            raise FileNotFoundError(self.img_files[i])
-        im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
-        h0, w0 = im.shape[:2]
+            im = cv2.imread(self.img_files[i])  # BGR
+            if im is None:
+                raise FileNotFoundError(self.img_files[i])
+            im = cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+            h0, w0 = im.shape[:2]
         r = self.imgsz / max(h0, w0)
         target = (int(w0 * r), int(h0 * r)) if r != 1 else (w0, h0)
         if im.shape[1::-1] != target:
-            interp = cv2.INTER_LINEAR if r > 1 else cv2.INTER_AREA
+            interp = cv2.INTER_LINEAR if (self.augment or r > 1) else cv2.INTER_AREA
             im = cv2.resize(im, target, interpolation=interp)
         return im, (h0, w0), im.shape[:2]
 
+    # -------------------------------------------------------------- mosaic
+    def draw_mosaic_layout(self, index: int, rng=random):
+        """The mosaic's draws: the centre (yc, xc) and the 4 tile indices."""
+        s = self.imgsz
+        yc, xc = (int(rng.uniform(-x, 2 * s + x)) for x in self.mosaic_border)
+        indices = [index] + rng.choices(range(self.n), k=3)
+        rng.shuffle(indices)
+        return yc, xc, indices
+
+    def mosaic_labels(self, indices, placements) -> np.ndarray:
+        """Pre-warp mosaic labels: each tile's boxes shifted into canvas
+        coordinates and clipped to the 2s x 2s canvas."""
+        labels4 = []
+        for idx, ((x1a, y1a, _, _), (x1b, y1b, _, _), (h, w)) in zip(indices, placements):
+            lb = self.labels[idx].copy()
+            if len(lb):
+                lb[:, 2:6] = xywhn2xyxy_np(lb[:, 2:6], w, h, x1a - x1b, y1a - y1b)
+            labels4.append(lb)
+        labels4 = np.concatenate(labels4, 0) if labels4 else np.zeros((0, 6), np.float32)
+        np.clip(labels4[:, 2:6], 0, 2 * self.imgsz, out=labels4[:, 2:6])
+        return labels4
+
+    def load_mosaic(self, index: int, rng=random):
+        """4-image mosaic on a 2s x 2s canvas, then the affine crop to s x s
+        (datasets.py:483-542)."""
+        s = self.imgsz
+        yc, xc, indices = self.draw_mosaic_layout(index, rng)
+        ims = [self.load_image(idx) for idx in indices]
+        placements = mosaic_layout(s, yc, xc, [im[2] for im in ims])
+        im4 = np.full((s * 2, s * 2, 3), 114, np.uint8)
+        for (im, _, _), ((x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b), _) in zip(
+                ims, placements):
+            im4[y1a:y2a, x1a:x2a] = im[y1b:y2b, x1b:x2b]
+        labels4 = self.mosaic_labels(indices, placements)
+        return random_perspective(
+            im4, labels4,
+            degrees=self.hyp["degrees"], translate=self.hyp["translate"],
+            scale=self.hyp["scale"], shear=self.hyp["shear"],
+            perspective=self.hyp["perspective"], border=self.mosaic_border,
+            scaleup=float(self.hyp.get("scaleup", 0.0)), rng=rng,
+        )
+
     def __getitem__(self, index: int):
         index = int(self.indices[index])
-        img, (h0, w0), (h, w) = self.load_image(index)
-        shape = (tuple(self.batch_shapes[self.batch_index[index]]) if self.rect
-                 else (self.imgsz, self.imgsz))
-        img, ratio, pad = letterbox_host(img, shape, auto=False, scaleup=False)
-        shapes = ((h0, w0), ((h / h0 * ratio[0], w / w0 * ratio[1]), pad))
-        labels = self.labels[index].copy()
+        # a fixed function of (seed, epoch, index): concurrent prefetch
+        # threads cannot perturb the draws
+        rng = random.Random(hash((self.seed, self.epoch, index)))
+        hyp = self.hyp
+        if self.augment and rng.random() < hyp["mosaic"]:
+            img, labels = self.load_mosaic(index, rng)
+            shapes = None
+            ori_shape = (self.imgsz, self.imgsz)
+            if rng.random() < hyp["mixup"]:
+                img, labels = mixup(
+                    img, labels, *self.load_mosaic(rng.randint(0, self.n - 1), rng), rng=rng)
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index)
+            shape = (tuple(self.batch_shapes[self.batch_index[index]]) if self.rect
+                     else (self.imgsz, self.imgsz))
+            img, ratio, pad = letterbox_host(img, shape, auto=False, scaleup=self.augment)
+            shapes = ((h0, w0), ((h / h0 * ratio[0], w / w0 * ratio[1]), pad))
+            ori_shape = (h0, w0)
+            labels = self.labels[index].copy()
+            if len(labels):
+                labels[:, 2:6] = xywhn2xyxy_np(labels[:, 2:6], ratio[0] * w, ratio[1] * h,
+                                               pad[0], pad[1])
+            if self.augment:
+                img, labels = random_perspective(
+                    img, labels, degrees=hyp["degrees"], translate=hyp["translate"],
+                    scale=hyp["scale"], shear=hyp["shear"], perspective=hyp["perspective"],
+                    scaleup=float(hyp.get("scaleup", 0.0)), rng=rng)
+
         if len(labels):
-            labels[:, 2:6] = xywhn2xyxy_np(labels[:, 2:6], ratio[0] * w, ratio[1] * h,
-                                           pad[0], pad[1])
             labels[:, 2:6] = xyxy2xywhn_np(labels[:, 2:6], w=img.shape[1], h=img.shape[0],
                                            clip=True, eps=1e-3)
-        meta = {"path": self.img_files[index], "ori_shape": (h0, w0), "shapes": shapes}
+        if self.augment:
+            img = self._pixel_aug(img, rng)
+            augment_hsv(img, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng=rng)
+            if rng.random() < hyp["flipud"]:
+                img, labels[:, 2:6] = flip_ud(img, labels[:, 2:6])
+            if rng.random() < hyp["fliplr"]:
+                img, labels[:, 2:6] = flip_lr(img, labels[:, 2:6])
+        meta = {"path": self.img_files[index], "ori_shape": ori_shape, "shapes": shapes}
         return np.ascontiguousarray(img), labels.astype(np.float32), meta
 
     def class_histogram(self, nc: int) -> np.ndarray:

@@ -6,11 +6,13 @@ InfiniteDataLoader, :96-112), with the same batches:
   * the collate pads labels to `max_labels` per image and emits a dense
     {img, cls, prob, bboxes, mask, meta} dict of numpy arrays; images stay
     NHWC uint8 on the host (the consumer moves them to the card);
-  * decode runs on a thread pool (cv2 releases the GIL) and batches are
-    assembled in sampler order, so a batch does not depend on the thread
-    count or on prefetching.
+  * decode and augmentation run on a thread pool (cv2 and the native
+    decoder release the GIL) and batches are assembled in sampler order, so
+    a batch does not depend on the thread count or on prefetching;
+  * training loaders (augment=True) shuffle per epoch or sample class-
+    balanced, and drop the last partial batch.
 The JAX package's worker-process pool (num_workers > 0) and its device-side
-augmentation come with the data pipeline's training side and with GPU
+augmentation come with the data pipeline's next slice and with GPU
 augmentation (ROADMAP.md queue 1, items 2 and 8), and raise until then.
 """
 
@@ -25,7 +27,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from cerberusdet_tpu_torch.data.dataset import TRAIN_SIDE, DetectionDataset
-from cerberusdet_tpu_torch.data.samplers import ShuffleSampler
+from cerberusdet_tpu_torch.data.samplers import BalancedSampler, ShuffleSampler
 
 
 def pad_labels(labels: List[np.ndarray], max_labels: int) -> Dict[str, np.ndarray]:
@@ -195,15 +197,20 @@ def create_dataloader(
     imgsz: int,
     batch_size: int,
     stride: int = 32,
+    hyp: Optional[dict] = None,
     augment: bool = False,
     rect: bool = False,
     pad: float = 0.0,
+    balanced_sampler: bool = False,
+    class_choice: str = "least_sampled",
+    shuffle: bool = True,
     use_xml: bool = False,
     classnames=None,
     multi_label: bool = False,
     soft_label: bool = False,
     max_labels: int = 300,
     task: str = "task",
+    seed: int = 0,
     host_sharded: bool = True,
     cache_dir: Optional[str] = None,
     cache_images="",  # False/"" | True/"ram"
@@ -214,12 +221,13 @@ def create_dataloader(
     augment_device: bool = False,
 ):
     """Build (dataset, loader) for one task, with the JAX package's arguments
-    (dataloaders.py:39-93 parity) on its eval side; the training side's
-    (hyp, seed, shuffle, balanced_sampler, class_choice) come with augment
-    (ROADMAP.md queue 1). host_sharded splits the set over processes
-    in a run of several: that comes with multi-GPU data parallelism
-    (ROADMAP.md queue 1, item 6) and raises there until then; in one process
-    it changes nothing."""
+    (dataloaders.py:39-93 parity). A training loader (augment=True) draws
+    from `hyp` and `seed`, shuffles per epoch (or samples class-balanced,
+    balanced_sampler with class_choice) and drops the last partial batch; an
+    eval loader keeps the dataset's order. host_sharded splits the set over
+    processes in a run of several: that comes with multi-GPU data
+    parallelism (ROADMAP.md queue 1, item 6) and raises there until then; in
+    one process it changes nothing."""
     if augment_device:
         raise NotImplementedError("augment_device: GPU-side augmentation is not ported yet "
                                   "(ROADMAP.md queue 1, item 8)")
@@ -230,15 +238,16 @@ def create_dataloader(
             raise NotImplementedError("host_sharded loading over several processes comes "
                                       "with data parallelism (ROADMAP.md queue 1, item 6)")
     dataset = DetectionDataset(
-        path, imgsz=imgsz, augment=augment, rect=rect, stride=stride,
+        path, imgsz=imgsz, augment=augment, hyp=hyp, rect=rect, stride=stride,
         pad=pad, batch_size=batch_size, use_xml=use_xml, classnames=classnames,
         multi_label=multi_label, soft_label=soft_label, task=task,
-        cache_dir=cache_dir, cache_images=cache_images,
+        cache_dir=cache_dir, cache_images=cache_images, seed=seed,
         single_cls=single_cls, fast_decode=fast_decode,
     )
-    # without augment (the only mode here) the JAX package neither shuffles
-    # nor balances: the sampler keeps the dataset's order
-    sampler = ShuffleSampler(len(dataset), shuffle=False)
+    if balanced_sampler and augment:
+        sampler = BalancedSampler(dataset.labels, class_choice, seed=seed)
+    else:
+        sampler = ShuffleSampler(len(dataset), shuffle=shuffle and augment, seed=seed)
     loader = DataLoader(dataset, batch_size, sampler, max_labels=max_labels,
                         drop_last=augment, num_threads=num_threads, num_workers=num_workers)
     return dataset, loader

@@ -34,7 +34,14 @@ from cerberusdet_tpu_torch.nn.layers import Conv
 from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
 from cerberusdet_tpu_torch.ops.nms import non_max_suppression
 
-__all__ = ["scale_boxes_np", "run_task", "run"]
+__all__ = ["scale_boxes_np", "run_task", "run", "eval_flags"]
+
+
+def eval_flags():
+    """cuDNN settings of a val: float32 is float32 arithmetic (no TF32), and
+    no autotuning, so that a new rect shape costs no search."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                      allow_tf32=False)
 
 
 def _sync(device: torch.device) -> None:

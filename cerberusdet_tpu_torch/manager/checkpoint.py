@@ -6,15 +6,15 @@ A numpy-only copy of the npz branch of cerberusdet_tpu/manager/checkpoint.py
 metadata under `__meta__`. save_checkpoint writes float32 leaves of params
 and ema as float16 (half=True) and the optimizer state as it is; the reader
 upcasts float16 to float32. Files move between the two packages both ways.
-The JAX package's orbax directories (a path not ending in .npz) are not
-ported.
+strip_checkpoint and intersect_trees are copies of :107-130. The JAX
+package's orbax directories (a path not ending in .npz) are not ported.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -90,3 +90,30 @@ def load_checkpoint(path) -> Dict[str, Any]:
             groups[head][rest] = v
     return {name: (unflatten_tree(g) if g else None) for name, g in groups.items()} | {
         "meta": meta}
+
+
+def strip_checkpoint(path, out_path=None) -> None:
+    """Finalise a training checkpoint: promote its EMA to params and drop the
+    optimizer state (general.py:557-578); float32 leaves are written as
+    float16."""
+    ckpt = load_checkpoint(path)
+    params = ckpt["ema"] if ckpt["ema"] is not None else ckpt["params"]
+    meta = dict(ckpt["meta"])
+    meta["stripped"] = True
+    save_checkpoint(out_path or path, params, meta, ema_params=None, opt_momentum=None)
+
+
+def intersect_trees(dst: Dict[str, Any], src: Dict[str, Any]
+                    ) -> Tuple[Dict[str, Any], int, int]:
+    """Copy src leaves into dst where path and shape match (ckpt_utils.py:5-8),
+    cast to dst's dtype. Returns (merged, n_matched, n_total_dst)."""
+    dst_flat = flatten_tree(dst)
+    src_flat = flatten_tree(src)
+    matched = 0
+    out = dict(dst_flat)
+    for k, v in dst_flat.items():
+        s = src_flat.get(k)
+        if s is not None and tuple(s.shape) == tuple(np.shape(v)):
+            out[k] = s.astype(np.asarray(v).dtype)
+            matched += 1
+    return unflatten_tree(out), matched, len(dst_flat)

@@ -22,12 +22,16 @@ only move where the same quantize runs and change no output bit
 Parameterless blocks (Upsample, Concat) may be absent from the tree.
 export_jax_tree / export_jax_params go the other way, so that a state trained
 by the port can be held against the JAX package's and checkpoints move both
-ways.
+ways. export_jax_momentum / load_jax_momentum carry the optimizer's momentum
+across the two formats: the JAX package keeps a momentum tree shaped like
+the parameter tree (zeros at the BatchNorm statistics) in a checkpoint's
+`opt` group (cerberusdet_tpu/train/trainer.py:210-229), the port a buffer
+per parameter name (train/step.py, train/optim.py:OptState).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +62,19 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(rest)
 
 
+def _torch_arrays(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX tree's leaves keyed as the port's state_dict, in its layouts."""
+    src: Dict[str, np.ndarray] = {}
+    for path, v in _leaves(tree):
+        a = np.asarray(v)
+        if path[-1] == "w" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path[-1] == "w_q":
+            a = pack_weight(torch.from_numpy(np.array(a, np.int8))).numpy()
+        src[_torch_key(path)] = a
+    return src
+
+
 def _has_bn(tree: Mapping[str, Any]) -> bool:
     return any("bn" in path for path, _ in _leaves(tree))
 
@@ -69,14 +86,7 @@ def load_jax_tree(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.
     Raises KeyError on a missing or an extra key, ValueError on a shape
     mismatch. Values are cast to each parameter's dtype and device."""
     state = module.state_dict()
-    src: Dict[str, np.ndarray] = {}
-    for path, v in _leaves(tree):
-        a = np.asarray(v)
-        if path[-1] == "w" and a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        elif path[-1] == "w_q":
-            a = pack_weight(torch.from_numpy(np.array(a, np.int8))).numpy()
-        src[_torch_key(path)] = a
+    src = _torch_arrays(tree)
     missing = sorted(set(state) - set(src))
     extra = sorted(set(src) - set(state))
     if missing or extra:
@@ -116,13 +126,18 @@ def _without_act_quant(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def export_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
+def export_jax_tree(module: torch.nn.Module,
+                    values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """The inverse of load_jax_tree: `module`'s parameters and buffers as a
     nested dict of numpy arrays in the JAX layout (OIHW -> HWIO; BatchNorm
     weight/bias/running_mean/running_var -> scale/bias/mean/var; an int8
-    Conv's packed w_q -> HWIO int8)."""
+    Conv's packed w_q -> HWIO int8). With `values` ({state_dict key:
+    tensor}), those tensors take the place of the module's, and zeros that
+    of every key `values` lacks."""
     tree: Dict[str, Any] = {}
     for key, t in module.state_dict().items():
+        if values is not None:
+            t = values[key] if key in values else torch.zeros_like(t)
         path = key.split(".")
         if len(path) >= 2 and path[-2] == "bn":
             path[-1] = _BN_BACK[path[-1]]
@@ -139,9 +154,42 @@ def export_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
     return tree
 
 
+def _by_uid(model, by_key: Dict[str, Any]) -> Dict[str, Any]:
+    uids = list(model.block_nodes) + [model.head_uid(t) for t in model.task_ids]
+    return {uid: by_key[module_key(uid)] for uid in uids if module_key(uid) in by_key}
+
+
 def export_jax_params(model) -> Dict[str, Any]:
     """The port's CerberusModel as a JAX CerberusModel parameter tree keyed by
     block uid (parameterless blocks left out); load_jax_params reads it."""
-    uids = list(model.block_nodes) + [model.head_uid(t) for t in model.task_ids]
-    by_key = export_jax_tree(model.blocks)
-    return {uid: by_key[module_key(uid)] for uid in uids if module_key(uid) in by_key}
+    return _by_uid(model, export_jax_tree(model.blocks))
+
+
+def export_jax_momentum(model, momentum_buf: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's momentum buffers ({parameter name: tensor} of `model`, as
+    OptState.momentum_buf keeps them) as the JAX package's momentum tree:
+    the layout of export_jax_params(model), zeros at the BatchNorm
+    statistics and at any parameter without a buffer."""
+    n = len("blocks.")
+    bufs = {name[n:]: b for name, b in momentum_buf.items() if name.startswith("blocks.")}
+    return _by_uid(model, export_jax_tree(model.blocks, values=bufs))
+
+
+@torch.no_grad()
+def load_jax_momentum(model, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of export_jax_momentum: a JAX momentum tree as {parameter
+    name: tensor} for every parameter of `model`, each on its parameter's
+    device and in its dtype. Its entries at the BatchNorm statistics are
+    dropped. Raises KeyError on a parameter without a buffer, ValueError on
+    a shape mismatch."""
+    arrays = _torch_arrays({module_key(uid): sub for uid, sub in tree.items()})
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in model.named_parameters():
+        key = name[len("blocks."):]
+        if key not in arrays:
+            raise KeyError(f"the momentum tree has no buffer for {name}")
+        a = arrays[key]
+        if tuple(p.shape) != a.shape:
+            raise ValueError(f"{name}: momentum shape {a.shape} does not fit {tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(a)).to(device=p.device, dtype=p.dtype)
+    return out

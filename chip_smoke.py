@@ -69,7 +69,25 @@ Phases, each of which fails the run on anything wrong:
      launch per batch and task, one conv_s8 and one quant_pack_s8 per
      quantized Conv and batch. Prints P, R, mAP50, mAP and the speed terms
      per task and precision, the NMS kernel at val traffic and conv_s8
-     summed over one int8 batch.
+     summed over one int8 batch;
+  7. train the flagship through the train entry point (cli/train.py:main):
+     the seeded model (BatchNorm statistics from 8 train images) as
+     --weights, 48 train and 16 val seeded labelled JPEGs a task, the
+     paper's hyps (mosaic 1.0, mixup 0.285), --bf16, per-task batch 8: run A
+     for 2 epochs with the native JPEG decoder deleted before it (its first
+     decode builds it), run R resuming A with its opt.yaml's epochs raised
+     to 3, and a fresh 3-epoch run B (--nosave --noval) whose steps are
+     synchronised, timed and, for 3 steps, profiled. The TAL kernels launch
+     once per task and step (and per val batch and task where the val
+     computes losses), the NMS kernel once per val batch and task; A's first
+     step with the plain assigner gives the kernels' losses (rtol 1e-5); B's
+     steps get A's and R's batches (sha1 of img and bboxes); R starts from
+     the saved params exactly; A's final val on last.ckpt.npz equals
+     cli/val.py's main on the same file; the TAL and NMS kernels equal their
+     plain versions on the first inputs the path gave them. Prints the step
+     time, the host's wait for data, the device-busy share, host
+     augmentation per image, the decoder, val and save times, peak memory
+     and main's wall.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -1310,6 +1328,491 @@ def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         shutil.rmtree(root, ignore_errors=True)
         nms.launches, conv_s8.launches, quant_pack_s8.launches = saved
 
+# the train entry point's cell: JPEGs a task, cut from VOC's 16551 train and
+# 4952 test images to fit the script's time limit
+TRAIN_CLI_TRAIN, TRAIN_CLI_VAL, TRAIN_CLI_BATCH = 48, 16, 8
+PROFILED_STEPS = 3
+PAPER_HYP = os.path.join(ROOT, "configs", "hyps", "hyp.cerber-voc_obj365.yaml")
+
+
+def batch_digest(batch) -> str:
+    """A hash of a step's `img` and `bboxes` for one task."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1(np.ascontiguousarray(batch["img"]).tobytes())
+    h.update(np.ascontiguousarray(batch["bboxes"]).tobytes())
+    return h.hexdigest()
+
+
+def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+              n_train: int = TRAIN_CLI_TRAIN, n_val: int = TRAIN_CLI_VAL,
+              batch: int = TRAIN_CLI_BATCH, workers=None):
+    """The train entry point (cli/train.py:main) at full width: the seeded
+    flagship (BatchNorm statistics from 8 train images) as --weights, per-task
+    augmented loaders over seeded labelled JPEGs with the paper's hyps (mosaic
+    1.0, mixup 0.285), --bf16, per-task batch 8. Run A: 2 epochs from a
+    fresh build of the native decoder; run R: A resumed with its opt.yaml's
+    epochs raised to 3; run B: a fresh 3-epoch run with --nosave --noval, its
+    steps synchronised and timed. Gates: the TAL kernels launch once per task
+    and step (and per val batch and task where the val computes losses), the
+    NMS kernel once per val batch and task; A's first step with the plain
+    assigner gives the kernels' losses (rtol 1e-5); B's steps get A's and
+    R's batches (hashes of img and bboxes); R starts from the saved params
+    exactly; A's final val on last.ckpt.npz equals cli/val.py's main on the
+    same file; the TAL and NMS kernels equal their plain versions on the
+    first inputs the run gave them. Returns the kernels-line entries of this
+    path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch import native
+    from cerberusdet_tpu_torch.cli import train as cli_train
+    from cerberusdet_tpu_torch.cli import val as cli_val
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.manager import run_manager
+    from cerberusdet_tpu_torch.manager.checkpoint import (
+        flatten_tree,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import nms as nms_mod
+    from cerberusdet_tpu_torch.ops import nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_val_set
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.train import trainer as trainer_mod
+    from cerberusdet_tpu_torch.train.step import MultiTaskTrainer
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    kern = {"nms": nms_cuda.greedy_nms_cuda, "tal_select": tal_cuda.select_kernel,
+            "tal_assign": tal_cuda.assign_kernel, "tal_norm": tal_cuda.norm_kernel}
+    saved_counts = {k: f.launches for k, f in kern.items()}
+    patches = []
+
+    def patch(obj, name, new):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    names = [[f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)]
+    root = tempfile.mkdtemp(prefix="cerberus_train_")
+    try:
+        # ---- the data and the starting checkpoint
+        t0 = time.perf_counter()
+        train_dirs, val_dirs = [], []
+        for i, (t, nc) in enumerate(zip(TASKS, NCS)):
+            train_dirs.append(write_val_set(os.path.join(root, t, "train"), n_train, VAL_SIZES,
+                                            seed=40 + i, n_labels=6, nc=nc))
+            val_dirs.append(write_val_set(os.path.join(root, t, "val"), n_val, VAL_SIZES,
+                                          seed=50 + i, n_labels=4, nc=nc))
+        data_yaml = os.path.join(root, "data.yaml")
+        with open(data_yaml, "w") as f:
+            yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": names, "train": train_dirs,
+                            "val": val_dirs}, f)
+        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+        distinct_heads(model, seed=1)
+        calib, _ = create_dataloader(train_dirs[0], imgsz, 8, task="bn", cache_dir=root)
+        x = torch.from_numpy(np.stack([calib[i][0] for i in range(8)])).to(dev)
+        calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
+        weights = os.path.join(root, "start.ckpt.npz")
+        save_checkpoint(weights, export_jax_params(model), {
+            "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": names}, half=False)
+        del model, x, calib
+        log(f"[train cli] {n_train} train and {n_val} val JPEGs a task at native sizes "
+            f"{VAL_SIZES}, 6 / 4 random labels an image; the seeded "
+            f"{os.path.basename(cfg)} (BatchNorm statistics from 8 train images) as "
+            f"--weights; in {time.perf_counter() - t0:.2f} s")
+
+        # ---- probes around the loop (the path itself is unchanged)
+        probe = {"hashes": [], "enter": [], "hash_s": [], "step_s": [], "first": None,
+                 "resumed": None, "sync": False, "profile": None}
+        real_step = MultiTaskTrainer.step
+
+        def step(self, state, batches, lrs, momentum, freeze_shared=False, mark=None):
+            i = len(probe["hashes"])
+            probe["enter"].append(time.perf_counter())
+            probe["hashes"].append({t: batch_digest(b) for t, b in batches.items()})
+            probe["hash_s"].append(time.perf_counter() - probe["enter"][-1])
+            if i == 0 and probe["resumed"] is not None:  # R starts from the saved params
+                want = flatten_tree(probe["resumed"])
+                got = flatten_tree(export_jax_params(state.model))
+                bad = [k for k, v in want.items() if k not in got or not np.array_equal(
+                    got[k], v)]
+                if bad or len(got) != len(want):
+                    raise AssertionError(f"the resumed params differ from the saved ones at "
+                                         f"{len(bad)} leaves, e.g. {bad[:3]}")
+                probe["resumed"] = len(want)
+            if i == 0 and probe["first"] is None:  # the plain assigner from the same state
+                snap = snapshot(state)
+                for loss in self.losses.values():
+                    loss.use_kernel = False
+                try:
+                    _, plain = real_step(self, state, batches, lrs, momentum, freeze_shared)
+                finally:
+                    for loss in self.losses.values():
+                        loss.use_kernel = True
+                probe["first"] = {t: [float(v) for v in it] for t, it in plain.items()}
+                restore(state, snap)
+                del snap
+            if probe["profile"] == i:  # B: the profiler over PROFILED_STEPS steps
+                from torch.profiler import ProfilerActivity, profile
+
+                sync()
+                # (the CPU's activity only where the phase is rehearsed without a card)
+                prof = profile(activities=[ProfilerActivity.CUDA if on_card
+                                           else ProfilerActivity.CPU])
+                prof.__enter__()
+                probe["prof"] = (prof, time.perf_counter(), [])
+            t = time.perf_counter()
+            out = real_step(self, state, batches, lrs, momentum, freeze_shared)
+            if probe["sync"]:
+                sync()
+                probe["step_s"].append(time.perf_counter() - t)
+            if probe["profile"] is not None and probe.get("prof"):
+                prof, t_enter, steps = probe["prof"]
+                steps.append(time.perf_counter() - t)
+                if len(steps) == PROFILED_STEPS:
+                    wall = time.perf_counter() - t_enter
+                    prof.__exit__(None, None, None)
+                    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+                    probe["prof_result"] = {"steps": (i - PROFILED_STEPS + 1, i),
+                                            "busy_ms": busy, "step_ms": 1e3 * sum(steps),
+                                            "wall_ms": 1e3 * wall}
+                    probe["prof"] = None
+            if isinstance(probe["first"], dict):
+                worst = 0.0
+                for task, it in out[1].items():
+                    for a, b in zip(it, probe["first"][task]):
+                        rel = abs(float(a) - b) / max(abs(b), 1e-30)
+                        worst = max(worst, rel)
+                        if rel > 1e-5:
+                            raise AssertionError(f"{task}: kernel-assigner loss {float(a)} vs "
+                                                 f"plain {b} at the first step")
+                log(f"[train cli] run A's first step: the plain assigner from the same state "
+                    f"gives the kernels' losses within rtol {worst:.3g} (limit 1e-5): "
+                    f"{probe['first']}")
+                probe["first"] = True
+            return out
+
+        patch(MultiTaskTrainer, "step", step)
+
+        vals = []  # (batches, with the loss, seconds, detections) per run_task of the loop
+        real_run_task = trainer_mod.run_task
+
+        def run_task(model, task, loader, *a, **kw):
+            t = time.perf_counter()
+            out = real_run_task(model, task, loader, *a, **kw)
+            n_det = sum(len(s[1]) for s in out["metrics"].stats)
+            vals.append((len(loader), kw.get("compute_loss") is not None,
+                         time.perf_counter() - t, n_det))
+            return out
+
+        patch(trainer_mod, "run_task", run_task)
+
+        captured = {}  # the first TAL and NMS inputs of run A
+        real_assign = loss_mod.task_aligned_assign
+
+        def assign(*a, **kw):
+            if "tal" not in captured:
+                captured["tal"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+            return real_assign(*a, **kw)
+
+        patch(loss_mod, "task_aligned_assign", assign)
+        real_nms = nms_mod.greedy_nms_cuda
+
+        def nms(boxes, scores, iou_thres, max_det):
+            if "nms" not in captured:
+                captured["nms"] = (boxes.clone(), scores.clone(), iou_thres, max_det)
+            return real_nms(boxes, scores, iou_thres, max_det)
+
+        patch(nms_mod, "greedy_nms_cuda", nms)
+
+        timed = {"val_epoch": [], "save_model": [], "save_best_task_model": []}
+
+        def timing(cls, name):
+            real = getattr(cls, name)
+
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                out = real(*a, **kw)
+                timed[name].append(time.perf_counter() - t)
+                return out
+            patch(cls, name, wrapper)
+
+        timing(trainer_mod.TrainLoop, "val_epoch")
+        timing(run_manager.RunManager, "save_model")
+        timing(run_manager.RunManager, "save_best_task_model")
+
+        cli_check = {}
+        real_final = trainer_mod.TrainLoop._final_val_on_ckpts
+
+        def final_val(self):
+            out = real_final(self)
+            if not cli_check:  # run A: cli/val.py's main on the same last.ckpt.npz
+                before = {k: f.launches for k, f in kern.items()}
+                t = time.perf_counter()
+                got = cli_val.main(
+                    ["--weights", str(self.manager.wdir / "last.ckpt.npz"), "--data",
+                     data_yaml, "--imgsz", str(imgsz), "--batch-size", str(batch), "--no-rect",
+                     "--device", str(dev), "--project", os.path.join(root, "val"),
+                     "--exist-ok"] + (["--workers", str(workers)] if workers else []))
+                for k, f in kern.items():  # the comparison's launches do not count
+                    f.launches = before[k]
+                for t_ in TASKS:
+                    a, b = out["last"][t_], got[t_]
+                    if a["results"] != b["results"] or not np.array_equal(a["maps"], b["maps"]) \
+                            or a["seen"] != b["seen"]:
+                        raise AssertionError(f"{t_}: the final val on last.ckpt.npz "
+                                             f"{a['results']} differs from cli/val.py's "
+                                             f"{b['results']}")
+                cli_check.update({t_: (got[t_]["results"][:4], sum(
+                    len(s[1]) for s in got[t_]["metrics"].stats)) for t_ in TASKS})
+                log(f"[train cli] run A's final val on last.ckpt.npz == cli/val.py main on the "
+                    f"same file (--no-rect, batch {batch}; {time.perf_counter() - t:.2f} s): "
+                    + ", ".join(f"{t_}: P R mAP50 mAP {np.round(r, 5).tolist()} from {n} "
+                                f"detections" for t_, (r, n) in cli_check.items()))
+            return out
+
+        patch(trainer_mod.TrainLoop, "_final_val_on_ckpts", final_val)
+
+        project = os.path.join(root, "runs")
+        common = ["--data", data_yaml, "--device", str(dev)]
+        fresh = common + ["--cfg", cfg, "--hyp", PAPER_HYP, "--imgsz", str(imgsz),
+                          "--batch-size", f"{batch},{batch}", "--bf16", "--warmup-min-iters", "4",
+                          "--weights", weights, "--project", project, "--seed", "0"] + (
+                              ["--workers", str(workers)] if workers else [])
+
+        def run(label, argv):
+            for f in kern.values():
+                f.launches = 0
+            probe.update(hashes=[], enter=[], hash_s=[], step_s=[])
+            vals.clear()
+            for v in timed.values():
+                v.clear()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loop = cli_train.main(argv)
+            wall = time.perf_counter() - t
+            counts = {k: f.launches for k, f in kern.items()}
+            tasks_stepped = sum(len(h) for h in probe["hashes"])
+            val_batches = sum(v[0] for v in vals)
+            loss_batches = sum(v[0] for v in vals if v[1])
+            expect = {"nms": val_batches, "tal_select": tasks_stepped + loss_batches,
+                      "tal_assign": tasks_stepped + loss_batches,
+                      "tal_norm": tasks_stepped + loss_batches}
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+            log(f"[train cli] run {label}: {len(probe['hashes'])} steps, {len(vals)} task vals "
+                f"over {val_batches} batches ({loss_batches} with losses); launches {counts}, "
+                f"expected {expect}; main's wall {wall:.2f} s; peak memory {peak:.2f} GiB  "
+                f"[{card}]")
+            if counts != expect:
+                raise AssertionError(f"run {label}: kernel launches {counts} != {expect}")
+            return loop, {"hashes": list(probe["hashes"]), "wall": wall, "counts": counts,
+                          "vals": list(vals), "timed": {k: list(v) for k, v in timed.items()},
+                          "enter": list(probe["enter"]), "hash_s": list(probe["hash_s"]),
+                          "step_s": list(probe["step_s"]), "peak": peak}
+
+        # ---- run A: 2 epochs, the native decoder built by the run's first decode
+        decoder = native.default_decoder()
+        for so in native.BUILD_DIR.glob("libcerberus_io_*.so"):
+            so.unlink()
+        if decoder.name:
+            raise AssertionError("the native decoder was resolved before the train phase")
+        loop_a, a = run("A", fresh + ["--epochs", "2", "--name", "A"])
+        if probe["first"] is not True or not cli_check:
+            raise AssertionError("run A did not run its first-step or final-val comparison")
+        log(f"[train cli] JPEG decode by {decoder.name!r} (what run A's first decode built: "
+            f"{sorted(p.name for p in native.BUILD_DIR.glob('libcerberus_io_*.so'))})  [{card}]")
+        last = loop_a.manager.wdir / "last.ckpt.npz"
+
+        # ---- run R: A resumed, its opt.yaml's epochs raised to 3
+        opt_yaml = loop_a.manager.save_dir / "opt.yaml"
+        with open(opt_yaml) as f:
+            saved = yaml.safe_load(f)
+        saved["epochs"] = 3
+        with open(opt_yaml, "w") as f:
+            yaml.safe_dump(saved, f, sort_keys=False)
+        probe["resumed"] = load_checkpoint(str(last))["params"]
+        loop_r, r = run("R", common + ["--resume", str(last)])
+        if not isinstance(probe["resumed"], int) or loop_r.start_epoch != 2:
+            raise AssertionError(f"run R did not resume at epoch 2 ({loop_r.start_epoch})")
+        log(f"[train cli] run R resumed at epoch 3 of 3 in {loop_r.manager.save_dir.name}, its "
+            f"{probe['resumed']} params equal to the saved ones exactly")
+        probe["resumed"] = None
+        del loop_a, loop_r
+
+        # ---- run B: a fresh 3-epoch run, each step synchronised and timed
+        nb = len(a["hashes"]) // 2
+        # the profiler in epoch 3, after its 2 warm-up steps where the epoch has room
+        probe["sync"], probe["profile"] = True, 2 * nb + max(0, min(2, nb - PROFILED_STEPS))
+        try:
+            loop_b, b = run("B", fresh + ["--epochs", "3", "--name", "B", "--nosave",
+                                          "--noval"])
+        finally:
+            probe["sync"], probe["profile"] = False, None
+        if b["hashes"][:2 * nb] != a["hashes"] or b["hashes"][2 * nb:] != r["hashes"]:
+            raise AssertionError("runs A, R and B did not feed the steps the same batches")
+        log(f"[train cli] run B's {len(b['hashes'])} steps got run A's and run R's batches "
+            f"(sha1 of img and bboxes per task and step): two fresh seeded runs and a resume "
+            f"feed identical batches")
+
+        # ---- what B measured
+        timings = loop_b.timings
+        warm = [i for i in range(len(timings)) if i % nb >= 2]  # 2 warm-up steps an epoch
+        step_ms = 1e3 * float(np.median([b["step_s"][i] for i in warm]))
+        data_ms = [1e3 * timings[i]["data_s"] for i in warm]
+        # a loop iteration, step start to step start, less the probe's own hashing
+        iter_ms = 1e3 * float(np.median([b["enter"][i] - b["enter"][i - 1] - b["hash_s"][i - 1]
+                                         for i in warm]))
+        hash_ms = 1e3 * float(np.median(b["hash_s"]))
+        n_img = len(TASKS) * batch
+        log(f"[train cli] run B, a step (host clock around MultiTaskTrainer.step ending in a "
+            f"synchronise, median of {len(warm)} after 2 warm-up steps an epoch): "
+            f"{step_ms:.2f} ms, {n_img / step_ms * 1e3:.1f} img/s; a loop iteration (step start "
+            f"to step start, the data wait included, less the probe's {hash_ms:.2f} ms of "
+            f"hashing) {iter_ms:.2f} ms, {n_img / iter_ms * 1e3:.1f} img/s  [{card}]")
+        log(f"[train cli] run B, the host's wait for the loaders' batches a step: median "
+            f"{np.median(data_ms):.2f} ms, max {max(data_ms):.2f} ms; at the first step of "
+            f"each epoch {[round(1e3 * timings[e * nb]['data_s'], 1) for e in range(3)]} ms  "
+            f"[{card}]")
+        pr = probe.get("prof_result")
+        if pr is None:
+            raise AssertionError("run B's profiled steps did not run")
+        log(f"[train cli] run B, device busy over steps {pr['steps']} (the profiler's kernel "
+            f"time): {pr['busy_ms']:.2f} ms in {pr['step_ms']:.2f} ms of steps "
+            f"({100 * pr['busy_ms'] / pr['step_ms']:.1f}%), in {pr['wall_ms']:.2f} ms of the "
+            f"loop ({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%)  [{card}]")
+        ds = loop_b.datasets[TASKS[0]]
+        ds.set_epoch(0)
+        n_items = min(16, len(ds))
+        t = time.perf_counter()
+        for i in range(n_items):
+            ds[i]
+        aug_ms = (time.perf_counter() - t) / n_items * 1e3
+        log(f"[train cli] host augmentation (the paper's hyps: mosaic 1.0, mixup 0.285; decode "
+            f"by {decoder.name}), one thread, {n_items} items: {aug_ms:.2f} ms an image  "
+            f"[{card}]")
+        val_s = a["timed"]["val_epoch"] + r["timed"]["val_epoch"]
+        task_val_s = [v[2] for run_ in (a, r) for v in run_["vals"] if v[1]]
+        save_s = a["timed"]["save_model"] + r["timed"]["save_model"]
+        best_s = a["timed"]["save_best_task_model"] + r["timed"]["save_best_task_model"]
+        log(f"[train cli] runs A and R, the val of the EMA model per epoch (2 tasks x {n_val} "
+            f"images, float32, with losses): {[round(v, 2) for v in val_s]} s, of which "
+            f"run_task per task {[round(v, 2) for v in task_val_s]} s and the per-task best "
+            f"checkpoints {[round(v, 2) for v in best_s]} s; save_model (last.ckpt.npz in "
+            f"float32 with EMA and momentum, best.ckpt.npz): {[round(v, 2) for v in save_s]} "
+            f"s; main's wall: A {a['wall']:.1f} s, R {r['wall']:.1f} s, B {b['wall']:.1f} s; "
+            f"peak memory A {a['peak']:.2f} GiB, B {b['peak']:.2f} GiB  [{card}]")
+        del loop_b
+
+        # ---- the kernels at the first inputs this path gave them
+        (args, nc), (boxes, scores, iou, max_det) = captured["tal"], captured["nms"]
+        inp = tal_cuda.kernel_inputs(*args, nc)
+        err, pos = tal_compare(inp, nc)
+        k = min(10, inp["scores"].shape[1])
+        sel = tal_cuda.select_kernel(inp, k, 6)
+        tgt, fg, lab, _, al, po = tal_cuda.assign_kernel(inp, sel, 6)
+        plain = tal_cuda.TaskAlignedAssigner(k, nc)
+        labels = inp["labels"].clamp(0, nc - 1)
+        planes = plain.select_topk(inp["scores"], inp["pd_bboxes"], inp["anchors"], labels,
+                                   inp["gt_bboxes"], inp["mask_gt"])
+        tgt_p, fg_p, mp_p, pa_p, po_p = plain.resolve(*planes)
+        t_lab = labels.gather(1, tgt_p)
+        launch = {
+            "tal_select": lambda: tal_cuda.select_kernel(inp, k, 6),
+            "tal_assign": lambda: tal_cuda.assign_kernel(inp, sel, 6),
+            "tal_norm": lambda: tal_cuda.norm_kernel(tgt, fg, lab, al, po, nc, 1e-9),
+        }
+        plain_stage = {
+            "tal_select": lambda: plain.select_topk(inp["scores"], inp["pd_bboxes"],
+                                                    inp["anchors"], labels, inp["gt_bboxes"],
+                                                    inp["mask_gt"]),
+            "tal_assign": lambda: plain.resolve(*planes),
+            "tal_norm": lambda: plain.normalise(t_lab, fg_p, mp_p, planes[2], pa_p, po_p,
+                                                torch.float32),
+        }
+        work = tal_work(inp, pos, nc)
+        shape = (tuple(pos.shape), int(inp["mask_gt"].sum()))
+        entries = []
+        for name in ("tal_select", "tal_assign", "tal_norm"):
+            k_ms, how = kernel_ms(launch[name], 20, name + "_kernel")
+            p_ms = cuda_ms(plain_stage[name], iters=3)
+            ops, nbytes = work[name]
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+            log(f"[tal at train-cli shapes] {name}: B,M,N={shape[0]} ({shape[1]} valid gt rows "
+                f"of an augmented batch), kernel {k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, "
+                f"max|diff| {err[name]}  [{card}]")
+            entries.append({
+                "name": f"{name} (train CLI: an augmented batch, B,M,N {shape[0]}, {shape[1]} "
+                        f"valid gt rows)",
+                "route": "cuda",
+                "source": "cerberusdet_tpu_torch/csrc/tal.cu",
+                "replaces": ("cerberusdet_tpu/ops/tal_pallas.py:146" if name == "tal_norm"
+                             else "cerberusdet_tpu/ops/tal_pallas.py:99"),
+                "launches": a["counts"][name],
+                "launches_by_run": {"A": a["counts"][name], "R": r["counts"][name],
+                                    "B": b["counts"][name]},
+                "max_abs_err": err[name],
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None,
+            })
+        idx_k, val_k = nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det)
+        idx_p, val_p = nms_cuda.greedy_nms(boxes, scores, iou, max_det)
+        nms_err = max(int((idx_k.long() - idx_p.long()).abs().max()),
+                      int((val_k.long() - val_p.long()).abs().max()))
+        if nms_err:
+            raise AssertionError("the NMS kernel disagrees with the plain loop at val traffic "
+                                 "of the train path")
+        k_ms, how = kernel_ms(lambda: nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det), 20,
+                              "nms_kernel")
+        p_ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, scores, iou, max_det), iters=3,
+                       warmup=1)
+        ops, steps = nms_work(boxes, scores, iou, max_det)
+        bsz, kk = scores.shape
+        bytes_ms = (bsz * kk * 20 + bsz * max_det * 5) / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        positives = (scores > 0).sum(1).tolist()
+        log(f"[nms at train-cli val traffic] B,K={tuple(scores.shape)}, positives an image "
+            f"{positives}, steps {steps}: kernel {k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, "
+            f"picks identical  [{card}]")
+        entries.append({
+            "name": f"nms (train CLI: per-epoch and final val, B,K {tuple(scores.shape)})",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/nms.cu",
+            "replaces": "cerberusdet_tpu/ops/nms_pallas.py:34",
+            "launches": a["counts"]["nms"],
+            "launches_by_run": {"A": a["counts"]["nms"], "R": r["counts"]["nms"],
+                                "B": b["counts"]["nms"]},
+            "max_abs_err": nms_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+        return entries
+    finally:
+        for obj, name, orig in reversed(patches):
+            setattr(obj, name, orig)
+        for k, f in kern.items():
+            f.launches = saved_counts[k]
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1818,6 +2321,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(validate(card, dev))
     log(f"[val] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the train entry point at full width
+    torch.set_grad_enabled(True)
+    t0 = time.perf_counter()
+    kernels.extend(train_cli(card, dev))
+    log(f"[train cli] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -28,7 +28,7 @@ def _port_modules():
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
-        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu"))]
+        out += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cpp"))]
     return sorted(out)
 
 
@@ -42,7 +42,11 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.data.dataset", "cerberusdet_tpu_torch.data.loaders",
             "cerberusdet_tpu_torch.evaluation.metrics", "cerberusdet_tpu_torch.evaluation.val",
             "cerberusdet_tpu_torch.cli.val", "cerberusdet_tpu_torch.manager.run_manager",
-            "cerberusdet_tpu_torch.utils.checks"} <= set(mods)
+            "cerberusdet_tpu_torch.utils.checks", "cerberusdet_tpu_torch.utils.hyp",
+            "cerberusdet_tpu_torch.utils.seeds", "cerberusdet_tpu_torch.data.augment",
+            "cerberusdet_tpu_torch.native", "cerberusdet_tpu_torch.manager.checkpoint",
+            "cerberusdet_tpu_torch.manager.attempt_load", "cerberusdet_tpu_torch.manager.weights",
+            "cerberusdet_tpu_torch.train.trainer", "cerberusdet_tpu_torch.cli.train"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
