@@ -30,7 +30,8 @@ from cerberusdet_tpu_torch import resolve_device
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", default="", help="pretrained .ckpt.npz")
+    p.add_argument("--weights", default="",
+                   help="pretrained .ckpt.npz, or a reference .pt (manager/pt_import.py)")
     p.add_argument("--cfg", default="configs/models/yolov8x.yaml")
     p.add_argument("--data", required=True)
     p.add_argument("--hyp", default="configs/hyps/hyp.cerber-default.yaml")

@@ -9,10 +9,13 @@ cerberusdet/val.py:436-495), with its flags and defaults, except that
 default; "cpu" runs on the CPU). The reference protocol: rect batches with
 pad 0.5, conf 0.001, IoU 0.6, multi-label NMS, max_det 300, the model fused.
 Float32 (the default) is float32 arithmetic on the card: cuDNN's TF32 is
-switched off for the run; --bf16 computes in bfloat16.
-Not ported yet: .pt weights (pt_import, ROADMAP.md queue 1, item 5), the
-MLflow upload (--mlflow-url) and the PR-curve and confusion-matrix plots
-(utils, queue 1, item 9).
+switched off for the run; --bf16 computes in bfloat16. Reference .pt weights
+need --cfg (the model yaml; the task ids and class counts come from --data):
+
+    python -m cerberusdet_tpu_torch.cli.val --weights w.pt --cfg model.yaml --data data.yaml
+
+Not ported yet: the MLflow upload (--mlflow-url) and the PR-curve and
+confusion-matrix plots (utils, ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from cerberusdet_tpu_torch import resolve_device
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--weights", required=True, help="a .ckpt.npz written by either package")
+    p.add_argument("--weights", required=True,
+                   help="a .ckpt.npz written by either package, or a reference .pt (with --cfg)")
     p.add_argument("--data", required=True)
     p.add_argument("--cfg", default="", help="model yaml (overrides the checkpoint's)")
     p.add_argument("--batch-size", type=int, default=32)
@@ -64,13 +68,20 @@ def parse_opt(argv=None):
     return p.parse_args(argv)
 
 
-def load_model_for_eval(weights: str, cfg: str, device):
+def load_model_for_eval(weights: str, cfg: str, device, data_dict=None):
     """The port's CerberusModel from a .ckpt.npz (its `ema` when it holds
-    one), fused like the reference's attempt_load(.fuse()), in eval mode, in
-    float32 on `device` (manager/attempt_load.py:load_single)."""
+    one) or from a reference .pt (which needs `cfg`, and `data_dict` for the
+    task ids and class counts), fused like the reference's
+    attempt_load(.fuse()), in eval mode, in float32 on `device`
+    (manager/attempt_load.py:load_single)."""
     from cerberusdet_tpu_torch.manager.attempt_load import load_single
 
-    return load_single(weights, cfg or None, fuse=True, device=device)[0].eval()
+    task_ids, nc = None, None
+    if weights.endswith(".pt"):
+        if not cfg:
+            raise SystemExit("--cfg required with .pt weights")
+        task_ids, nc = data_dict["task_ids"], data_dict["nc"]
+    return load_single(weights, cfg or None, task_ids, nc, fuse=True, device=device)[0].eval()
 
 
 @torch.no_grad()
@@ -131,7 +142,7 @@ def main(argv=None):
                                   "(ROADMAP.md queue 1, item 9)")
     device = resolve_device(opt.device)
     data_dict = parse_data_config(opt.data, check=True)
-    model = load_model_for_eval(opt.weights, opt.cfg, device)
+    model = load_model_for_eval(opt.weights, opt.cfg, device, data_dict)
     save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
     save_dir.mkdir(parents=True, exist_ok=True)
 

@@ -127,17 +127,19 @@ class RunManager:
     # ------------------------------------------------------------- model
     def load_model(self, pretrained: Optional[str] = None, seed: int = 0,
                    verbose: bool = False):
-        """Build the model, initialised from `seed` or, from a .ckpt.npz
-        `pretrained`, holding its `ema` (else `params`) tensors wherever path
-        and shape match. Returns (model, start_meta)."""
+        """Build the model, initialised from `seed`, and, from a `pretrained`
+        .ckpt.npz, holding its `ema` (else `params`) tensors wherever path and
+        shape match, or, from a reference .pt, the tensors that
+        manager/pt_import.py maps. Returns (model, start_meta)."""
         model = CerberusModel(self.cfg, self.task_ids, self.nc, device=self.device)
         model.init(seed)
         meta: Dict[str, Any] = {}
         if pretrained:
             p = str(pretrained)
             if p.endswith(".pt"):
-                raise NotImplementedError(".pt weights need pt_import, not ported yet "
-                                          "(ROADMAP.md queue 1, item 5)")
+                from cerberusdet_tpu_torch.manager.pt_import import import_pt
+
+                return import_pt(model, p, verbose=verbose), meta
             ckpt = load_checkpoint(p)
             src = ckpt["ema"] if ckpt.get("ema") else ckpt["params"]
             params, matched, total = intersect_trees(export_jax_params(model), src)

@@ -55,7 +55,7 @@ class TrainOptions:
     cfg: Union[str, dict] = "configs/models/yolov8x.yaml"
     data: Union[str, dict] = ""
     hyp: Union[str, dict] = "configs/hyps/hyp.cerber-default.yaml"
-    weights: str = ""                      # pretrained .ckpt.npz
+    weights: str = ""                      # pretrained .ckpt.npz or reference .pt
     epochs: int = 100
     batch_size: Union[int, List[int]] = 16  # per task: int or list "4,4,40"
     imgsz: int = 640

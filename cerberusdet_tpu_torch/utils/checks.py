@@ -1,13 +1,22 @@
-"""Dataset config checks.
+"""Dataset config and environment checks.
 
 Counterpart of apply_path_prefix and the path check of check_dataset in
 cerberusdet_tpu/utils/checks.py:235-304 (the reference's general.py:130-170),
-without the download stanza: a missing val path raises and names it.
+without the download stanza: a missing val path raises and names it; and of
+check_imshow (:134-140).
 """
 
 from __future__ import annotations
 
+import os
+import platform
 from pathlib import Path
+
+
+def check_imshow() -> bool:
+    """Whether a GUI display is available for cv2.imshow (the reference's
+    checks.py:141-153). Headless hosts: False."""
+    return bool(os.environ.get("DISPLAY")) and platform.system() != "Windows"
 
 
 def apply_path_prefix(data: dict) -> dict:

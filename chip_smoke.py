@@ -87,7 +87,36 @@ Phases, each of which fails the run on anything wrong:
      plain versions on the first inputs the path gave them. Prints the step
      time, the host's wait for data, the device-busy share, host
      augmentation per image, the decoder, val and save times, peak memory
-     and main's wall.
+     and main's wall;
+  8. drive the serving entry points (cli/detect.py, cli/serve.py): the
+     seeded flagship (BatchNorm statistics from 8 source images) as a
+     .ckpt.npz and 24 seeded JPEGs at the val cell's five native sizes.
+     detect.main with --bf16 --save-crop: one captured predict program
+     (batch 1, 640x640, bf16), the NMS kernel launched once per task and
+     image (and in the capture's eager run), each image's detections
+     identical to predict on the same batch with use_kernel=False, each
+     annotated file byte-identical to cv2.imwrite of the visualizer's
+     drawing, one crop per detection with a non-empty box; then with --int8
+     all (calibrated on the source images): conv_s8 and quant_pack_s8 once
+     per quantized Conv and image, each image identical to the plain int8
+     path, both kernels identical to their plain versions at every conv
+     shape of a forward; then from the .pt that tools/export_to_pt writes of
+     the checkpoint (--cfg, --data): the .ckpt.npz run's detections, image
+     by image, and the import timed. cli.serve.build at --max-batch 8,
+     --max-wait-ms 5 on 127.0.0.1 port 0, in bf16 and in int8 "all":
+     /healthz; the warm-up captures the one predict program and no request
+     captures another; 8 sequential requests at mixed native sizes (6
+     letterboxed on the card, 2 past the 4 device shapes on the host), each
+     response equal to _to_jsonable of predict on the frame's batch
+     zero-padded to 8 with use_kernel=False; twice a flood of 64 requests of
+     the four 480x640 frames (the detect folder's four busiest images,
+     resized) from 16 client threads, each 200 and equal to the sequential
+     response of its frame, the first cold, the second after every batch
+     size's letterbox graph is captured and under the profiler; NMS (and
+     the int8 kernels) launched once per task (quantized Conv) and served
+     batch. Prints detect ms an image, the .pt import time, requests/s,
+     client latency p50 / p99, batch fill, the card's busy share under the
+     warm flood, the preprocessor's captures and the graph pools' size.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -103,6 +132,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -972,7 +1002,8 @@ def recall50(out) -> float:
 
 
 def val_batch_convs(model, x, task, checked, calls):
-    """One forward of the int8 `model`'s `task` branch on x, holding
+    """One forward of the int8 `model`'s `task` branch (all heads for task
+    None) on x, holding
     quant_pack_s8 and conv_s8 against their plain versions at each quantized
     conv's input whose (B, Ci, Co, k, s, H, W) is not in `checked` yet, as
     conv2d_int8 calls them there (raising on any difference);
@@ -1022,7 +1053,7 @@ def val_batch_convs(model, x, task, checked, calls):
     hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
              if isinstance(m, Conv) and m.int8]
     try:
-        model(x, tasks=[task])
+        model(x, tasks=None if task is None else [task])
     finally:
         for h in hooks:
             h.remove()
@@ -1813,6 +1844,628 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the serving entry points' cell: detect over a folder of seeded JPEGs at the
+# val cell's native sizes; serving at --max-batch 8 under a flood of requests
+# of the serving cell's 480x640 frames from concurrent clients
+DETECT_IMAGES, SERVE_BATCH, FLOOD_REQUESTS, FLOOD_CLIENTS = 24, 8, 64, 16
+# the sequential requests: the flood's four 480x640 frames (the detect folder's
+# four images with the most bf16 detections, resized), then native (w, h)
+# sizes that fill the preprocessor's 4 device letterboxes (the warm-up took
+# 640x640) and two that take its host path
+OTHER_SIZES = [(1280, 720), (500, 375), (375, 500), (333, 500)]
+
+
+def detect_run(cli, argv, dev):
+    """cli.detect.main(argv) with CerberusDetInference.predict probed.
+    Returns (save_dir, wall s, calls [(inference, batch, shapes, dets, s,
+    start)]), one call per image; logs where main's wall went."""
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.infer import inference as inf_mod
+
+    orig = inf_mod.CerberusDetInference.predict
+    calls = []
+
+    def probe(self, batch, original_shape=None, **kw):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(self, batch, original_shape=original_shape, **kw)
+        calls.append((self, batch, original_shape, out, time.perf_counter() - t, t))
+        return out
+
+    inf_mod.CerberusDetInference.predict = probe
+    try:
+        t = time.perf_counter()
+        save_dir = cli.main(argv)
+        wall = time.perf_counter() - t
+    finally:
+        inf_mod.CerberusDetInference.predict = orig
+    starts = [c[5] for c in calls]
+    loop = [b - a for a, b in zip(starts, starts[1:])]
+    log(f"[detect] main's wall {wall:.2f} s: set-up before the first predict (model load, "
+        f"fuse, cast{', calibration and quantization' if '--int8' in argv else ''}) "
+        f"{starts[0] - t:.2f} s, the first image {1e3 * (starts[1] - starts[0]) if loop else 0:.1f} "
+        f"ms (the capture), each later image {1e3 * float(np.median(loop[1:] or [0])):.2f} ms "
+        f"median (imread, letterbox, predict, drawing, imwrite and crops)")
+    return save_dir, wall, calls
+
+
+def check_detect_outputs(save_dir, src, calls, label: str) -> int:
+    """Each annotated file byte-identical to cv2.imwrite of the visualizer's
+    drawing of the image's detections, and one crop per detection whose box
+    holds pixels. Returns the crops."""
+    import cv2
+    import numpy as np
+
+    from cerberusdet_tpu_torch.cli.detect import iter_images
+    from cerberusdet_tpu_torch.infer import CerberusVisualizer
+
+    vis = CerberusVisualizer(line_thickness=0)
+    want_crops = set()
+    tmp = os.path.join(save_dir, "_check.jpg")
+    for (path, im0), call in zip(iter_images(src), calls):
+        dets = call[3][0]
+        cv2.imwrite(tmp, vis.draw_detections(im0, dets, hide_task=False))
+        with open(tmp, "rb") as f, open(os.path.join(save_dir, path.name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"detect {label}: {path.name} differs from the "
+                                     "visualizer's drawing of its detections")
+        for j, d in enumerate(dets):
+            x1, y1, x2, y2 = d["box"]
+            if im0[max(y1, 0):y2, max(x1, 0):x2].size:
+                want_crops.add(os.path.join("crops", d["label_name"].replace(" ", "_"),
+                                            f"{path.stem}_{j}.jpg"))
+    os.remove(tmp)
+    crops = {os.path.relpath(os.path.join(d, f), save_dir)
+             for d, _, fs in os.walk(os.path.join(save_dir, "crops")) for f in fs}
+    if crops != want_crops:
+        raise AssertionError(f"detect {label}: {len(crops)} crops written, "
+                             f"{len(want_crops)} detections with a non-empty box")
+    return len(crops)
+
+
+def same_as_plain(calls, label: str) -> None:
+    """Each probed request identical to predict on the same batch with
+    use_kernel=False (eager, the plain NMS loop and plain int8 convs)."""
+    from cerberusdet_tpu_torch.infer.inference import CerberusDetInference
+
+    for inf, batch, shapes, out, *_ in calls:
+        plain = CerberusDetInference.predict(inf, batch, original_shape=shapes,
+                                             use_kernel=False)
+        if plain != out:
+            same_results(out, plain, score_rtol=0.0)  # says where
+            raise AssertionError(f"{label}: a request differs from the plain path")
+
+
+def flood_client(url: str, bodies, order, clients: int):
+    """The flood's load generator, run in a process of its own: POST
+    bodies[order[i]] to url/predict for every i from `clients` threads.
+    Returns (wall s, [(status, response bytes, latency s) or None for a
+    request that raised] in order)."""
+    import threading
+    import urllib.request
+
+    results = [None] * len(order)
+
+    def client(k):
+        for i in range(k, len(order), clients):
+            req = urllib.request.Request(url + "/predict", data=bodies[order[i]], method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = (r.status, r.read(), time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    return time.perf_counter() - t0, results
+
+
+def serve_run(cli, ckpt, extra, dev, frames, flood: int, clients: int, card: str,
+                  label: str):
+    """cli.serve.build(...) on 127.0.0.1 port 0 with serve_forever on a
+    thread: /healthz; the sequential requests of `frames` ([(jpeg bytes,
+    (h, w))]), each response against predict on the frame's padded batch
+    with use_kernel=False; then `flood` requests of the 480x640 frames from
+    `clients` threads, each response against the sequential one of the same
+    frame. Returns a dict of what was measured."""
+    import multiprocessing as mp
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
+    from cerberusdet_tpu_torch.serve.server import _to_jsonable
+
+    nms = nms_cuda.greedy_nms_cuda
+    opt = cli.parse_opt(["--weights", ckpt, "--imgsz", str(frames.imgsz), "--max-batch",
+                         str(frames.max_batch), "--max-wait-ms", "5", "--host", "127.0.0.1",
+                         "--port", "0", "--device", str(dev)] + extra)
+    t = time.perf_counter()
+    inference, engine, server = cli.build(opt)
+    build_s = time.perf_counter() - t
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def post(data):
+        req = urllib.request.Request(url + "/predict", data=data, method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+            return r.status, body, time.perf_counter() - t0
+
+    try:
+        health = get("/healthz")
+        if health != {"status": "ok", "tasks": TASKS}:
+            raise AssertionError(f"serve {label}: /healthz said {health}")
+        programs = dict(inference.programs)
+        if dev.type == "cuda" and len(programs) != 1:
+            raise AssertionError(f"serve {label}: the warm-up captured {len(programs)} "
+                                 "predict programs, not one")
+        start = get("/stats")
+        nms.launches = conv_int8_cuda.conv_s8.launches = 0
+        conv_int8_cuda.quant_pack_s8.launches = 0
+        n_q = len(inference.int8_convs)
+
+        # (a) sequential requests, each against the plain path on its padded batch
+        seq = []
+        for data, _ in frames.sequential:
+            status, body, _ = post(data)
+            if status != 200:
+                raise AssertionError(f"serve {label}: status {status}")
+            im = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            h, w = im.shape[:2]
+            if (h, w) in engine.pre._device_fns:  # the route the server's batch took
+                one = engine.pre._device_fn(h, w)(torch.from_numpy(im[None]).to(dev))
+            else:
+                one = torch.from_numpy(engine.pre.preprocess_host([im])[0])
+            padded = torch.cat([one, one.new_zeros((frames.max_batch - 1,) + one.shape[1:])])
+            plain = inference.predict(padded, original_shape=[(h, w)] * frames.max_batch,
+                                      use_kernel=False)[0]
+            if body["detections"] != _to_jsonable(plain):
+                raise AssertionError(f"serve {label}: a {w}x{h} response differs from predict "
+                                     "on its padded batch with use_kernel=False")
+            seq.append(body["detections"])
+        flood_frames = [i for i, (_, hw) in enumerate(frames.sequential) if hw == (480, 640)]
+        if not sum(len(seq[i]) for i in flood_frames):
+            raise AssertionError(f"serve {label}: the flood's frames draw no detections")
+        routes = [(h, w) in engine.pre._device_fns for _, (h, w) in frames.sequential]
+        log(f"[serve {label}] {len(seq)} sequential requests at native sizes "
+            f"{[f'{w}x{h}' for _, (h, w) in frames.sequential]} ({sum(routes)} letterboxed on "
+            f"the card, {len(routes) - sum(routes)} on the host, as the preprocessor routes "
+            f"them): each response equals "
+            f"predict on its batch zero-padded to {frames.max_batch} with use_kernel=False "
+            f"({sum(map(len, seq))} detections, {sum(len(seq[i]) for i in flood_frames)} of them "
+            f"in the flood's {len(flood_frames)} 480x640 frames)")
+
+        # (b) the flood, twice: the first captures the letterbox graphs of the
+        # batch sizes it meets, the second finds most of them
+
+        def flood_run(which, profiled: bool):
+            before = get("/stats")
+            order = [flood_frames[i % len(flood_frames)] for i in range(flood)]
+            tracing = profiled and dev.type == "cuda"
+            prof = profile(activities=[ProfilerActivity.CUDA]) if tracing else None
+            # the load generator runs in a process of its own, so that its
+            # threads do not share the server's interpreter
+            with mp.get_context("spawn").Pool(1) as pool:
+                pool.apply(time.sleep, (0,))  # the worker is up
+                if tracing:
+                    prof.start()
+                wall, raw = pool.apply(flood_client, (url, [d for d, _ in frames.sequential],
+                                                      order, clients))
+                if tracing:
+                    prof.stop()
+            busy = ""
+            if tracing:
+                dev_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+                busy = (f"; the card busy {dev_ms:.1f} ms = {100 * dev_ms / (1e3 * wall):.1f}% of "
+                        f"the wall (the profiler's device time, a lower bound where its trace "
+                        f"drops records)")
+            after = get("/stats")
+            if any(r is None or r[0] != 200 for r in raw):
+                raise AssertionError(f"serve {label}: "
+                                     f"{sum(r is None or r[0] != 200 for r in raw)} flood "
+                                     "requests failed")
+            results = [(j, r[0], json.loads(r[1]), r[2]) for j, r in zip(order, raw)]
+            differ = sum(r[2]["detections"] != seq[r[0]] for r in results)
+            if differ:
+                matched = sum(matched_detections([r[2]["detections"]], [seq[r[0]]])
+                              for r in results)
+                total = sum(len(seq[r[0]]) for r in results)
+                raise AssertionError(f"serve {label}: {differ} of {flood} flood responses "
+                                     f"differ from the sequential response of their frame "
+                                     f"({matched} of {total} detections matched at IoU 0.5)")
+            lat = np.array([r[3] for r in results]) * 1e3
+            n_b = after["batches"] - before["batches"]
+            out = {"rps": flood / wall, "p50": float(np.percentile(lat, 50)),
+                   "p99": float(np.percentile(lat, 99)), "fill": flood / (n_b * frames.max_batch),
+                   "captures": len(engine.pre._programs)}
+            log(f"[serve {label}] flood {which}: {flood} requests of 480x640 JPEGs from "
+                f"{clients} client threads in {wall:.3f} s: {out['rps']:.1f} requests/s = "
+                f"{out['rps']:.1f} img/s; client latency p50 {out['p50']:.2f} ms, p99 "
+                f"{out['p99']:.2f} ms, max {lat.max():.2f} ms; {n_b} batches, mean fill "
+                f"{out['fill']:.3f} of {frames.max_batch}; preprocessor captures after it "
+                f"{out['captures']}{busy}; every response 200 and equal to the sequential "
+                f"response of its frame  [{card}]")
+            return out
+
+        cold = flood_run("1 (cold)", profiled=False)
+        # every batch size's letterbox of the flood's shape, captured while the
+        # batcher is idle, so that the profiled flood runs what a warm service runs
+        ims = [cv2.imdecode(np.frombuffer(frames.sequential[j][0], np.uint8), cv2.IMREAD_COLOR)
+               for j in flood_frames]
+        for b in range(1, frames.max_batch + 1):
+            engine.pre.preprocess([ims[i % len(ims)] for i in range(b)])
+        warm = flood_run("2 (warm: every batch size's letterbox captured; profiled)",
+                         profiled=True)
+        end = get("/stats")
+
+        if end["errors"] != start["errors"]:
+            raise AssertionError(f"serve {label}: the engine counted errors")
+        batches = end["batches"] - start["batches"]
+        launches = {"nms": nms.launches, "conv_s8": conv_int8_cuda.conv_s8.launches,
+                    "quant_pack_s8": conv_int8_cuda.quant_pack_s8.launches}
+        want = {"nms": len(TASKS) * batches, "conv_s8": n_q * batches,
+                "quant_pack_s8": n_q * batches}
+        if launches != want:
+            raise AssertionError(f"serve {label}: launches {launches}, expected {want} for "
+                                 f"{batches} served batches")
+        if dev.type == "cuda" and inference.programs != programs:
+            raise AssertionError(f"serve {label}: {len(inference.programs)} predict programs "
+                                 f"after the requests (the warm-up's one expected)")
+        if len(engine.pre._device_fns) > 4 or \
+                len(engine.pre._programs) > 4 * frames.max_batch:
+            raise AssertionError(f"serve {label}: the preprocessor letterboxes "
+                                 f"{len(engine.pre._device_fns)} source shapes on the card in "
+                                 f"{len(engine.pre._programs)} graphs (at most 4 shapes)")
+        # where a served batch's time goes: one full batch of the flood's frames
+        # through each stage alone, the batcher idle (host clock, median of 5)
+        def med(fn):
+            ts = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t)
+            return 1e3 * float(np.median(ts))
+
+        bodies = [frames.sequential[ims_j][0] for ims_j in
+                  (flood_frames[i % len(flood_frames)] for i in range(frames.max_batch))]
+        decoded = [cv2.imdecode(np.frombuffer(d, np.uint8), cv2.IMREAD_COLOR) for d in bodies]
+        bt, shp = engine.pre.preprocess(decoded)
+        dets = inference.predict(bt, original_shape=shp)
+        stage = {"decode": med(lambda: [cv2.imdecode(np.frombuffer(d, np.uint8),
+                                                     cv2.IMREAD_COLOR) for d in bodies]),
+                 "preprocess": med(lambda: engine.pre.preprocess(decoded)),
+                 "predict": med(lambda: inference.predict(bt, original_shape=shp)),
+                 "json": med(lambda: [json.dumps({"detections": _to_jsonable(d)})
+                                      for d in dets])}
+        if dev.type == "cuda":
+            (prog,) = inference.programs.values()
+            stage["replay + copy"] = med(lambda: prog.run(torch.as_tensor(bt)).cpu())
+        log(f"[serve {label}] one batch of {frames.max_batch} of the flood's frames "
+            f"({sum(map(len, dets))} detections), stage by stage with the batcher idle (host "
+            f"clock, median of 5): " + ", ".join(f"{k} {v:.2f} ms" for k, v in stage.items())
+            + f"; predict's formatting of the detections {stage['predict'] - stage.get('replay + copy', 0.0):.2f} "
+            f"ms; the stages sum to {sum(v for k, v in stage.items() if k != 'replay + copy'):.2f} "
+            f"ms against the warm flood's {1e3 * frames.max_batch * warm['fill'] / warm['rps']:.2f} "
+            f"ms a batch  [{card}]")
+
+        mib = [pool_mib(p) if dev.type == "cuda" and p is not None else 0.0
+               for p in (inference._pool, engine.pre._pool)]
+        log(f"[serve {label}] build + warm-up {build_s:.2f} s; {batches} served batches: "
+            f"launches {launches} (one NMS per task and batch"
+            + (f", one conv_s8 and quant_pack_s8 per quantized Conv ({n_q}) and batch"
+               if n_q else "") + f"); predict programs {len(inference.programs)}, preprocessor "
+            f"captures {len(engine.pre._programs)} (h, w, b) for {len(engine.pre._device_fns)} "
+            f"source shapes; graph pools: predict {mib[0]:.1f} MiB, preprocessor {mib[1]:.1f} "
+            f"MiB  [{card}]")
+        return {"inference": inference, "launches": launches, "batches": batches,
+                "cold": cold, "warm": warm}
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+
+
+def nms_entry(inf, batch, nc_by_task, conf: float, name: str, launches: int, card: str):
+    """The NMS kernel on the candidates of `batch` (both tasks' picks against
+    the plain loop), its time and bound on the first task's: a kernels-line
+    entry."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops import nms_cuda
+    from cerberusdet_tpu_torch.ops.nms import select_candidates
+
+    nms = nms_cuda.greedy_nms_cuda
+    saved = nms.launches
+    x = torch.as_tensor(batch).to(inf.device).permute(0, 3, 1, 2).to(inf.dtype)
+    preds = inf.model(x)
+    err, timed = 0, None
+    for task in TASKS:
+        _, sc, _, boxes = select_candidates(preds[task][0], nc_by_task[task], conf, False, None,
+                                            nms_cuda.MAX_K, False)
+        idx_k, val_k = nms(boxes, sc, 0.45, 300)
+        idx_p, val_p = nms_cuda.greedy_nms(boxes, sc, 0.45, 300)
+        err = max(err, int((idx_k.long() - idx_p.long()).abs().max()),
+                  int((val_k.long() - val_p.long()).abs().max()))
+        if err:
+            raise AssertionError(f"{name}: the NMS kernel disagrees with the plain loop")
+        timed = timed or (boxes, sc)
+    boxes, sc = timed
+    k_ms, how = kernel_ms(lambda: nms(boxes, sc, 0.45, 300), 20, "nms_kernel")
+    p_ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, sc, 0.45, 300), iters=3, warmup=1)
+    ops, steps = nms_work(boxes, sc, 0.45, 300)
+    b, k = sc.shape
+    bytes_ms = (b * k * 20 + b * 300 * 5) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    nms.launches = saved
+    log(f"[nms at {name}] B,K={b, k}, positives an image {(sc > 0).sum(1).tolist()}, steps "
+        f"{steps}: picks identical with the plain loop on both tasks; kernel {k_ms:.4f} ms "
+        f"({how}), plain {p_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.6f} ms  [{card}]")
+    return {"name": f"nms ({name})", "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/nms.cu",
+            "replaces": "cerberusdet_tpu/ops/nms_pallas.py:34", "launches": launches,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+
+
+def entry_points(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+                 n_images: int = DETECT_IMAGES, max_batch: int = SERVE_BATCH,
+                 flood: int = FLOOD_REQUESTS, clients: int = FLOOD_CLIENTS):
+    """The serving entry points at full width (phase 8): cli.detect over a
+    folder in bf16, bf16 + int8 "all" and from a reference .pt, and
+    cli.serve in bf16 and int8 "all" under sequential requests and a flood,
+    with their gates. Returns the kernels-line entries of the path."""
+    import types
+
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.cli import detect as cli_detect
+    from cerberusdet_tpu_torch.cli import serve as cli_serve
+    from cerberusdet_tpu_torch.infer import CerberusPreprocessor
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.pt_import import import_pt, load_torch_state_dict
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_val_set
+    from cerberusdet_tpu_torch.tools import export_to_pt
+
+    conv_s8, quant_pack_s8 = conv_int8_cuda.conv_s8, conv_int8_cuda.quant_pack_s8
+    nms = nms_cuda.greedy_nms_cuda
+    saved = (nms.launches, conv_s8.launches, quant_pack_s8.launches)
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    nc_by_task = dict(zip(TASKS, NCS))
+    root = tempfile.mkdtemp(prefix="cerberus_serve_")
+    try:
+        # ---- the seeded flagship as a .ckpt.npz, a folder of JPEGs, a data yaml
+        t0 = time.perf_counter()
+        src = write_val_set(os.path.join(root, "src"), n_images, VAL_SIZES, seed=30)
+        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+        distinct_heads(model, seed=1)
+        imgs = [cv2.imread(os.path.join(src, f)) for f in sorted(os.listdir(src))[:8]]
+        host = CerberusPreprocessor(img_size=imgsz, prefer_device=False, device=dev)
+        x = torch.from_numpy(host.preprocess(imgs)[0]).to(dev).permute(0, 3, 1, 2)
+        calibrate_bn(model, x)
+        ckpt = os.path.join(root, "seeded.ckpt.npz")
+        save_checkpoint(ckpt, export_jax_params(model), {
+            "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS]},
+            half=False)
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, x
+        data_yaml = os.path.join(root, "data.yaml")
+        with open(data_yaml, "w") as f:
+            yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS],
+                            "train": [src, src], "val": [src, src]}, f)
+        log(f"[entry points] {n_images} JPEGs at native sizes {VAL_SIZES}, the seeded "
+            f"{os.path.basename(cfg)} ({n_params / 1e6:.2f} M params, BatchNorm statistics "
+            f"from 8 of them) saved as a .ckpt.npz, in {time.perf_counter() - t0:.2f} s")
+
+        # ---- detect, bf16
+        common = ["--source", src, "--imgsz", str(imgsz), "--device", str(dev), "--bf16",
+                  "--project", os.path.join(root, "runs"), "--save-crop"]
+        nms.launches = 0
+        save_dir, wall, calls = detect_run(cli_detect, ["--weights", ckpt, "--name", "bf16"]
+                                           + common, dev)
+        nms_detect = nms.launches
+        inf = calls[0][0]
+        if len(calls) != n_images or any(c[0] is not inf for c in calls):
+            raise AssertionError(f"detect bf16: {len(calls)} predict calls for {n_images} "
+                                 "images")
+        key = inf.program_key(torch.zeros((1, imgsz, imgsz, 3)), 0.25, 0.45, 0.8, False, 300)
+        if dev.type == "cuda" and (list(inf.programs) != [key] or inf.dtype != torch.bfloat16):
+            raise AssertionError(f"detect bf16: {len(inf.programs)} captured programs, not one "
+                                 f"(batch 1, {imgsz}x{imgsz}, bf16)")
+        # the capture's eager run launches the kernels once more (infer/graphs.py)
+        runs = n_images + len(inf.programs)
+        if nms_detect != len(TASKS) * runs:
+            raise AssertionError(f"detect bf16: {nms_detect} NMS launches for {n_images} "
+                                 f"images and {len(inf.programs)} capture, not one per task "
+                                 "and run")
+        n_crops = check_detect_outputs(save_dir, src, calls, "bf16")
+        same_as_plain(calls, "detect bf16")
+        bf16_out = [c[3] for c in calls]
+        ms = [1e3 * c[4] for c in calls[1:]]
+        n_det = sum(len(o[0]) for o in bf16_out)
+        log(f"[detect bf16] main over {n_images} images: {wall:.2f} s wall, "
+            f"{1e3 * wall / n_images:.2f} ms an image (load, capture, decode, draw and writes "
+            f"included); predict {np.median(ms):.3f} ms median (min {min(ms):.3f}, max "
+            f"{max(ms):.3f}) an image after the first (host clock, replayed), the first "
+            f"{1e3 * calls[0][4]:.1f} ms (capture); {n_det} detections, {n_crops} crops; one "
+            f"predict program; NMS launches {nms_detect} (2 a replay, 2 in the capture's eager "
+            f"run); each image identical with "
+            f"use_kernel=False; each annotated file byte-identical to the visualizer's  [{card}]")
+        busiest = max(calls, key=lambda c: len(c[3][0]))
+        entries = [nms_entry(inf, busiest[1], nc_by_task, 0.25,
+                             f"detect: B 1, conf 0.25, the image with the most detections "
+                             f"({len(busiest[3][0])})", nms_detect, card)]
+        del inf, calls, busiest
+
+        # ---- detect, bf16 + int8 "all", calibrated on the source images
+        nms.launches = conv_s8.launches = quant_pack_s8.launches = 0
+        save_dir, wall, calls = detect_run(
+            cli_detect, ["--weights", ckpt, "--name", "int8", "--int8", "all"] + common, dev)
+        inf = calls[0][0]
+        n_q = len(inf.int8_convs)
+        launches8 = (nms.launches, conv_s8.launches, quant_pack_s8.launches)
+        runs = n_images + len(inf.programs)
+        want = (len(TASKS) * runs, n_q * runs, n_q * runs)
+        if launches8 != want or not n_q:
+            raise AssertionError(f"detect int8: launches (NMS, conv_s8, quant_pack_s8) "
+                                 f"{launches8}, expected {want}")
+        if dev.type == "cuda" and len(inf.programs) != 1:
+            raise AssertionError(f"detect int8: {len(inf.programs)} captured programs")
+        check_detect_outputs(save_dir, src, calls, "int8")
+        same_as_plain(calls, "detect int8")
+        n_match = sum(matched_detections(c[3], ref) for c, ref in zip(calls, bf16_out))
+        ms = [1e3 * c[4] for c in calls[1:]]
+        log(f"[detect int8] main: {wall:.2f} s wall (calibration on 8 source images and "
+            f"quantization included), predict {np.median(ms):.3f} ms median an image after the "
+            f"first; {n_q} quantized Convs, launches (NMS, conv_s8, quant_pack_s8) {launches8}: "
+            f"one per task / quantized Conv and image, and the capture's eager run; each image identical with the plain "
+            f"int8 convs and NMS; {sum(len(c[3][0]) for c in calls)} detections, {n_match} "
+            f"matched to bf16's (task, label, IoU >= 0.5)  [{card}]")
+        checked, conv_calls = {}, {}
+        xb = torch.as_tensor(calls[0][1]).to(dev).permute(0, 3, 1, 2).to(inf.dtype)
+        val_batch_convs(inf.model, xb, None, checked, conv_calls)
+        k_conv = sum(checked[k][4] * n for k, n in conv_calls.items())
+        k_pack = sum(checked[k][5] * n for k, n in conv_calls.items())
+        conv_plain = sum(checked[k][0] * n for k, n in conv_calls.items())
+        pack_plain = sum(checked[k][1] * n for k, n in conv_calls.items())
+        macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
+                   * ((w + 2 * (k // 2) - k) // s + 1)
+                   for (b, ci, co, k, s, h, w), n in conv_calls.items())
+        conv_bound = 2 * macs / INT8_OPS_PER_S * 1e3
+        pack_bound = sum(n * b * h * w * (2 * ci + conv_int8_cuda.padded_channels(ci))
+                         for (b, ci, co, k, s, h, w), n in conv_calls.items()) \
+            / HBM_BYTES_PER_S * 1e3
+        n_calls = sum(conv_calls.values())
+        # the kernels' own device time in a batch-1 forward: the profiler's mean
+        # launch (over the launches its trace keeps) times the forward's launches
+        dev_ms = {"conv_s8_kernel": k_conv, "quant_pack": k_pack}
+        if dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    inf.model(xb)
+                torch.cuda.synchronize()
+            for kname in dev_ms:
+                hits = [e for e in prof.key_averages() if kname in e.key]
+                seen = sum(e.count for e in hits)
+                dev_ms[kname] = (sum(e.device_time_total for e in hits) / 1e3 / seen * n_calls
+                                 if seen else float("nan"))
+        log(f"[detect int8] one batch-1 forward, {n_calls} launches of each kernel at "
+            f"{len(conv_calls)} shapes: conv_s8 {dev_ms['conv_s8_kernel']:.3f} ms of device time "
+            f"(the profiler's mean launch over 3 forwards x {n_calls}), {k_conv:.3f} ms summed "
+            f"by CUDA events (each shape's mean of 5 wrapper calls: host-bound at batch 1), "
+            f"bound {conv_bound:.4f} ms, plain {conv_plain:.1f} ms; quant_pack_s8 "
+            f"{dev_ms['quant_pack']:.3f} ms of device time, {k_pack:.3f} ms by events, bound "
+            f"{pack_bound:.4f} ms, plain {pack_plain:.1f} ms; both identical to their plain "
+            f"versions at every shape  [{card}]")
+        for nm, ms_, plain_, bound_, by, err_i, n_l in (
+                ("conv_s8", dev_ms["conv_s8_kernel"], conv_plain, conv_bound, "operations", 2,
+                 launches8[1]),
+                ("quant_pack_s8", dev_ms["quant_pack"], pack_plain, pack_bound, "bytes", 3,
+                 launches8[2])):
+            entries.append({
+                "name": f"{nm} (detect int8: one batch-1 forward, all {n_calls} launches "
+                        "summed)",
+                "route": "cuda", "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+                "replaces": ("cerberusdet_tpu/ops/conv_int8_pallas.py:65" if nm == "conv_s8"
+                             else "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas "
+                                  "kernel; part of conv_s8's redesign)"),
+                "launches": n_l, "max_abs_err": max(c[err_i] for c in checked.values()),
+                "ms": ms_, "plain_ms": plain_, "bound_ms": bound_, "bound_by": by,
+                "library_ms": None})
+        del inf, calls, xb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- detect from a reference .pt of the same weights
+        pt = os.path.join(root, "seeded.pt")
+        t = time.perf_counter()
+        export_to_pt.main(["--weights", ckpt, "--out", pt])
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sd = load_torch_state_dict(pt)
+        read_s = time.perf_counter() - t
+        del sd
+        t = time.perf_counter()
+        import_pt(CerberusModel(cfg, TASKS, NCS, device=dev).init(0), pt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        import_s = time.perf_counter() - t
+        nms.launches = 0
+        _, wall, calls = detect_run(cli_detect, ["--weights", pt, "--cfg", cfg, "--data",
+                                                 data_yaml, "--name", "pt"] + common, dev)
+        if [c[3] for c in calls] != bf16_out:
+            raise AssertionError("detect .pt: the detections differ from the .ckpt.npz run's")
+        log(f"[detect .pt] tools.export_to_pt wrote {os.path.getsize(pt) / 2**20:.1f} MiB in "
+            f"{export_s:.2f} s; load_torch_state_dict {read_s:.2f} s, import_pt into the "
+            f"model on the card {import_s:.2f} s ({n_params / 1e6:.2f} M params); main "
+            f"{wall:.2f} s; every image's detections identical to the .ckpt.npz bf16 run's  "
+            f"[{card}]")
+        del calls
+
+        # ---- serve: sequential requests at mixed shapes, then a flood
+        paths = [p for p, _ in cli_detect.iter_images(src)]
+        busiest = sorted(range(n_images), key=lambda i: -len(bf16_out[i][0]))[:4]
+        sequential = []
+        for i in busiest:
+            im = cv2.resize(cv2.imread(str(paths[i])), (640, 480), interpolation=cv2.INTER_AREA)
+            sequential.append((cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, 90])[1]
+                               .tobytes(), (480, 640)))
+        req_dir = write_val_set(os.path.join(root, "requests"), len(OTHER_SIZES), OTHER_SIZES,
+                                seed=31)
+        for f, (w, h) in zip(sorted(os.listdir(req_dir)), OTHER_SIZES):
+            with open(os.path.join(req_dir, f), "rb") as fh:
+                sequential.append((fh.read(), (h, w)))
+        frames = types.SimpleNamespace(sequential=sequential, imgsz=imgsz, max_batch=max_batch)
+        served = {}
+        for label, extra in (("bf16", ["--bf16"]), ("int8", ["--bf16", "--int8", "all"])):
+            served[label] = serve_run(cli_serve, ckpt, extra, dev, frames, flood,
+                                            clients, card, label)
+            if label == "bf16":
+                inf = served[label].pop("inference")
+                pre = CerberusPreprocessor(img_size=imgsz, device=dev)
+                ims = [cv2.imdecode(np.frombuffer(d, np.uint8), cv2.IMREAD_COLOR)
+                       for d, hw in sequential if hw == (480, 640)]
+                batch = pre.preprocess_device(np.stack([ims[i % len(ims)]
+                                                        for i in range(max_batch)]))[0]
+                entries.append(nms_entry(inf, batch, nc_by_task, 0.25,
+                                         f"serve: B {max_batch}, a full batch of the flood's "
+                                         f"frames, conf 0.25",
+                                         served[label]["launches"]["nms"], card))
+                del inf, pre, batch
+            served[label].pop("inference", None)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        return entries
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        nms.launches, conv_s8.launches, quant_pack_s8.launches = saved
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2327,6 +2980,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(train_cli(card, dev))
     log(f"[train cli] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. the serving entry points at full width
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    kernels.extend(entry_points(card, dev))
+    log(f"[entry points] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

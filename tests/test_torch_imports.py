@@ -46,7 +46,13 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.utils.seeds", "cerberusdet_tpu_torch.data.augment",
             "cerberusdet_tpu_torch.native", "cerberusdet_tpu_torch.manager.checkpoint",
             "cerberusdet_tpu_torch.manager.attempt_load", "cerberusdet_tpu_torch.manager.weights",
-            "cerberusdet_tpu_torch.train.trainer", "cerberusdet_tpu_torch.cli.train"} <= set(mods)
+            "cerberusdet_tpu_torch.train.trainer", "cerberusdet_tpu_torch.cli.train",
+            "cerberusdet_tpu_torch.cli.detect", "cerberusdet_tpu_torch.cli.serve",
+            "cerberusdet_tpu_torch.serve", "cerberusdet_tpu_torch.serve.server",
+            "cerberusdet_tpu_torch.infer.visualizer", "cerberusdet_tpu_torch.infer.yolo_wrapper",
+            "cerberusdet_tpu_torch.manager.pt_import", "cerberusdet_tpu_torch.manager.pt_export",
+            "cerberusdet_tpu_torch.tools.export_to_pt",
+            "cerberusdet_tpu_torch.tools.convert_to_cerber"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

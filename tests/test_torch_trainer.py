@@ -310,7 +310,7 @@ def test_refusals(case):
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         RunManager(HYP, data, CFG, root / "runs" / "mlflow", mlflow_url="http://localhost:1",
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="pt_import"):
+    with pytest.raises(ValueError, match="architecture metadata"):  # .pt needs cfg, tasks, nc
         load_single("w.pt", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

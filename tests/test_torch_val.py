@@ -382,8 +382,8 @@ def test_cli_speed_and_refusals(cli_case):
     assert set(out) == {"ms_per_image", "images_per_sec"} and out["images_per_sec"] > 0
     with pytest.raises(NotImplementedError, match="MLflow"):
         cli.main(common + ["--mlflow-url", "http://localhost:5000"])
-    with pytest.raises(NotImplementedError, match="pt_import"):
-        cli.load_model_for_eval(weights.replace(".ckpt.npz", ".pt"), CFG, "cpu")
+    with pytest.raises(SystemExit, match="--cfg required"):  # .pt weights need the model yaml
+        cli.load_model_for_eval(weights.replace(".ckpt.npz", ".pt"), "", "cpu")
     if not torch.cuda.is_available():  # without --device the entry point asks for the card
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--weights", weights, "--data", common[3], "--imgsz", "64"])
