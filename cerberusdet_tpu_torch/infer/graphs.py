@@ -60,8 +60,13 @@ class CapturedProgram:
         static input and replay. Returns the static output, which the next
         replay of any graph in the same pool may overwrite: read it first."""
         self.input.copy_(batch)
-        self.graph.replay()
-        for w, n in zip(self.counted, self.launches):
-            w.launches += n
-        self.replays += 1
+        self.replay()
         return self.output
+
+    def replay(self, n: int = 1) -> None:
+        """Replay the graph n times on the static input as it stands."""
+        for _ in range(n):
+            self.graph.replay()
+        for w, k in zip(self.counted, self.launches):
+            w.launches += k * n
+        self.replays += n

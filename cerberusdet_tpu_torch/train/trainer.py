@@ -14,10 +14,12 @@ in either direction between the two packages.
 The losses of a step stay on the card and are summed there: the host reads
 them once an epoch, so that it does not wait for every step. The run is one
 process: the JAX package's broadcast of process 0's decisions is the
-identity here. Not ported yet: the data-parallel mesh (use_mesh, ROADMAP.md
-queue 1, item 6), the plots (item 9; plots=True says once that it draws
-nothing) and the model-graph dump (dump_model_graph, StableHLO text, which
-has no PyTorch counterpart; item 9).
+identity here. A run that saves writes the model-graph artifacts once
+(utils/profiling.py:dump_model_graph: the module tree and the cost of the
+eval forward, where the JAX package writes StableHLO text and XLA's cost
+analysis). Not ported yet: the data-parallel mesh (use_mesh, ROADMAP.md
+queue 1, item 6) and the plots (item 9; plots=True says once that it draws
+nothing).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from cerberusdet_tpu_torch.train.optim import SGDConfig
 from cerberusdet_tpu_torch.train.schedules import EarlyStopping, lr_lambda, warmup_lrs
 from cerberusdet_tpu_torch.train.step import MultiTaskTrainer, init_train_state
 from cerberusdet_tpu_torch.utils.hyp import get_hyperparameter, task_hyp_view
+from cerberusdet_tpu_torch.utils.profiling import dump_model_graph
 
 
 @dataclasses.dataclass
@@ -117,6 +120,9 @@ class TrainLoop:
         self.task_ids = self.manager.task_ids
         self.model, ckpt_meta = self.manager.load_model(opt.weights or None, seed=opt.seed)
         self.start_epoch = 0
+        if not opt.nosave:
+            # the reference's TensorBoard add_graph (models_manager.py:412-418)
+            dump_model_graph(self.model, self.manager.save_dir, imgsz=opt.imgsz)
         self.timings: List[Dict[str, float]] = []
         self.final_val: Dict[str, Dict[str, Any]] = {}
         self._said_plots = False

@@ -116,7 +116,24 @@ Phases, each of which fails the run on anything wrong:
      the int8 kernels) launched once per task (quantized Conv) and served
      batch. Prints detect ms an image, the .pt import time, requests/s,
      client latency p50 / p99, batch fill, the card's busy share under the
-     warm flood, the preprocessor's captures and the graph pools' size.
+     warm flood, the preprocessor's captures and the graph pools' size;
+  9. drive the measurement entry points at headline traffic with 3 replays
+     a timed round: cerberusdet_tpu_torch.bench's main in int8 and bf16 at
+     batch 128 and 32 (the seeded flagship, int8 calibrated in float64 on
+     assets/calib and held against the port's golden; the forward captured
+     and replayed as dependent iterations), tools.bench_serving's main in
+     int8 at batch 32 and tools.bench_train_step's main. Each captured loop
+     launches each kernel as many times as its replays and its capture's
+     eager run need; the int8 graphs hold exactly one conv_s8 and one
+     quant_pack_s8 node per int8 Conv (143), every graph a conv node per
+     convolution; one replay equals the eager forward bit for bit, and the
+     batch-128 int8 forward equals the four batch-32 forwards of its slices;
+     conv_s8 and quant_pack_s8 equal their plain versions at every distinct
+     shape of the batch-32 and batch-128 forwards (their summed times and
+     shares of the bound printed); the serving stages with NMS launch it
+     once per task and replay; the train-step routes' first losses agree
+     within 1e-5 and the kernels' route launches each TAL kernel once per
+     task and step.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -127,6 +144,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import gc
 import json
 import os
 import shutil
@@ -158,12 +176,6 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 
 def log(*a):
     print(*a, flush=True)
-
-
-def smi_name_power() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -337,50 +349,6 @@ KERNEL_SYMBOLS = {"greedy_nms_cuda": "nms_kernel", "quant_pack_s8": "quant_pack"
                   "conv_s8": "conv_s8_kernel"}
 
 
-def pool_mib(pool) -> float:
-    """MiB of device memory the allocator holds in the graph memory pool
-    `pool` (its segments)."""
-    import torch
-
-    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-               if tuple(s.get("segment_pool_id") or ()) == tuple(pool)) / 2**20
-
-
-def graph_kernel_names(graph) -> list:
-    """Names of the kernel nodes of a captured torch.cuda.CUDAGraph that
-    kept its cudaGraph_t, read through the driver API."""
-    import ctypes
-
-    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
-        _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
-            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
-            (f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")]
-
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(rc, what):
-        if rc:
-            raise RuntimeError(f"{what} failed with CUresult {rc}")
-
-    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-              "cuGraphNodeGetType")
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-            continue
-        p, name = KernelNodeParams(), ctypes.c_char_p()
-        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
-              "cuGraphKernelNodeGetParams")
-        check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
-        names.append(name.value.decode())
-    return names
-
-
 def replay_matches_eager(inf, batch, args) -> None:
     """A request through predict (its key's graph, captured on first use)
     against predict_device run eagerly on the same batch: the packed
@@ -418,6 +386,7 @@ def graph_timings(inf, bt, args, card: str, label: str):
     from torch.profiler import ProfilerActivity, profile
 
     from cerberusdet_tpu_torch.infer.inference import pack_outputs
+    from cerberusdet_tpu_torch.utils.profiling import graph_kernel_names
 
     prog = inf.programs[inf.program_key(bt, *args)]
     fns = {"eager": lambda: pack_outputs(*inf.predict_device(bt, *args)).cpu(),
@@ -473,6 +442,8 @@ def first_requests(inf, pre, frames, label: str, card: str):
     Logs each one's host time and the graph pool's size after it."""
     import torch
 
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
+
     for bs in (1, 8):
         batch, shapes = pre.preprocess(frames[bs][0])
         torch.cuda.synchronize()
@@ -504,6 +475,113 @@ def tal_work(inp, positives, nc: int):
         "tal_assign": ((fg - multi) * (OPS_CIOU + OPS_ALIGN) + multi * (m * OPS_CIOU + OPS_ALIGN),
                        anchor_bytes + gt_bytes + sel_bytes + fg * 4 + out_bytes + b * m * 8),
         "tal_norm": (3 * fg, b * n * 21 + b * m * 8 + b * n * nc * 4),
+    }
+
+
+TAL_KERNELS = ("tal_select", "tal_assign", "tal_norm")
+
+
+def tal_entries(args, nc: int, launches, label: str, card: str, extra=None):
+    """Each TAL kernel on the assignment inputs `args` (the first a path gave
+    loss.task_aligned_assign, with nc classes) against its plain stage, its
+    time on the card (profiler), the plain stage's (CUDA events) and its
+    bound: kernels-line entries "<kernel> (<label>, ...)". launches:
+    {kernel: count on the path}; extra: {kernel: {key: value}} added to an
+    entry."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops import tal_cuda
+
+    inp = tal_cuda.kernel_inputs(*args, nc)
+    err, pos = tal_compare(inp, nc)
+    k = min(10, inp["scores"].shape[1])
+    sel = tal_cuda.select_kernel(inp, k, 6)
+    tgt, fg, lab, _, al, po = tal_cuda.assign_kernel(inp, sel, 6)
+    plain = tal_cuda.TaskAlignedAssigner(k, nc)
+    labels = inp["labels"].clamp(0, nc - 1)
+    planes = plain.select_topk(inp["scores"], inp["pd_bboxes"], inp["anchors"], labels,
+                               inp["gt_bboxes"], inp["mask_gt"])
+    tgt_p, fg_p, mp_p, pa_p, po_p = plain.resolve(*planes)
+    t_lab = labels.gather(1, tgt_p)
+    launch = {
+        "tal_select": lambda: tal_cuda.select_kernel(inp, k, 6),
+        "tal_assign": lambda: tal_cuda.assign_kernel(inp, sel, 6),
+        "tal_norm": lambda: tal_cuda.norm_kernel(tgt, fg, lab, al, po, nc, 1e-9),
+    }
+    plain_stage = {
+        "tal_select": lambda: plain.select_topk(inp["scores"], inp["pd_bboxes"],
+                                                inp["anchors"], labels, inp["gt_bboxes"],
+                                                inp["mask_gt"]),
+        "tal_assign": lambda: plain.resolve(*planes),
+        "tal_norm": lambda: plain.normalise(t_lab, fg_p, mp_p, planes[2], pa_p, po_p,
+                                            torch.float32),
+    }
+    work = tal_work(inp, pos, nc)
+    shape, valid = tuple(pos.shape), int(inp["mask_gt"].sum())
+    entries = []
+    for name in TAL_KERNELS:
+        k_ms, how = kernel_ms(launch[name], 20, name + "_kernel")
+        p_ms = cuda_ms(plain_stage[name], iters=3)
+        ops, nbytes = work[name]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        log(f"[tal at {label}] {name}: B,M,N={shape} ({valid} valid gt rows), kernel "
+            f"{k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, max|diff| {err[name]}  [{card}]")
+        entries.append({
+            "name": f"{name} ({label}, B,M,N {shape}, {valid} valid gt rows)",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/tal.cu",
+            "replaces": ("cerberusdet_tpu/ops/tal_pallas.py:146" if name == "tal_norm"
+                         else "cerberusdet_tpu/ops/tal_pallas.py:99"),
+            "launches": launches[name],
+            **(extra or {}).get(name, {}),
+            "max_abs_err": err[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no PyTorch call computes a task-aligned assignment
+        })
+    return entries
+
+
+def nms_kernel_entry(boxes, scores, iou: float, max_det: int, label: str, launches: int,
+                     card: str, extra=None):
+    """The NMS kernel on one batch of candidates (offset boxes, scores) against
+    the plain loop (identical picks), its time on the card (profiler), the
+    plain loop's (CUDA events) and its bound: a kernels-line entry."""
+    from cerberusdet_tpu_torch.ops import nms_cuda
+
+    idx_k, val_k = nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det)
+    idx_p, val_p = nms_cuda.greedy_nms(boxes, scores, iou, max_det)
+    err = max(int((idx_k.long() - idx_p.long()).abs().max()),
+              int((val_k.long() - val_p.long()).abs().max()))
+    if err:
+        raise AssertionError(f"the NMS kernel disagrees with the plain loop ({label})")
+    k_ms, how = kernel_ms(lambda: nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det), 20,
+                          "nms_kernel")
+    p_ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, scores, iou, max_det), iters=3,
+                   warmup=1)
+    ops, steps = nms_work(boxes, scores, iou, max_det)
+    bsz, kk = scores.shape
+    bytes_ms = (bsz * kk * 20 + bsz * max_det * 5) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    positives = (scores > 0).sum(1).tolist()
+    log(f"[nms at {label}] B,K={tuple(scores.shape)}, positives an image {positives}, steps "
+        f"{steps}: kernel {k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, picks identical  "
+        f"[{card}]")
+    return {
+        "name": f"nms ({label}, B,K {tuple(scores.shape)})",
+        "route": "cuda",
+        "source": "cerberusdet_tpu_torch/csrc/nms.cu",
+        "replaces": "cerberusdet_tpu/ops/nms_pallas.py:34",
+        "launches": launches,
+        **(extra or {}),
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # PyTorch has no NMS call
     }
 
 
@@ -658,6 +736,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     from cerberusdet_tpu_torch.nn.module import quantize_act
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
     from cerberusdet_tpu_torch.quant import conv_layers
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
 
     conv_s8, quant_pack_s8 = conv_int8_cuda.conv_s8, conv_int8_cuda.quant_pack_s8
     n_imma, how = tensor_core_instructions(conv_int8_cuda.build(), "conv_s8_kernel")
@@ -1060,6 +1139,29 @@ def val_batch_convs(model, x, task, checked, calls):
     ci.conv_s8.launches, ci.quant_pack_s8.launches = before
 
 
+def conv_totals(checked, calls):
+    """Sums over one forward's int8 convs, from val_batch_convs's records:
+    (conv_s8 ms, quant_pack_s8 ms, their plain versions' ms, conv bound ms,
+    pack bound ms, launches of each kernel, largest |kernel - plain| of
+    each). Kernel and plain times are each shape's mean by CUDA events
+    times the shape's calls; the bounds are the MACs at the int8 tensor-core
+    rate and the bytes read and written at HBM's rate."""
+    from cerberusdet_tpu_torch.ops.conv_int8_cuda import padded_channels
+
+    k_conv = sum(checked[k][4] * n for k, n in calls.items())
+    k_pack = sum(checked[k][5] * n for k, n in calls.items())
+    p_conv = sum(checked[k][0] * n for k, n in calls.items())
+    p_pack = sum(checked[k][1] * n for k, n in calls.items())
+    macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
+               * ((w + 2 * (k // 2) - k) // s + 1)
+               for (b, ci, co, k, s, h, w), n in calls.items())
+    pack_bytes = sum(n * b * h * w * (2 * ci + padded_channels(ci))
+                     for (b, ci, co, k, s, h, w), n in calls.items())
+    return (k_conv, k_pack, p_conv, p_pack, 2 * macs / INT8_OPS_PER_S * 1e3,
+            pack_bytes / HBM_BYTES_PER_S * 1e3, sum(calls.values()),
+            max(c[2] for c in checked.values()), max(c[3] for c in checked.values()))
+
+
 def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
              n_images: int = VAL_IMAGES, batch: int = VAL_BATCH, workers: int = 8):
     """The validation path at full width: a seeded 2-task val set on disk,
@@ -1253,21 +1355,12 @@ def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         big = max((k for k in calls_by_shape if k[0] == task), key=lambda k: k[1] * k[2])
         xb, calls = calls_by_shape[big]
         # every launch of the batch's forward, each at its shape's mean time
-        k_conv = sum(checked[k][4] * n for k, n in calls.items())
-        k_pack = sum(checked[k][5] * n for k, n in calls.items())
-        conv_plain = sum(checked[k][0] * n for k, n in calls.items())
-        pack_plain = sum(checked[k][1] * n for k, n in calls.items())
-        macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
-                   * ((w + 2 * (k // 2) - k) // s + 1)
-                   for (b, ci, co, k, s, h, w), n in calls.items())
-        conv_bound = 2 * macs / INT8_OPS_PER_S * 1e3
-        pack_bytes = sum(n * b * h * w * (2 * ci + conv_int8_cuda.padded_channels(ci))
-                         for (b, ci, co, k, s, h, w), n in calls.items())
-        pack_bound = pack_bytes / HBM_BYTES_PER_S * 1e3
-        n_calls = sum(calls.values())
+        (k_conv, k_pack, conv_plain, pack_plain, conv_bound, pack_bound, n_calls, _,
+         _) = conv_totals(checked, calls)
         log(f"[val int8] one {task} batch {tuple(xb.shape)}: conv_s8 {k_conv:.3f} ms summed over "
             f"its {n_calls} launches ({len(calls)} shapes, each at the mean of 5 launches by "
-            f"CUDA events), bound {conv_bound:.3f} ms ({2 * macs / 1e12:.3f} T int8 ops), plain "
+            f"CUDA events), bound {conv_bound:.3f} ms "
+            f"({conv_bound * INT8_OPS_PER_S / 1e15:.3f} T int8 ops), plain "
             f"{conv_plain:.1f} ms; quant_pack_s8 {k_pack:.3f} ms summed alike, bound "
             f"{pack_bound:.3f} ms, plain {pack_plain:.1f} ms  [{card}]")
 
@@ -1749,92 +1842,15 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
 
         # ---- the kernels at the first inputs this path gave them
         (args, nc), (boxes, scores, iou, max_det) = captured["tal"], captured["nms"]
-        inp = tal_cuda.kernel_inputs(*args, nc)
-        err, pos = tal_compare(inp, nc)
-        k = min(10, inp["scores"].shape[1])
-        sel = tal_cuda.select_kernel(inp, k, 6)
-        tgt, fg, lab, _, al, po = tal_cuda.assign_kernel(inp, sel, 6)
-        plain = tal_cuda.TaskAlignedAssigner(k, nc)
-        labels = inp["labels"].clamp(0, nc - 1)
-        planes = plain.select_topk(inp["scores"], inp["pd_bboxes"], inp["anchors"], labels,
-                                   inp["gt_bboxes"], inp["mask_gt"])
-        tgt_p, fg_p, mp_p, pa_p, po_p = plain.resolve(*planes)
-        t_lab = labels.gather(1, tgt_p)
-        launch = {
-            "tal_select": lambda: tal_cuda.select_kernel(inp, k, 6),
-            "tal_assign": lambda: tal_cuda.assign_kernel(inp, sel, 6),
-            "tal_norm": lambda: tal_cuda.norm_kernel(tgt, fg, lab, al, po, nc, 1e-9),
-        }
-        plain_stage = {
-            "tal_select": lambda: plain.select_topk(inp["scores"], inp["pd_bboxes"],
-                                                    inp["anchors"], labels, inp["gt_bboxes"],
-                                                    inp["mask_gt"]),
-            "tal_assign": lambda: plain.resolve(*planes),
-            "tal_norm": lambda: plain.normalise(t_lab, fg_p, mp_p, planes[2], pa_p, po_p,
-                                                torch.float32),
-        }
-        work = tal_work(inp, pos, nc)
-        shape = (tuple(pos.shape), int(inp["mask_gt"].sum()))
-        entries = []
-        for name in ("tal_select", "tal_assign", "tal_norm"):
-            k_ms, how = kernel_ms(launch[name], 20, name + "_kernel")
-            p_ms = cuda_ms(plain_stage[name], iters=3)
-            ops, nbytes = work[name]
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-            log(f"[tal at train-cli shapes] {name}: B,M,N={shape[0]} ({shape[1]} valid gt rows "
-                f"of an augmented batch), kernel {k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, "
-                f"max|diff| {err[name]}  [{card}]")
-            entries.append({
-                "name": f"{name} (train CLI: an augmented batch, B,M,N {shape[0]}, {shape[1]} "
-                        f"valid gt rows)",
-                "route": "cuda",
-                "source": "cerberusdet_tpu_torch/csrc/tal.cu",
-                "replaces": ("cerberusdet_tpu/ops/tal_pallas.py:146" if name == "tal_norm"
-                             else "cerberusdet_tpu/ops/tal_pallas.py:99"),
-                "launches": a["counts"][name],
-                "launches_by_run": {"A": a["counts"][name], "R": r["counts"][name],
-                                    "B": b["counts"][name]},
-                "max_abs_err": err[name],
-                "ms": k_ms,
-                "plain_ms": p_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,
-            })
-        idx_k, val_k = nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det)
-        idx_p, val_p = nms_cuda.greedy_nms(boxes, scores, iou, max_det)
-        nms_err = max(int((idx_k.long() - idx_p.long()).abs().max()),
-                      int((val_k.long() - val_p.long()).abs().max()))
-        if nms_err:
-            raise AssertionError("the NMS kernel disagrees with the plain loop at val traffic "
-                                 "of the train path")
-        k_ms, how = kernel_ms(lambda: nms_cuda.greedy_nms_cuda(boxes, scores, iou, max_det), 20,
-                              "nms_kernel")
-        p_ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, scores, iou, max_det), iters=3,
-                       warmup=1)
-        ops, steps = nms_work(boxes, scores, iou, max_det)
-        bsz, kk = scores.shape
-        bytes_ms = (bsz * kk * 20 + bsz * max_det * 5) / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        positives = (scores > 0).sum(1).tolist()
-        log(f"[nms at train-cli val traffic] B,K={tuple(scores.shape)}, positives an image "
-            f"{positives}, steps {steps}: kernel {k_ms:.4f} ms ({how}), plain {p_ms:.3f} ms, "
-            f"picks identical  [{card}]")
-        entries.append({
-            "name": f"nms (train CLI: per-epoch and final val, B,K {tuple(scores.shape)})",
-            "route": "cuda",
-            "source": "cerberusdet_tpu_torch/csrc/nms.cu",
-            "replaces": "cerberusdet_tpu/ops/nms_pallas.py:34",
-            "launches": a["counts"]["nms"],
-            "launches_by_run": {"A": a["counts"]["nms"], "R": r["counts"]["nms"],
-                                "B": b["counts"]["nms"]},
-            "max_abs_err": nms_err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        })
+        runs = {"A": a, "R": r, "B": b}
+        entries = tal_entries(args, nc, {k: a["counts"][k] for k in TAL_KERNELS},
+                              "train CLI: an augmented batch", card,
+                              {k: {"launches_by_run": {n: x["counts"][k] for n, x in runs.items()}}
+                               for k in TAL_KERNELS})
+        entries.append(nms_kernel_entry(
+            boxes, scores, iou, max_det, "train CLI: per-epoch and final val",
+            a["counts"]["nms"], card,
+            {"launches_by_run": {n: x["counts"]["nms"] for n, x in runs.items()}}))
         return entries
     finally:
         for obj, name, orig in reversed(patches):
@@ -1984,6 +2000,7 @@ def serve_run(cli, ckpt, extra, dev, frames, flood: int, clients: int, card: str
 
     from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
     from cerberusdet_tpu_torch.serve.server import _to_jsonable
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
 
     nms = nms_cuda.greedy_nms_cuda
     opt = cli.parse_opt(["--weights", ckpt, "--imgsz", str(frames.imgsz), "--max-batch",
@@ -2347,18 +2364,8 @@ def entry_points(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         checked, conv_calls = {}, {}
         xb = torch.as_tensor(calls[0][1]).to(dev).permute(0, 3, 1, 2).to(inf.dtype)
         val_batch_convs(inf.model, xb, None, checked, conv_calls)
-        k_conv = sum(checked[k][4] * n for k, n in conv_calls.items())
-        k_pack = sum(checked[k][5] * n for k, n in conv_calls.items())
-        conv_plain = sum(checked[k][0] * n for k, n in conv_calls.items())
-        pack_plain = sum(checked[k][1] * n for k, n in conv_calls.items())
-        macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
-                   * ((w + 2 * (k // 2) - k) // s + 1)
-                   for (b, ci, co, k, s, h, w), n in conv_calls.items())
-        conv_bound = 2 * macs / INT8_OPS_PER_S * 1e3
-        pack_bound = sum(n * b * h * w * (2 * ci + conv_int8_cuda.padded_channels(ci))
-                         for (b, ci, co, k, s, h, w), n in conv_calls.items()) \
-            / HBM_BYTES_PER_S * 1e3
-        n_calls = sum(conv_calls.values())
+        (k_conv, k_pack, conv_plain, pack_plain, conv_bound, pack_bound, n_calls, _,
+         _) = conv_totals(checked, conv_calls)
         # the kernels' own device time in a batch-1 forward: the profiler's mean
         # launch (over the launches its trace keeps) times the forward's launches
         dev_ms = {"conv_s8_kernel": k_conv, "quant_pack": k_pack}
@@ -2466,6 +2473,275 @@ def entry_points(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         nms.launches, conv_s8.launches, quant_pack_s8.launches = saved
 
 
+# phase 9: the measurement entry points at headline traffic. The timed loops
+# run BENCH_ITERS replays a round (the entry points' own defaults are 20 and
+# 10: the headline numbers come from `python -m cerberusdet_tpu_torch.bench`)
+BENCH_ITERS = 3
+HEADLINE_BATCH, REFERENCE_BATCH = 128, 32
+
+
+def headline(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+             big: int = HEADLINE_BATCH, small: int = REFERENCE_BATCH, iters: int = BENCH_ITERS,
+             train_batch: int = TRAIN_BATCH, train_labels: int = TRAIN_LABELS):
+    """The measurement entry points at full width (phase 9):
+    cerberusdet_tpu_torch.bench's main in int8 and bf16 at batch `big` and
+    `small`, tools.bench_serving's main in int8 at batch `small` and
+    tools.bench_train_step's main, with their gates. Returns the
+    kernels-line entries of the path."""
+    import torch
+
+    from cerberusdet_tpu_torch import bench
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.ops import nms as nms_mod
+    from cerberusdet_tpu_torch.tools import bench_serving, bench_train_step
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.utils import profiling
+    from cerberusdet_tpu_torch.utils.profiling import tensor_leaves
+
+    kern = {"conv_s8": conv_int8_cuda.conv_s8, "quant_pack_s8": conv_int8_cuda.quant_pack_s8,
+            "nms": nms_cuda.greedy_nms_cuda, "tal_select": tal_cuda.select_kernel,
+            "tal_assign": tal_cuda.assign_kernel, "tal_norm": tal_cuda.norm_kernel}
+    name_of = {f: k for k, f in kern.items()}
+    saved = {k: f.launches for k, f in kern.items()}
+    patches = []
+    on_card = dev.type == "cuda"
+
+    def patch(obj, name, new):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def counts():
+        return {k: f.launches for k, f in kern.items()}
+
+    def zero():
+        for f in kern.values():
+            f.launches = 0
+
+    run = {}  # the entry point being driven: its loops, its model, its probe
+
+    class ProbedLoop(profiling.HonestLoop):
+        """The entry points' HonestLoop, which records each captured loop's
+        launches a replay and its replays, and runs the phase's probe on the
+        graph before it is freed (the probe's launches taken back)."""
+
+        def close(self):
+            if self.prog is not None:
+                run["loops"].append(({name_of[w]: n for w, n in
+                                      zip(self.prog.counted, self.prog.launches)},
+                                     self.prog.replays))
+                if run.get("probe"):
+                    before = counts()
+                    run["probe"](self)
+                    for k, f in kern.items():
+                        f.launches = before[k]
+            super().close()
+
+    def expected_launches():
+        """Each captured loop's launches a replay times its replays and the
+        capture's eager run (infer/graphs.py), summed."""
+        want = {k: 0 for k in kern}
+        for per_replay, replays in run["loops"]:
+            for k, n in per_replay.items():
+                want[k] += n * (replays + 1)
+        return want
+
+    def replay_equals_eager(loop):
+        """One replay against the forward run eagerly on the same input, bit
+        for bit. Returns the replay's outputs."""
+        loop.prog.replay()
+        got = [t.clone() for t in tensor_leaves(loop.output)]
+        eager = tensor_leaves(loop.fn(loop.x))
+        torch.cuda.synchronize()
+        if len(got) != len(eager) or not all(torch.equal(a, b) for a, b in zip(got, eager)):
+            raise AssertionError(f"{run['label']}: a replay differs from the forward run "
+                                 "eagerly on the same input")
+        return got
+
+    def slices_equal(loop):
+        """The batch-`big` replay against `big // small` eager forwards of its
+        slices, bit for bit (an index that overflows at the large batch
+        would show here)."""
+        got = replay_equals_eager(loop)
+        for i in range(big // small):
+            rows = slice(i * small, (i + 1) * small)
+            part = tensor_leaves(loop.fn(loop.x[rows]))
+            for g, p in zip(got, part):
+                if not torch.equal(g[rows], p):
+                    diff = (g[rows].double() - p.double()).abs()
+                    log(f"[bench] batch {big} vs slice {i}: {int((diff > 0).sum())} of "
+                        f"{p.numel()} values differ, largest {float(diff.max()):.3g}")
+                    raise AssertionError(f"{run['label']}: the batch-{big} forward differs "
+                                         f"from the batch-{small} forwards of its slices")
+        run["slices"] = big // small
+
+    def drive(label, argv, probe=None):
+        """bench.main(argv) with its launches counted from 0, its model kept
+        and `probe` run on its captured loop; returns (result, launches,
+        seconds)."""
+        run.clear()
+        run.update(label=label, loops=[], probe=probe if on_card else None)
+        zero()
+        t = time.perf_counter()
+        result = bench.main(argv + ["--iters", str(iters), "--imgsz", str(imgsz), "--cfg", cfg]
+                            + ([] if on_card else ["--device", "cpu"]))
+        took = time.perf_counter() - t
+        got = counts()
+        if on_card and got != expected_launches():
+            raise AssertionError(f"{label}: launches {got}, expected {expected_launches()} "
+                                 f"(a replay's launches times the replays and the capture)")
+        return result, got, took
+
+    real_build = bench.build
+
+    def build(*a, **kw):
+        run["model"] = real_build(*a, **kw)
+        return run["model"]
+
+    try:
+        patch(profiling, "HonestLoop", ProbedLoop)  # the loop of profiling.honest_time
+        patch(bench, "build", build)
+        n_q = None
+        results, entries = {}, []
+        for label, argv, probe in (
+                (f"int8 batch {big}", ["--batch", str(big)], slices_equal),
+                (f"int8 batch {small}", ["--batch", str(small)], replay_equals_eager),
+                (f"bf16 batch {big}", ["--batch", str(big), "--bf16"], replay_equals_eager),
+                (f"bf16 batch {small}", ["--batch", str(small), "--bf16"],
+                 replay_equals_eager)):
+            result, launched, took = drive(label, argv, probe)
+            model = run.pop("model")
+            n_convs, n_int8 = profiling.model_convs(model)
+            nodes = result["conv_nodes"]
+            if label.startswith("int8"):
+                n_q = n_int8
+                if not n_int8 or (on_card and (nodes["conv_s8"], nodes["quant_pack_s8"]) != (
+                        n_int8, n_int8)):
+                    raise AssertionError(f"{label}: graph nodes {nodes} for {n_int8} int8 Convs")
+            if on_card and (nodes["convs"] < n_convs or (label.startswith("bf16")
+                                                         and nodes["conv_s8"])):
+                raise AssertionError(f"{label}: {nodes} conv nodes for {n_convs} convolutions")
+            results[label] = result
+            ms = result["ms"] if result["ms"] is not None else result["host_ms"]
+            log(f"[bench] {label}: {result['metric']} {result['value']} img/s "
+                f"(vs_baseline {result['vs_baseline']}), {ms:.3f} ms a forward, host "
+                f"{result['host_ms']:.3f} ms ({iters} replays a round, best of 3); graph nodes "
+                f"{nodes}, pool {result['pool_mib']} MiB; {n_convs} convolutions, {n_int8} int8; "
+                f"the golden check passed; launches {launched}; "
+                + ("one replay identical to the eager forward; " if on_card else "")
+                + (f"the batch-{big} forward identical to its {run['slices']} batch-{small} "
+                   "slices; " if "slices" in run else "")
+                + f"main in {took:.1f} s  [{card}]")
+            if label.startswith("int8"):
+                # both kernels against their plain versions at every distinct conv
+                # shape of this batch's forward, each timed by CUDA events
+                checked, calls = {}, {}
+                x = bench.make_input(result["batch"], imgsz, dev).permute(0, 3, 1, 2)
+                with torch.no_grad():
+                    val_batch_convs(model, x.to(torch.bfloat16), None, checked, calls)
+                (k_conv, k_pack, p_conv, p_pack, conv_bound, pack_bound, n_calls, conv_err,
+                 pack_err) = conv_totals(checked, calls)
+                log(f"[bench] {label}: conv_s8 and quant_pack_s8 identical to their plain "
+                    f"versions at all {len(checked)} distinct conv shapes; one forward's "
+                    f"{n_calls} launches of each: conv_s8 {k_conv:.3f} ms (bound {conv_bound:.3f} "
+                    f"ms, {100 * conv_bound / k_conv:.1f}%; plain {p_conv:.1f} ms), "
+                    f"quant_pack_s8 {k_pack:.3f} ms (bound {pack_bound:.3f} ms, "
+                    f"{100 * pack_bound / k_pack:.1f}%; plain {p_pack:.1f} ms), each shape's "
+                    f"mean of 5 launches by CUDA events times its calls  [{card}]")
+                if result["batch"] == big:
+                    for nm, ms_, plain_, bound_, by, err_ in (
+                            ("conv_s8", k_conv, p_conv, conv_bound, "operations", conv_err),
+                            ("quant_pack_s8", k_pack, p_pack, pack_bound, "bytes", pack_err)):
+                        entries.append({
+                            "name": f"{nm} (headline bench: one int8 forward at batch {big}, "
+                                    f"{imgsz} px, all {n_calls} launches summed)",
+                            "route": "cuda", "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+                            "replaces": ("cerberusdet_tpu/ops/conv_int8_pallas.py:65"
+                                         if nm == "conv_s8" else
+                                         "cerberusdet_tpu/nn/module.py:162 (quantize_act, no "
+                                         "Pallas kernel; part of conv_s8's redesign)"),
+                            "launches": launched[nm], "max_abs_err": err_, "ms": ms_,
+                            "plain_ms": plain_, "bound_ms": bound_, "bound_by": by,
+                            "library_ms": None})
+                del x
+            del model
+            if on_card:
+                torch.cuda.empty_cache()
+        patch(bench, "build", real_build)
+
+        # ---- bench_serving, int8 "all" at batch `small`: the NMS kernel per stage
+        captured = {}
+        real_nms = nms_mod.greedy_nms_cuda
+
+        def nms(boxes, scores, iou_thres, max_det):
+            if "nms" not in captured:
+                captured["nms"] = (boxes.clone(), scores.clone(), iou_thres, max_det)
+            return real_nms(boxes, scores, iou_thres, max_det)
+
+        patch(nms_mod, "greedy_nms_cuda", nms)
+        run.clear()
+        run.update(label="bench_serving", loops=[])
+        zero()
+        t = time.perf_counter()
+        staged = bench_serving.main(["--batch", str(small), "--iters", str(iters), "--imgsz",
+                                     str(imgsz), "--cfg", cfg]
+                                    + ([] if on_card else ["--device", "cpu"]))
+        took = time.perf_counter() - t
+        served = counts()
+        if on_card:
+            want = expected_launches()
+            stages = [per for per, _ in run["loops"]]
+            if served != want or [s["nms"] for s in stages] != [0, len(TASKS), len(TASKS)] \
+                    or any(s["conv_s8"] != n_q for s in stages):
+                raise AssertionError(f"bench_serving: launches {served}, expected {want}; a "
+                                     f"replay's launches by stage {stages}")
+        log(f"[bench_serving] int8 all, batch {small}, {imgsz} px, conf 0.25: {staged}; "
+            f"launches {served} (NMS: tasks x (replays + the capture's eager run) of the "
+            f"two stages with NMS; conv_s8 and quant_pack_s8: {n_q} a forward); main in "
+            f"{took:.1f} s  [{card}]")
+        boxes, scores, iou, max_det = captured["nms"]
+        entries.append(nms_kernel_entry(
+            boxes, scores, iou, max_det, "bench_serving: int8 all, conf 0.25", served["nms"],
+            card))
+
+        # ---- bench_train_step: the plain assigner, then the TAL kernels
+        real_assign = loss_mod.task_aligned_assign
+
+        def assign(*a, **kw):
+            if kw.get("use_kernel") and "tal" not in captured:
+                captured["tal"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+            return real_assign(*a, **kw)
+
+        patch(loss_mod, "task_aligned_assign", assign)
+        zero()
+        t = time.perf_counter()
+        stepped = bench_train_step.main(["--batch", str(train_batch), "--iters", str(iters),
+                                         "--max-labels", str(train_labels), "--imgsz",
+                                         str(imgsz), "--cfg", cfg]
+                                        + ([] if on_card else ["--device", "cpu"]))
+        took = time.perf_counter() - t
+        trained = counts()
+        steps = (bench_train_step.WARMUP_STEPS + iters) * bench_train_step.TURNS.count("pallas")
+        want = {k: len(TASKS) * steps if on_card else 0 for k in TAL_KERNELS}
+        if {k: trained[k] for k in TAL_KERNELS} != want:
+            raise AssertionError(f"bench_train_step: TAL launches {trained}, expected {want} "
+                                 "(once per task and step of the kernels' runs)")
+        if stepped["loss_rel_diff"] > 1e-5:
+            raise AssertionError(f"bench_train_step: the routes' first-step losses differ by "
+                                 f"{stepped['loss_rel_diff']} (limit 1e-5)")
+        log(f"[bench_train_step] per-task batch {train_batch}, {imgsz} px, {train_labels} gt "
+            f"rows: {stepped}; TAL launches {want} (the kernels' two runs, once per task and "
+            f"step, none on the plain route's); main in {took:.1f} s  [{card}]")
+        args, nc = captured["tal"]
+        entries.extend(tal_entries(args, nc, {k: trained[k] for k in TAL_KERNELS},
+                                   "bench_train_step", card))
+        return entries
+    finally:
+        for obj, name, orig in reversed(patches):
+            setattr(obj, name, orig)
+        for k, f in kern.items():
+            f.launches = saved[k]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2497,12 +2773,13 @@ def main() -> int:
     from cerberusdet_tpu_torch.train.loss import DetectionLoss
     from cerberusdet_tpu_torch.train.schedules import warmup_lrs
     from cerberusdet_tpu_torch.train.step import MultiTaskTrainer, init_train_state
+    from cerberusdet_tpu_torch.utils.profiling import card_name_power, pool_mib
 
     torch.set_grad_enabled(False)  # serving; the train phases enable it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = smi_name_power()
+    card = card_name_power()
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  card: {card}")
 
@@ -2986,6 +3263,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(entry_points(card, dev))
     log(f"[entry points] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. the measurement entry points at headline traffic
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[bench] {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by earlier phases")
+    t0 = time.perf_counter()
+    kernels.extend(headline(card, dev))
+    log(f"[bench] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -52,7 +52,16 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.infer.visualizer", "cerberusdet_tpu_torch.infer.yolo_wrapper",
             "cerberusdet_tpu_torch.manager.pt_import", "cerberusdet_tpu_torch.manager.pt_export",
             "cerberusdet_tpu_torch.tools.export_to_pt",
-            "cerberusdet_tpu_torch.tools.convert_to_cerber"} <= set(mods)
+            "cerberusdet_tpu_torch.tools.convert_to_cerber",
+            "cerberusdet_tpu_torch.bench", "cerberusdet_tpu_torch.utils.profiling",
+            "cerberusdet_tpu_torch.tools.bench_int8", "cerberusdet_tpu_torch.tools.bench_serving",
+            "cerberusdet_tpu_torch.tools.bench_train_step",
+            "cerberusdet_tpu_torch.tools.bench_loader",
+            "cerberusdet_tpu_torch.tools.bench_train_e2e",
+            "cerberusdet_tpu_torch.tools.profile_step",
+            "cerberusdet_tpu_torch.tools.summarize_trace",
+            "cerberusdet_tpu_torch.tools.make_synthetic_data",
+            "cerberusdet_tpu_torch.tools.strip_weights"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
