@@ -15,7 +15,10 @@ infer mode runs the fused seeded model in bf16, int8 calibrated on a
 seeded uniform batch (timing-faithful, accuracy-irrelevant), eagerly: the
 trace shows each kernel of the forward by name. train mode runs
 MultiTaskTrainer.step (float32, or bf16 compute with --bf16) on seeded
-batches with every gt row valid.
+batches with every gt row valid: on the card the untraced call captures the
+step's CUDA graph and the traced calls replay it, as the JAX tool traces its
+jitted step (the trace holds the kernels of each replay by name); on the
+CPU the step runs eagerly.
 """
 
 from __future__ import annotations

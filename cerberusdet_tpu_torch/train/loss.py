@@ -84,7 +84,10 @@ class DetectionLoss:
 
         img_h = shapes[0][0] * self.strides[0]
         img_w = shapes[0][1] * self.strides[0]
-        scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=dev)
+        # (w, h, w, h), made on the device: a copy from the host would be a host
+        # synchronisation, which a captured step cannot hold
+        scale = torch.full((4,), float(img_w), dtype=torch.float32, device=dev)
+        scale[1::2] = img_h
         mask_gt = batch["mask"].bool()
         # padded rows are zeroed: the reference's sum(box) > 0 validity
         gt_bboxes = torch.where(mask_gt[:, :, None],

@@ -97,8 +97,13 @@ class TrainLoop:
     """Trains on `device` (the card when None; "cpu" runs on the CPU).
 
     `timings` collects one entry per step: the host's wait for the loaders'
-    batches and the host time of the step call (which returns before the
-    card has finished), in seconds."""
+    batches ("data_s") and the host time of the step call ("step_s"), in
+    seconds. On the card the step call enqueues the replay of the step's
+    CUDA graph (the batches' copies into its static buffers, the scalars,
+    the address check, the launch) and returns before the card has
+    finished, so "step_s" is that enqueue, and the host assembles the next
+    batches while the card runs the step; the first call of a key also runs
+    the step eagerly and captures it. On the CPU it is the whole step."""
 
     def __init__(self, opt: TrainOptions, data_dict: Dict[str, Any], hyp: Dict[str, Any],
                  device=None):
@@ -219,6 +224,8 @@ class TrainLoop:
         """One epoch of steps; returns {task: mean (box, cls, dfl) loss}."""
         opt = self.opt
         freeze = epoch < opt.freeze_shared_till_epoch
+        if not freeze:  # the frozen epochs' captured steps are not replayed again
+            self.trainer.drop_programs(freeze_shared=True)
         iters = {t: InfiniteLoader(self.train_loaders[t], epoch=epoch) for t in self.task_ids}
         momentum_h = float(get_hyperparameter(self.hyp, "momentum"))
         mloss: Dict[str, Optional[torch.Tensor]] = {t: None for t in self.task_ids}

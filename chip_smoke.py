@@ -46,11 +46,21 @@ Phases, each of which fails the run on anything wrong:
      replays identical with eager runs, agreement with bf16, and timings
      (torch._int_mm as the yardstick of a 1x1 conv; a plain copy of
      quant_pack_s8's largest input as the card's streaming rate);
-  4. train the flagship: MultiTaskTrainer.step at 640 px, bf16 compute,
-     per-task batch 8, 300 gt rows of which 40 are real, seeded batches and
-     init; 2 warm-up and 5 timed steps with finite losses, every TAL kernel
-     launched once per task and step, and one step from the same state with
-     the plain assigner giving the same losses;
+  4. train the flagship at 640 px, bf16 compute, per-task batch 8, 300 gt
+     rows of which 40 are real, seeded batches and init, with warmup lrs and
+     momentum that change every step: 2 + 10 eager steps
+     (MultiTaskTrainer.raw_step, stage by stage) against the captured step
+     (MultiTaskTrainer.step: the key's first call runs the step eagerly and
+     captures it, then 12 replays), each with its device-busy share, peak
+     memory and the step's graph pool; finite losses; every TAL kernel
+     launched once per task and step (a replay once per task); one capture
+     per key for {voc, animals}, {voc} alone and {voc, animals} with
+     freeze_shared, each used twice; 6 replays bit for bit with 6 raw_steps
+     from one snapshot under deterministic algorithms (losses, parameters,
+     BN buffers, momentum buffers, EMA); a replaced momentum buffer makes the
+     replay raise; one step from the same state with the plain assigner,
+     under a key of its own, launching no TAL kernel and giving the same
+     losses;
   5. check against a reference on a small input: yolov8n_2task at 64 px in
      float64 on the card against the port's CPU path, for predict and for
      one train step; the float64 replay equals an eager run, also after an
@@ -69,7 +79,9 @@ Phases, each of which fails the run on anything wrong:
      launch per batch and task, one conv_s8 and one quant_pack_s8 per
      quantized Conv and batch. Prints P, R, mAP50, mAP and the speed terms
      per task and precision, the NMS kernel at val traffic and conv_s8
-     summed over one int8 batch;
+     summed over one int8 batch. The eval forward runs eagerly; a
+     forward captured per shape, which run_task does not take, is measured
+     by hand (eval_graphs, below);
   7. train the flagship through the train entry point (cli/train.py:main):
      the seeded model (BatchNorm statistics from 8 train images) as
      --weights, 48 train and 16 val seeded labelled JPEGs a task, the
@@ -84,10 +96,12 @@ Phases, each of which fails the run on anything wrong:
      steps get A's and R's batches (sha1 of img and bboxes); R starts from
      the saved params exactly; A's final val on last.ckpt.npz equals
      cli/val.py's main on the same file; the TAL and NMS kernels equal their
-     plain versions on the first inputs the path gave them. Prints the step
-     time, the host's wait for data, the device-busy share, host
-     augmentation per image, the decoder, val and save times, peak memory
-     and main's wall;
+     plain versions on the first inputs the path gave them. The steps replay
+     the captured step. Prints the step time, the step call's host time and
+     the loop iteration unsynchronised (run A), the host's wait for data,
+     the device-busy share of the unsynchronised loop, host augmentation per
+     image, the decoder, val and save times, the step's graph pool, peak
+     memory and main's wall;
   8. drive the serving entry points (cli/detect.py, cli/serve.py): the
      seeded flagship (BatchNorm statistics from 8 source images) as a
      .ckpt.npz and 24 seeded JPEGs at the val cell's five native sizes.
@@ -131,9 +145,10 @@ Phases, each of which fails the run on anything wrong:
      conv_s8 and quant_pack_s8 equal their plain versions at every distinct
      shape of the batch-32 and batch-128 forwards (their summed times and
      shares of the bound printed); the serving stages with NMS launch it
-     once per task and replay; the train-step routes' first losses agree
-     within 1e-5 and the kernels' route launches each TAL kernel once per
-     task and step.
+     once per task and replay; the train-step routes (each timed eagerly,
+     then as back-to-back replays of the captured step) agree on their first
+     losses within 1e-5 and the kernels' route launches each TAL kernel once
+     per task and step.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -152,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "configs", "models", "yolov8x_2task.yaml")
@@ -171,7 +187,7 @@ OPS_PER_LIVE = 18
 # top-k at least 1 compare
 OPS_CIOU, OPS_ALIGN, OPS_INSIDE = 52, 7, 8
 TRAIN_BATCH, TRAIN_LABELS, TRAIN_REAL = 8, 300, 40
-WARMUP_STEPS, TIMED_STEPS = 2, 5
+WARMUP_STEPS, TIMED_STEPS = 2, 10
 
 
 def log(*a):
@@ -592,10 +608,19 @@ def snapshot(state):
 
 
 def restore(state, snap) -> None:
+    """Put `snapshot`'s values back, in place: a captured step reads the
+    state's tensors at the addresses it captured."""
+    import torch
+
     model_sd, ema_sd, opt, n = snap
     state.model.load_state_dict(model_sd)
     state.ema.load_state_dict(ema_sd)
-    state.opt_state = copy.deepcopy(opt)
+    with torch.no_grad():
+        for bufs, saved in ((state.opt_state.momentum_buf, opt.momentum_buf),
+                            (state.opt_state.second_moment, opt.second_moment)):
+            for k, v in (saved or {}).items():
+                bufs[k].copy_(v)
+    state.opt_state.step = opt.step
     state.n_updates = n
 
 
@@ -1162,6 +1187,273 @@ def conv_totals(checked, calls):
             max(c[2] for c in checked.values()), max(c[3] for c in checked.values()))
 
 
+# a measurement run by hand, not by main(): the eval forward captured as the
+# JAX package jits it per shape, which run_task does not take (PERF.md, Findings):
+#   python3 -c "import chip_smoke; chip_smoke.eval_graphs()"
+def repeat_set(root: str, src: str, copies: int) -> str:
+    """A val set of `copies` hard-linked copies of the images and labels
+    under `src` (a write_val_set root): the same native sizes, so that rect
+    batches of one shape come in runs. Returns its image directory."""
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub, "val"), exist_ok=True)
+        for c in range(copies):
+            for f in sorted(os.listdir(os.path.join(src, sub, "val"))):
+                if f.endswith((".jpg", ".txt")):
+                    os.link(os.path.join(src, sub, "val", f),
+                            os.path.join(root, sub, "val", f"{c}_{f}"))
+    return os.path.join(root, "images", "val")
+
+
+def captured_forward(model, task: str):
+    """A stand-in for `model` in run_task whose `task` forward is captured
+    as JAX jits it per shape, one graph alive at most: a shape's first batch
+    eager, its second in a row captured (infer/graphs.py:CapturedProgram,
+    whose eager run gives that batch's outputs), the rest of the run
+    replayed; a new shape drops the graph. `.kinds` lists each batch's
+    ("eager", "capture" or "replay"), `.pools` each graph's pool MiB."""
+    import torch
+
+    from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
+
+    class CapturedForward(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = model
+            self.shape = self.program = None
+            self.kinds, self.pools = [], []
+
+        def eager(self, x):
+            return self.inner(x, tasks=[task])[task]
+
+        def forward(self, x, tasks):
+            if tuple(x.shape) != self.shape:
+                self.shape, self.program = tuple(x.shape), None
+                self.kinds.append("eager")
+                return {task: self.eager(x)}
+            if self.program is None:
+                pool = torch.cuda.graph_pool_handle()
+                self.program = CapturedProgram(self.eager, x, x.device, pool,
+                                               (ci.conv_s8, ci.quant_pack_s8))
+                self.kinds.append("capture")
+                self.pools.append(pool_mib(pool))
+                return {task: self.program.first}
+            self.kinds.append("replay")
+            return {task: self.program.run(x)}
+
+    return CapturedForward()
+
+
+def captured_val(model, label: str, task: str, nc: int, loader, card: str,
+                 deterministic: bool = False, pairs: int = 2) -> None:
+    """run_task (evaluation/val.py, an eager forward) on `model` for `task`
+    over `loader()`'s rect batches, whose shapes come in runs, against
+    run_task on captured_forward(model): first with each captured batch's
+    forward held bit for bit against the eager forward on the same batch
+    (the probe's launches taken back); then `pairs` times an eager run and a
+    captured run, in turns, each timed with its peak memory. Every run's
+    statistics must be identical, and the int8 kernels launch once per
+    quantized Conv and batch. cuDNN as eval_flags sets it, with
+    cudnn.deterministic where `deterministic`."""
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.evaluation.val import run_task
+    from cerberusdet_tpu_torch.nn.layers import Conv
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+
+    probe = captured_forward(model, task)
+    real_forward = probe.forward
+
+    def checked(x, tasks):
+        out = real_forward(x, tasks)[task]
+        saved = (ci.conv_s8.launches, ci.quant_pack_s8.launches)
+        pred, feats = probe.eager(x)
+        if not torch.equal(out[0], pred) or not all(
+                torch.equal(a, b) for a, b in zip(out[1], feats)):
+            again = probe.eager(x)[0]
+            raise AssertionError(
+                f"{label} {tuple(x.shape)} ({probe.kinds[-1]}): the forward differs from the "
+                f"eager forward by {float((out[0].double() - pred.double()).abs().max())}; two "
+                f"eager forwards differ by {float((again.double() - pred.double()).abs().max())}")
+        ci.conv_s8.launches, ci.quant_pack_s8.launches = saved
+        return {task: out}
+
+    probe.forward = checked
+    n_int8 = sum(1 for st in model.plan([task]) for m in model.block(st.uid).modules()
+                 if isinstance(m, Conv) and m.int8)
+    outs, timed = {}, {"eager": [], "captured": []}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=deterministic, allow_tf32=False):
+        for what, m in [("probe", probe)] + [("eager", model), ("captured", None)] * pairs:
+            m = m if m is not None else captured_forward(model, task)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = (ci.conv_s8.launches, ci.quant_pack_s8.launches)
+            t = time.perf_counter()
+            out = run_task(m, task, loader(), nc)
+            wall = time.perf_counter() - t
+            del m
+            launched = (ci.conv_s8.launches - before[0], ci.quant_pack_s8.launches - before[1])
+            if launched != (n_int8 * len(out["times"]),) * 2:
+                raise AssertionError(f"{label} {what} run: conv_s8 / quant_pack_s8 launched "
+                                     f"{launched} times, not once per quantized Conv "
+                                     f"({n_int8}) and batch ({len(out['times'])})")
+            peak = (torch.cuda.max_memory_allocated() / 2**30,
+                    torch.cuda.max_memory_reserved() / 2**30)
+            same_val(out, outs.get("probe", out),
+                     f"{label}: the {what} run's val against the probe run's")
+            outs.setdefault(what, out)
+            if what != "probe":
+                timed[what].append((wall, [b[2] for b in out["times"]], peak))
+    kinds, n = probe.kinds, len(probe.kinds)
+    replayed = [i for i, k in enumerate(kinds) if k == "replay"]
+    shapes = [tuple(b[0]) for b in outs["probe"]["times"]]
+    want = [("eager" if i == 0 or shapes[i - 1] != s else
+             "capture" if i == 1 or shapes[i - 2] != s else "replay")
+            for i, s in enumerate(shapes)]
+    if kinds != want or not replayed:
+        raise AssertionError(f"{label}: the batches ran {kinds}, not {want} (a shape's first "
+                             "batch eager, its second in a row captured, the rest replayed)")
+    log(f"[val graphs] {label}{' (cudnn.deterministic)' if deterministic else ''}: {n} batches "
+        f"of {len(set(shapes))} rect shapes: {kinds.count('eager')} eager, "
+        f"{kinds.count('capture')} captured, {len(replayed)} replayed "
+        f"({100 * len(replayed) / n:.1f}%); each == the eager forward bit for bit, and every "
+        f"run's val statistics identical; conv_s8 and quant_pack_s8 {n_int8} launches a batch "
+        f"in every run; graph pools (MiB, one alive at a time) "
+        + ", ".join(f"{m:.0f}" for m in probe.pools) + f"  [{card}]")
+    for what, runs in timed.items():
+        for i, (wall, inf, (alloc, reserved)) in enumerate(runs):
+            log(f"[val graphs] {label} {what} run {i + 1}: wall {wall:.3f} s, inference stage "
+                f"{1e3 * sum(inf):.1f} ms over {n} batches, "
+                f"{1e3 * np.mean([inf[j] for j in replayed]):.2f} ms a batch over the "
+                f"{len(replayed)} replayed batches' positions, "
+                f"{1e3 * np.mean([inf[j] for j in range(n) if j not in replayed]):.2f} over the "
+                f"others; peak memory allocated {alloc:.2f} GiB, reserved {reserved:.2f} GiB  "
+                f"[{card}]")
+
+
+def forward_sequence(model, label: str, task: str, loader, card: str) -> None:
+    """The task's forward over the rect batch shapes of `loader`'s dataset,
+    in order, as run_task calls it (a synchronise after each batch): eager
+    and captured_forward, in turns eager, captured, captured, eager, on
+    seeded channels-last inputs made on the card (no decode). Logs each
+    run's seconds and the batches replayed."""
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+
+    ds = loader.dataset
+    sizes = np.bincount(ds.batch_index)
+    shapes = [(int(n), 3, int(h), int(w)) for n, (h, w) in zip(sizes, ds.batch_shapes)]
+    dtype = next(model.parameters()).dtype
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = {s: torch.rand((s[0], s[2], s[3], 3), generator=g, device="cuda").permute(
+        0, 3, 1, 2).to(dtype) for s in set(shapes)}
+    saved = (ci.conv_s8.launches, ci.quant_pack_s8.launches)
+    runs = []
+    for capture in (False, True, True, False):
+        fwd = captured_forward(model, task) if capture else model
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for s in shapes:
+            fwd(xs[s], tasks=[task])
+            torch.cuda.synchronize()
+        runs.append((capture, time.perf_counter() - t,
+                     fwd.kinds.count("replay") if capture else 0))
+        del fwd
+    ci.conv_s8.launches, ci.quant_pack_s8.launches = saved
+    log(f"[val graphs] {label} forward over the {len(shapes)} rect batch shapes of "
+        f"{len(ds)} images ({len(set(shapes))} shapes), a synchronise a batch: "
+        + ", ".join(f"{'captured' if c else 'eager'} {t:.3f} s ({r} replays)" for c, t, r in runs)
+        + f"  [{card}]")
+
+
+def eval_graphs(cfg: str = FLAGSHIP, imgsz: int = 640, batch: int = VAL_BATCH,
+                workers: int = 8, copies: int = 10, float32_copies: int = 3,
+                sequence_copies: int = 52) -> None:
+    """The eval forward captured per shape (captured_forward) against
+    run_task's eager forward, on hard-linked copies of one task's seeded val
+    set (VAL_IMAGES JPEGs at VAL_SIZES, random labels): captured_val in bf16
+    and int8 'all' over `copies` copies and in float32 (cudnn.deterministic)
+    over `float32_copies`, and forward_sequence in bf16 and int8 over the
+    rect shapes of `sequence_copies` copies (52: 4992 images, about VOC2007
+    test's 4952)."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.cli import val as cli
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.run_manager import parse_data_config
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda
+    from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_val_set
+    from cerberusdet_tpu_torch.utils.profiling import card_name_power
+
+    card, dev, task = card_name_power(), torch.device("cuda"), TASKS[0]
+    torch.set_grad_enabled(False)
+    for m in (nms_cuda, conv_int8_cuda):
+        m.build()
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    root = tempfile.mkdtemp(prefix="cerberus_eval_graphs_")
+    try:
+        src = os.path.join(root, task)
+        write_val_set(src, VAL_IMAGES, VAL_SIZES, seed=20, n_labels=3, nc=NCS[0])
+        data_yaml = os.path.join(root, "data.yaml")
+        with open(data_yaml, "w") as f:
+            yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS],
+                            "train": [src, src], "val": [src, src]}, f)
+        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+        distinct_heads(model, seed=1)
+        calib, _ = create_dataloader(src, imgsz, 8, task="bn", cache_dir=root)
+        x = torch.from_numpy(np.stack([calib[i][0] for i in range(8)])).to(dev)
+        calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
+        ckpt = os.path.join(root, "seeded.ckpt.npz")
+        save_checkpoint(ckpt, export_jax_params(model), {
+            "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS]},
+            half=False)
+        del model, x, calib
+        sets = {c: repeat_set(os.path.join(root, f"repeat{c}"), src, c)
+                for c in (copies, float32_copies, sequence_copies)}
+
+        def loader(c: int):
+            return lambda: create_dataloader(sets[c], imgsz, batch, rect=True, pad=0.5,
+                                             classnames=names[task], task=f"{task}_repeat{c}",
+                                             num_threads=workers)[1]
+
+        bf16 = cli.load_model_for_eval(ckpt, "", dev).to(torch.bfloat16)
+        captured_val(bf16, "bf16", task, NCS[0], loader(copies), card)
+        forward_sequence(bf16, "bf16", task, loader(sequence_copies)(), card)
+        del bf16
+        opt = argparse.Namespace(imgsz=imgsz, batch_size=batch, workers=workers, int8="all")
+        m8 = cli.load_model_for_eval(ckpt, "", dev)
+        fused = fused_conv_weights(m8)
+        m8.to(torch.bfloat16)
+        cli.quantize_for_eval(m8, parse_data_config(data_yaml, check=True), opt,
+                              torch.bfloat16, fused)
+        del fused
+        captured_val(m8, "int8", task, NCS[0], loader(copies), card)
+        forward_sequence(m8, "int8", task, loader(sequence_copies)(), card)
+        del m8
+        # float32: cuDNN's float32 engines may differ between two runs unless
+        # deterministic; fewer copies, as a float32 forward takes ~10x bf16's
+        f32 = cli.load_model_for_eval(ckpt, "", dev)
+        captured_val(f32, "float32", task, NCS[0], loader(float32_copies), card,
+                     deterministic=True, pairs=1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
              n_images: int = VAL_IMAGES, batch: int = VAL_BATCH, workers: int = 8):
     """The validation path at full width: a seeded 2-task val set on disk,
@@ -1512,6 +1804,7 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
     from cerberusdet_tpu_torch.train import loss as loss_mod
     from cerberusdet_tpu_torch.train import trainer as trainer_mod
     from cerberusdet_tpu_torch.train.step import MultiTaskTrainer
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
 
     on_card = dev.type == "cuda"
 
@@ -1562,7 +1855,7 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
                  "resumed": None, "sync": False, "profile": None}
         real_step = MultiTaskTrainer.step
 
-        def step(self, state, batches, lrs, momentum, freeze_shared=False, mark=None):
+        def step(self, state, batches, lrs, momentum, freeze_shared=False):
             i = len(probe["hashes"])
             probe["enter"].append(time.perf_counter())
             probe["hashes"].append({t: batch_digest(b) for t, b in batches.items()})
@@ -1599,19 +1892,21 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
                 probe["prof"] = (prof, time.perf_counter(), [])
             t = time.perf_counter()
             out = real_step(self, state, batches, lrs, momentum, freeze_shared)
-            if probe["sync"]:
+            profiled = probe["profile"] is not None and probe.get("prof")
+            if probe["sync"] and not profiled:
                 sync()
                 probe["step_s"].append(time.perf_counter() - t)
-            if probe["profile"] is not None and probe.get("prof"):
+            if profiled:  # the loop as it runs: no synchronise until the window's end
+                probe["step_s"].append(float("nan"))
                 prof, t_enter, steps = probe["prof"]
-                steps.append(time.perf_counter() - t)
+                steps.append(i)
                 if len(steps) == PROFILED_STEPS:
+                    sync()
                     wall = time.perf_counter() - t_enter
                     prof.__exit__(None, None, None)
                     busy = sum(e.device_time_total for e in prof.key_averages()) / 1e3
                     probe["prof_result"] = {"steps": (i - PROFILED_STEPS + 1, i),
-                                            "busy_ms": busy, "step_ms": 1e3 * sum(steps),
-                                            "wall_ms": 1e3 * wall}
+                                            "busy_ms": busy, "wall_ms": 1e3 * wall}
                     probe["prof"] = None
             if isinstance(probe["first"], dict):
                 worst = 0.0
@@ -1736,16 +2031,19 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
                       "tal_assign": tasks_stepped + loss_batches,
                       "tal_norm": tasks_stepped + loss_batches}
             peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+            pools = {"step": pool_mib(loop.trainer.pool)} if on_card else {}
             log(f"[train cli] run {label}: {len(probe['hashes'])} steps, {len(vals)} task vals "
                 f"over {val_batches} batches ({loss_batches} with losses); launches {counts}, "
-                f"expected {expect}; main's wall {wall:.2f} s; peak memory {peak:.2f} GiB  "
+                f"expected {expect}; main's wall {wall:.2f} s; peak memory {peak:.2f} GiB; "
+                f"{len(loop.trainer.programs)} captured steps; graph pools (MiB) {pools}  "
                 f"[{card}]")
             if counts != expect:
                 raise AssertionError(f"run {label}: kernel launches {counts} != {expect}")
             return loop, {"hashes": list(probe["hashes"]), "wall": wall, "counts": counts,
                           "vals": list(vals), "timed": {k: list(v) for k, v in timed.items()},
                           "enter": list(probe["enter"]), "hash_s": list(probe["hash_s"]),
-                          "step_s": list(probe["step_s"]), "peak": peak}
+                          "step_s": list(probe["step_s"]), "peak": peak,
+                          "timings": list(loop.timings)}
 
         # ---- run A: 2 epochs, the native decoder built by the run's first decode
         decoder = native.default_decoder()
@@ -1756,6 +2054,15 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         loop_a, a = run("A", fresh + ["--epochs", "2", "--name", "A"])
         if probe["first"] is not True or not cli_check:
             raise AssertionError("run A did not run its first-step or final-val comparison")
+        nb_a = len(a["hashes"]) // 2
+        warm_a = [i for i in range(1, len(a["timings"])) if i % nb_a >= 2]
+        enqueue_ms = 1e3 * float(np.median([a["timings"][i]["step_s"] for i in warm_a]))
+        iter_a_ms = 1e3 * float(np.median([a["enter"][i] - a["enter"][i - 1] for i in warm_a]))
+        log(f"[train cli] run A (steps not synchronised): the step call's host time median "
+            f"{enqueue_ms:.2f} ms (the copies into the static buffers wait for the replay "
+            f"before, while the host is ahead); a loop iteration (step start to step start, "
+            f"the probe's hashing overlapping the replay) median {iter_a_ms:.2f} ms (2 warm-up "
+            f"steps an epoch left out)  [{card}]")
         log(f"[train cli] JPEG decode by {decoder.name!r} (what run A's first decode built: "
             f"{sorted(p.name for p in native.BUILD_DIR.glob('libcerberus_io_*.so'))})  [{card}]")
         last = loop_a.manager.wdir / "last.ckpt.npz"
@@ -1794,7 +2101,7 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         # ---- what B measured
         timings = loop_b.timings
         warm = [i for i in range(len(timings)) if i % nb >= 2]  # 2 warm-up steps an epoch
-        step_ms = 1e3 * float(np.median([b["step_s"][i] for i in warm]))
+        step_ms = 1e3 * float(np.nanmedian([b["step_s"][i] for i in warm]))
         data_ms = [1e3 * timings[i]["data_s"] for i in warm]
         # a loop iteration, step start to step start, less the probe's own hashing
         iter_ms = 1e3 * float(np.median([b["enter"][i] - b["enter"][i - 1] - b["hash_s"][i - 1]
@@ -1813,10 +2120,10 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         pr = probe.get("prof_result")
         if pr is None:
             raise AssertionError("run B's profiled steps did not run")
-        log(f"[train cli] run B, device busy over steps {pr['steps']} (the profiler's kernel "
-            f"time): {pr['busy_ms']:.2f} ms in {pr['step_ms']:.2f} ms of steps "
-            f"({100 * pr['busy_ms'] / pr['step_ms']:.1f}%), in {pr['wall_ms']:.2f} ms of the "
-            f"loop ({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%)  [{card}]")
+        log(f"[train cli] run B, device busy over steps {pr['steps']}, the loop not "
+            f"synchronised (the profiler's kernel time): {pr['busy_ms']:.2f} ms in "
+            f"{pr['wall_ms']:.2f} ms of the loop ({100 * pr['busy_ms'] / pr['wall_ms']:.1f}%), "
+            f"{pr['wall_ms'] / PROFILED_STEPS:.2f} ms a loop iteration  [{card}]")
         ds = loop_b.datasets[TASKS[0]]
         ds.set_epoch(0)
         n_items = min(16, len(ds))
@@ -2720,7 +3027,10 @@ def headline(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
                                         + ([] if on_card else ["--device", "cpu"]))
         took = time.perf_counter() - t
         trained = counts()
-        steps = (bench_train_step.WARMUP_STEPS + iters) * bench_train_step.TURNS.count("pallas")
+        # a run: WARMUP_STEPS + iters eager steps, then as many captured (the
+        # capture's eager run, a replay, iters timed replays)
+        steps = 2 * (bench_train_step.WARMUP_STEPS + iters) * bench_train_step.TURNS.count(
+            "pallas")
         want = {k: len(TASKS) * steps if on_card else 0 for k in TAL_KERNELS}
         if {k: trained[k] for k in TAL_KERNELS} != want:
             raise AssertionError(f"bench_train_step: TAL launches {trained}, expected {want} "
@@ -2740,6 +3050,352 @@ def headline(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
             setattr(obj, name, orig)
         for k, f in kern.items():
             f.launches = saved[k]
+
+
+def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
+               batch: int = TRAIN_BATCH, n_labels: int = TRAIN_LABELS):
+    """The train step at full width (phase 4): MultiTaskTrainer.raw_step
+    (eager) and .step (one captured CUDA graph per key, replayed) on seeded
+    batches, with their gates: finite losses; every TAL kernel once per
+    task and step (a replay launches each once per task); one capture per
+    key over three keys; 6 replays bit for bit with 6 raw_steps from one
+    snapshot under deterministic algorithms; a replaced momentum buffer
+    raises; the plain assigner under its own key launches no TAL kernel and
+    gives the same losses (rtol 1e-5). The TAL kernels against their plain
+    versions on the flagship's predictions, updating `tal_err`, and timed
+    alone. Returns the kernels-line entries of the TAL kernels."""
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import tal_cuda
+    from cerberusdet_tpu_torch.testing import train_batches
+    from cerberusdet_tpu_torch.train.loss import DetectionLoss
+    from cerberusdet_tpu_torch.train.schedules import warmup_lrs
+    from cerberusdet_tpu_torch.train.step import (
+        MultiTaskTrainer,
+        init_train_state,
+        state_tensors,
+    )
+    from cerberusdet_tpu_torch.utils.profiling import pool_mib
+
+    entries = []
+    t0 = time.perf_counter()
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    losses = {t: DetectionLoss(nc=nc, strides=model.strides) for t, nc in zip(TASKS, NCS)}
+    trainer = MultiTaskTrainer(model, losses, compute_dtype=torch.bfloat16, device=dev)
+    state = init_train_state(model)
+    batches = {t: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for t, b in train_batches(TASKS, NCS, batch, imgsz, n_labels, TRAIN_REAL,
+                                         seed=0).items()}
+    log(f"[train] {os.path.basename(cfg)}, bf16 compute, per-task batch {batch}, "
+        f"{n_labels} gt rows ({TRAIN_REAL} real), set up in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the TAL kernels at the train path's shapes, on the flagship's predictions
+    model.eval()
+    with torch.no_grad():
+        x = batches[TASKS[0]]["img"].permute(0, 3, 1, 2).to(torch.bfloat16)
+        feats = model(x, tasks=[TASKS[0]])[TASKS[0]][1]
+    loss0 = losses[TASKS[0]]
+    args = loss0.assign_args(loss0.decode(feats, batches[TASKS[0]]))
+    flag_inp = tal_cuda.kernel_inputs(*args, NCS[0])
+    err, flag_pos = tal_compare(flag_inp, NCS[0])
+    tal_err = {k: max(v, err[k]) for k, v in tal_err.items()}
+    log(f"[tal kernels vs plain] flagship {TASKS[0]}: B,M,N={tuple(flag_pos.shape)} "
+        f"positives {int(flag_pos.sum())} max|diff| {err}")
+    del feats, x
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    tal_kernels = {"tal_select": tal_cuda.select_kernel, "tal_assign": tal_cuda.assign_kernel,
+                   "tal_norm": tal_cuda.norm_kernel}
+
+    def tal_counts():
+        return {k: f.launches for k, f in tal_kernels.items()}
+
+    def sched(i):  # warmup lrs and momentum: new values at every step
+        return warmup_lrs(i, 100, 0.0, 0.01, 1.0)
+
+    run = {"ni": 0, "tal": 0, "items": []}
+
+    def stepped(fn, bt=None, freeze=False, **kw):
+        """One step by fn (trainer.step or raw_step) with the next schedule
+        values, synchronised: its host seconds. Holds its losses finite and
+        counts the TAL launches it should make."""
+        bt = batches if bt is None else bt
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, items = fn(state, bt, *sched(run["ni"]), freeze_shared=freeze, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        vals = {k: [float(v) for v in it] for k, it in items.items()}
+        if not all(np.isfinite(v) for it in vals.values() for v in it):
+            raise AssertionError(f"non-finite losses at step {run['ni']}: {vals}")
+        run["items"].append(vals)
+        run["ni"] += 1
+        run["tal"] += sum(losses[t].use_kernel for t in bt)
+        return dt
+
+    def profiled(fn, n=3):
+        """(the profiler's device ms, host ms) a step over n synchronised steps."""
+        from torch.profiler import ProfilerActivity, profile
+
+        # (the CPU's activity only where the phase is rehearsed without a card)
+        with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
+            host = sum(stepped(fn) for _ in range(n))
+        return (sum(e.device_time_total for e in prof.key_averages()) / 1e3 / n,
+                1e3 * host / n)
+
+    for f in tal_kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30  # before the first step, earlier phases' too
+    # eager: raw_step, each stage marked on the timed steps
+    eager_s = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        timed = i >= WARMUP_STEPS
+        if timed:
+            mark("start")
+        dt = stepped(trainer.raw_step, mark=mark if timed else None)
+        if timed:
+            eager_s.append(dt)
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    eager_busy = profiled(trainer.raw_step)
+    # captured: the key's first call runs the step eagerly and captures it
+    torch.cuda.reset_peak_memory_stats()
+    capture_s = stepped(trainer.step)
+    replay_s = [stepped(trainer.step) for _ in range(WARMUP_STEPS + TIMED_STEPS)][WARMUP_STEPS:]
+    captured_peak = torch.cuda.max_memory_allocated() / 2**30
+    replay_busy = profiled(trainer.step)
+    prog = trainer.programs[trainer.step_key(batches)]
+    step_pool = pool_mib(trainer.pool)
+    check_s = []  # the host's address check before a replay: the state walked, compared
+    for _ in range(5):
+        t = time.perf_counter()
+        prog.check(state_tensors(state))
+        check_s.append(time.perf_counter() - t)
+    if len(trainer.programs) != 1 or prog.replays != WARMUP_STEPS + TIMED_STEPS + 3 \
+            or prog.launches != [len(TASKS)] * 3:
+        raise AssertionError(f"the train step: {len(trainer.programs)} captures, "
+                             f"{prog.replays} replays, {prog.launches} TAL launches a replay")
+    # one capture per key, each key used twice: {a, b}, {a} alone, {a, b} frozen
+    a_only = {TASKS[0]: batches[TASKS[0]]}
+    for bt, freeze in ((batches, False), (a_only, False), (batches, True)):
+        for _ in range(2):
+            stepped(trainer.step, bt, freeze)
+    keys = {trainer.step_key(batches), trainer.step_key(a_only),
+            trainer.step_key(batches, True)}
+    if set(trainer.programs) != keys or any(p.replays < 1 for p in trainer.programs.values()):
+        raise AssertionError(f"{len(trainer.programs)} captured steps for {len(keys)} keys, "
+                             f"replays {[p.replays for p in trainer.programs.values()]}")
+    tal_launches = tal_counts()
+    n_steps = run["ni"]
+    log(f"[train] {n_steps} steps ({WARMUP_STEPS + TIMED_STEPS + 3} eager, then captured: "
+        f"3 keys, {sum(p.replays for p in trainer.programs.values())} replays), TAL kernel "
+        f"launches {tal_launches} (expected {run['tal']} each: tasks x steps; a replay "
+        f"launches {prog.launches}); one capture per key: {{{TASKS[0]}, {TASKS[1]}}}, "
+        f"{{{TASKS[0]}}} alone and {{{TASKS[0]}, {TASKS[1]}}} with freeze_shared, each used "
+        f"twice")
+    if any(v != run["tal"] for v in tal_launches.values()):
+        raise AssertionError("the train path did not launch every TAL kernel once per task "
+                             "and step")
+    items_log = run["items"]
+    log(f"[train] losses (box, cls, dfl, total) first step {items_log[0]}, last step "
+        f"{items_log[-1]}")
+    stage = {"forward_loss": 0.0, "backward": 0.0, "update": 0.0}
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        if name in stage:
+            stage[name] += a.elapsed_time(b) / TIMED_STEPS
+    step_ms = 1e3 * float(np.median(eager_s))
+    replay_ms = 1e3 * float(np.median(replay_s))
+    log(f"[train] step eager (raw_step) {step_ms:.2f} ms, captured (a replay) {replay_ms:.2f} "
+        f"ms: {step_ms / replay_ms:.3f}x (host clock ending in a synchronise, median of "
+        f"{TIMED_STEPS} each), {2 * batch / step_ms * 1e3:.1f} / "
+        f"{2 * batch / replay_ms * 1e3:.1f} img/s; the key's first call (eager step + "
+        f"capture) {capture_s:.2f} s; device busy eager {eager_busy[0]:.2f} ms of "
+        f"{eager_busy[1]:.2f} ms ({100 * eager_busy[0] / eager_busy[1]:.1f}%), replayed "
+        f"{replay_busy[0]:.2f} ms of {replay_busy[1]:.2f} ms "
+        f"({100 * replay_busy[0] / replay_busy[1]:.1f}%) (the profiler's device time over "
+        f"3 synchronised steps); peak memory eager {eager_peak:.2f} GiB, captured "
+        f"{captured_peak:.2f} GiB ({held_gb:.2f} GiB allocated before the first step), the "
+        f"step's graph pool {step_pool:.0f} MiB; the address check before a replay "
+        f"{1e3 * float(np.median(check_s)):.2f} ms of host time ({len(state_tensors(state))} "
+        f"tensors)  [{card}]")
+
+    # 6 replays against 6 raw_steps from one snapshot, with lrs and momentum
+    # changing every step, under deterministic algorithms: bit for bit
+    base = run["ni"]
+    torch.backends.cudnn.deterministic = True
+    with warnings.catch_warnings(record=True) as nondet:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = MultiTaskTrainer(model, losses, compute_dtype=torch.bfloat16, device=dev)
+            det.step(state, batches, *sched(base))  # the capture
+            snap = snapshot(state)
+            forms = {}
+            for label, fn in (("replayed", det.step), ("eager", det.raw_step)):
+                restore(state, snap)
+                got = []
+                for i in range(6):
+                    _, items = fn(state, batches, *sched(base + 1 + i))
+                    got.append({t: [v.clone() for v in it] for t, it in items.items()})
+                torch.cuda.synchronize()
+                forms[label] = (got, [(n, t.clone()) for n, t in state_tensors(state)])
+            prog_det = next(iter(det.programs.values()))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    worst, n_tensors = 0.0, 0
+    for a, b in zip(forms["replayed"][0], forms["eager"][0]):
+        for t in TASKS:
+            for x, y in zip(a[t], b[t]):
+                worst = max(worst, float((x.double() - y.double()).abs()))
+    unequal = []
+    for (name, x), (_, y) in zip(*(forms[k][1] for k in ("replayed", "eager"))):
+        n_tensors += 1
+        if not torch.equal(x, y):
+            unequal.append((name, float((x.double() - y.double()).abs().max())))
+    nondet_ops = sorted({str(w.message).split(" does not have")[0][:80] for w in nondet
+                         if "deterministic" in str(w.message)})
+    if worst or unequal or len(det.programs) != 1 or prog_det.replays != 6:
+        raise AssertionError(f"6 replays differ from 6 raw_steps from the same snapshot: "
+                             f"losses by {worst}, {len(unequal)} of {n_tensors} state tensors "
+                             f"(e.g. {unequal[:3]}); ops without a deterministic form: "
+                             f"{nondet_ops}")
+    log(f"[train] 6 replays == 6 raw_steps from one snapshot, lrs and momentum changing every "
+        f"step, under cudnn.deterministic and use_deterministic_algorithms: losses and all "
+        f"{n_tensors} parameters, BN buffers, momentum buffers and EMA tensors bit for bit "
+        f"(ops that warned of no deterministic form: {nondet_ops or 'none'})")
+
+    # a replaced momentum buffer (what the old restore's deep copy did) raises
+    name = next(iter(state.opt_state.momentum_buf))
+    kept = state.opt_state.momentum_buf[name]
+    state.opt_state.momentum_buf[name] = kept.clone()
+    before = (tal_counts(), state.n_updates, state.opt_state.step)
+    try:
+        det.step(state, batches, *sched(base))
+    except RuntimeError as e:
+        if name not in str(e):
+            raise
+        log(f"[train] a replaced momentum buffer makes the replay raise: {e}")
+    else:
+        raise AssertionError("a step over a replaced momentum buffer did not raise")
+    finally:
+        state.opt_state.momentum_buf[name] = kept
+    if (tal_counts(), state.n_updates, state.opt_state.step) != before:
+        raise AssertionError("the refused step launched kernels or advanced the state")
+    del det, prog_det, forms, snap
+    torch.cuda.empty_cache()
+
+    # each TAL kernel and plain stage alone at the flagship shapes
+    beta = 6
+    sel = tal_cuda.select_kernel(flag_inp, 10, beta)
+    tgt, fg, lab, _, al, pos = tal_cuda.assign_kernel(flag_inp, sel, beta)
+    plain = tal_cuda.TaskAlignedAssigner(10, NCS[0])
+    labels = flag_inp["labels"].clamp(0, NCS[0] - 1)
+    planes = plain.select_topk(flag_inp["scores"], flag_inp["pd_bboxes"], flag_inp["anchors"],
+                               labels, flag_inp["gt_bboxes"], flag_inp["mask_gt"])
+    tgt_p, fg_p, mp_p, pa_p, po_p = plain.resolve(*planes)
+    t_lab = labels.gather(1, tgt_p)
+    launch = {
+        "tal_select": lambda: tal_cuda.select_kernel(flag_inp, 10, beta),
+        "tal_assign": lambda: tal_cuda.assign_kernel(flag_inp, sel, beta),
+        "tal_norm": lambda: tal_cuda.norm_kernel(tgt, fg, lab, al, pos, NCS[0], 1e-9),
+    }
+    plain_stage = {
+        "tal_select": lambda: plain.select_topk(flag_inp["scores"], flag_inp["pd_bboxes"],
+                                                flag_inp["anchors"], labels,
+                                                flag_inp["gt_bboxes"], flag_inp["mask_gt"]),
+        "tal_assign": lambda: plain.resolve(*planes),
+        "tal_norm": lambda: plain.normalise(t_lab, fg_p, mp_p, planes[2], pa_p, po_p,
+                                            torch.float32),
+    }
+    tal_ms = {}
+    for name in launch:
+        k_ms, how = kernel_ms(launch[name], 20, name + "_kernel")
+        tal_ms[name] = (k_ms, cuda_ms(plain_stage[name], iters=3), how,
+                        cuda_ms(launch[name], iters=20))
+    assign_ms = cuda_ms(lambda: tal_cuda.task_aligned_assign(*args, num_classes=NCS[0]),
+                        iters=20)
+    plain_assign_ms = cuda_ms(lambda: tal_cuda.task_aligned_assign(
+        *args, num_classes=NCS[0], use_kernel=False), iters=3)
+    for name, (k_ms, p_ms, how, call_ms) in tal_ms.items():
+        log(f"[tal at main-path shapes] {name}: kernel {k_ms:.4f} ms ({how}), a wrapper "
+            f"call {call_ms:.4f} ms (events), plain stage {p_ms:.3f} ms  [{card}]")
+    log(f"[train stages] per eager step: forwards + loss {stage['forward_loss']:.2f} ms (of "
+        f"which the assigner {len(TASKS) * assign_ms:.3f} ms: {len(TASKS)} x {assign_ms:.4f} "
+        f"ms, kernels and their glue), backward {stage['backward']:.2f} ms, clip + optimizer + "
+        f"EMA {stage['update']:.2f} ms; the plain assigner would take {plain_assign_ms:.3f} "
+        f"ms a task  [{card}]")
+
+    # one step from the same state with the plain assigner: a key of its own,
+    # no TAL launch, the same losses
+    snap = snapshot(state)
+    _, items_k = trainer.step(state, batches, *sched(base))
+    items_k = {t: [float(v) for v in it] for t, it in items_k.items()}
+    keys = set(trainer.programs)
+    for loss in losses.values():
+        loss.use_kernel = False
+    try:
+        before = tal_counts()
+        items_p = []
+        for _ in range(2):  # the plain key's capture (an eager step), then a replay
+            restore(state, snap)
+            _, it = trainer.step(state, batches, *sched(base))
+            items_p.append({t: [float(v) for v in x] for t, x in it.items()})
+        plain_launches = {k: v - before[k] for k, v in tal_counts().items()}
+    finally:
+        for loss in losses.values():
+            loss.use_kernel = True
+    new_keys = set(trainer.programs) - keys
+    if len(new_keys) != 1 or trainer.programs[new_keys.pop()].replays != 1 \
+            or any(plain_launches.values()):
+        raise AssertionError(f"the plain-assigner step: {len(set(trainer.programs) - keys)} "
+                             f"new keys, TAL launches {plain_launches}")
+    worst = 0.0
+    for it_p in items_p:
+        for t in TASKS:
+            for a, b in zip(items_k[t], it_p[t]):
+                rel = abs(a - b) / max(abs(b), 1e-30)
+                worst = max(worst, rel)
+                if rel > 1e-5:
+                    raise AssertionError(f"{t}: kernel-assigner loss {a} vs plain {b}")
+    log(f"[train] one step with the plain assigner from the same state, captured under a key "
+        f"of its own and replayed once: no TAL launch, losses within rtol {worst:.3g} of the "
+        f"kernels' (limit 1e-5)")
+    for name, f in tal_kernels.items():  # the comparison and timing launches do not count
+        f.launches = tal_launches[name]
+    tal_work_flag = tal_work(flag_inp, flag_pos, NCS[0])
+    del state, trainer, model, batches, snap, planes, prog
+    torch.cuda.empty_cache()
+
+    for name in ("tal_select", "tal_assign", "tal_norm"):
+        ops, nbytes = tal_work_flag[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/tal.cu",
+            "replaces": ("cerberusdet_tpu/ops/tal_pallas.py:146" if name == "tal_norm"
+                         else "cerberusdet_tpu/ops/tal_pallas.py:99"),
+            "launches": tal_launches[name],
+            "max_abs_err": tal_err[name],
+            "ms": tal_ms[name][0],
+            "plain_ms": tal_ms[name][1],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no PyTorch call computes a task-aligned assignment
+        })
+    return entries
 
 
 def main() -> int:
@@ -2772,7 +3428,11 @@ def main() -> int:
     )
     from cerberusdet_tpu_torch.train.loss import DetectionLoss
     from cerberusdet_tpu_torch.train.schedules import warmup_lrs
-    from cerberusdet_tpu_torch.train.step import MultiTaskTrainer, init_train_state
+    from cerberusdet_tpu_torch.train.step import (
+        MultiTaskTrainer,
+        init_train_state,
+        state_tensors,
+    )
     from cerberusdet_tpu_torch.utils.profiling import card_name_power, pool_mib
 
     torch.set_grad_enabled(False)  # serving; the train phases enable it
@@ -3030,162 +3690,8 @@ def main() -> int:
     # ---- 4. the train path at full width
     torch.set_grad_enabled(True)
     t0 = time.perf_counter()
-    model = CerberusModel(FLAGSHIP, TASKS, NCS, device=dev).init(seed=0)
-    losses = {t: DetectionLoss(nc=nc, strides=model.strides) for t, nc in zip(TASKS, NCS)}
-    trainer = MultiTaskTrainer(model, losses, compute_dtype=torch.bfloat16, device=dev)
-    state = init_train_state(model)
-    batches = {t: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-               for t, b in train_batches(TASKS, NCS, TRAIN_BATCH, 640, TRAIN_LABELS,
-                                         TRAIN_REAL, seed=0).items()}
-    log(f"[train] yolov8x_2task, bf16 compute, per-task batch {TRAIN_BATCH}, "
-        f"{TRAIN_LABELS} gt rows ({TRAIN_REAL} real), set up in "
-        f"{time.perf_counter() - t0:.2f} s")
-
-    # the TAL kernels at the train path's shapes, on the flagship's predictions
-    model.eval()
-    with torch.no_grad():
-        x = batches[TASKS[0]]["img"].permute(0, 3, 1, 2).to(torch.bfloat16)
-        feats = model(x, tasks=[TASKS[0]])[TASKS[0]][1]
-    loss0 = losses[TASKS[0]]
-    args = loss0.assign_args(loss0.decode(feats, batches[TASKS[0]]))
-    flag_inp = tal_cuda.kernel_inputs(*args, NCS[0])
-    err, flag_pos = tal_compare(flag_inp, NCS[0])
-    tal_err = {k: max(v, err[k]) for k, v in tal_err.items()}
-    log(f"[tal kernels vs plain] flagship {TASKS[0]}: B,M,N={tuple(flag_pos.shape)} "
-        f"positives {int(flag_pos.sum())} max|diff| {err}")
-    del feats, x
-
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    for kern in (tal_cuda.select_kernel, tal_cuda.assign_kernel, tal_cuda.norm_kernel):
-        kern.launches = 0
-    step_times, items_log = [], []
-    torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 2**30  # before the first step, earlier phases' too
-    for ni in range(WARMUP_STEPS + TIMED_STEPS):
-        lrs, mom = warmup_lrs(ni, 100, 0.0, 0.01, 1.0)
-        timed = ni >= WARMUP_STEPS
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if timed:
-            mark("start")
-        state, items = trainer.step(state, batches, lrs, mom, mark=mark if timed else None)
-        torch.cuda.synchronize()
-        if timed:
-            step_times.append(time.perf_counter() - t)
-        vals = {k: [float(v) for v in it] for k, it in items.items()}
-        items_log.append(vals)
-        if not all(np.isfinite(v) for it in vals.values() for v in it):
-            raise AssertionError(f"non-finite losses at step {ni}: {vals}")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    tal_launches = {"tal_select": tal_cuda.select_kernel.launches,
-                    "tal_assign": tal_cuda.assign_kernel.launches,
-                    "tal_norm": tal_cuda.norm_kernel.launches}
-    n_steps = WARMUP_STEPS + TIMED_STEPS
-    log(f"[train] {n_steps} steps, TAL kernel launches {tal_launches} (expected "
-        f"{len(TASKS) * n_steps} each: tasks x steps)")
-    if any(v != len(TASKS) * n_steps for v in tal_launches.values()):
-        raise AssertionError("the train path did not launch every TAL kernel once per task "
-                             "and step")
-    log(f"[train] losses (box, cls, dfl, total) first step {items_log[0]}, last step "
-        f"{items_log[-1]}")
-    stage = {"forward_loss": 0.0, "backward": 0.0, "update": 0.0}
-    for (_, a), (name, b) in zip(marks, marks[1:]):
-        if name in stage:
-            stage[name] += a.elapsed_time(b) / TIMED_STEPS
-    step_ms = 1e3 * float(np.median(step_times))
-    log(f"[train] step {step_ms:.2f} ms (median of {TIMED_STEPS}, host clock), "
-        f"{2 * TRAIN_BATCH / step_ms * 1e3:.1f} img/s, peak memory {peak_gb:.2f} GiB, of which "
-        f"{held_gb:.2f} GiB was allocated before the first step  [{card}]")
-
-    # each TAL kernel and plain stage alone at the flagship shapes
-    beta = 6
-    sel = tal_cuda.select_kernel(flag_inp, 10, beta)
-    tgt, fg, lab, _, al, pos = tal_cuda.assign_kernel(flag_inp, sel, beta)
-    plain = tal_cuda.TaskAlignedAssigner(10, NCS[0])
-    labels = flag_inp["labels"].clamp(0, NCS[0] - 1)
-    planes = plain.select_topk(flag_inp["scores"], flag_inp["pd_bboxes"], flag_inp["anchors"],
-                               labels, flag_inp["gt_bboxes"], flag_inp["mask_gt"])
-    tgt_p, fg_p, mp_p, pa_p, po_p = plain.resolve(*planes)
-    t_lab = labels.gather(1, tgt_p)
-    launch = {
-        "tal_select": lambda: tal_cuda.select_kernel(flag_inp, 10, beta),
-        "tal_assign": lambda: tal_cuda.assign_kernel(flag_inp, sel, beta),
-        "tal_norm": lambda: tal_cuda.norm_kernel(tgt, fg, lab, al, pos, NCS[0], 1e-9),
-    }
-    plain_stage = {
-        "tal_select": lambda: plain.select_topk(flag_inp["scores"], flag_inp["pd_bboxes"],
-                                                flag_inp["anchors"], labels,
-                                                flag_inp["gt_bboxes"], flag_inp["mask_gt"]),
-        "tal_assign": lambda: plain.resolve(*planes),
-        "tal_norm": lambda: plain.normalise(t_lab, fg_p, mp_p, planes[2], pa_p, po_p,
-                                            torch.float32),
-    }
-    tal_ms = {}
-    for name in launch:
-        k_ms, how = kernel_ms(launch[name], 20, name + "_kernel")
-        tal_ms[name] = (k_ms, cuda_ms(plain_stage[name], iters=3), how,
-                        cuda_ms(launch[name], iters=20))
-    assign_ms = cuda_ms(lambda: tal_cuda.task_aligned_assign(*args, num_classes=NCS[0]),
-                        iters=20)
-    plain_assign_ms = cuda_ms(lambda: tal_cuda.task_aligned_assign(
-        *args, num_classes=NCS[0], use_kernel=False), iters=3)
-    for name, (k_ms, p_ms, how, call_ms) in tal_ms.items():
-        log(f"[tal at main-path shapes] {name}: kernel {k_ms:.4f} ms ({how}), a wrapper "
-            f"call {call_ms:.4f} ms (events), plain stage {p_ms:.3f} ms  [{card}]")
-    log(f"[train stages] per step: forwards + loss {stage['forward_loss']:.2f} ms (of which "
-        f"the assigner {len(TASKS) * assign_ms:.3f} ms: {len(TASKS)} x {assign_ms:.4f} ms, "
-        f"kernels and their glue), backward {stage['backward']:.2f} ms, clip + optimizer + "
-        f"EMA {stage['update']:.2f} ms; the plain assigner would take {plain_assign_ms:.3f} "
-        f"ms a task  [{card}]")
-    for kern in (tal_cuda.select_kernel, tal_cuda.assign_kernel, tal_cuda.norm_kernel):
-        kern.launches = len(TASKS) * n_steps  # the comparison and timing launches do not count
-
-    # one step from the same state with the plain assigner: the same losses
-    snap = snapshot(state)
-    _, items_k = trainer.step(state, batches, *warmup_lrs(n_steps, 100, 0.0, 0.01, 1.0))
-    restore(state, snap)
-    for loss in losses.values():
-        loss.use_kernel = False
-    _, items_p = trainer.step(state, batches, *warmup_lrs(n_steps, 100, 0.0, 0.01, 1.0))
-    for loss in losses.values():
-        loss.use_kernel = True
-    worst = 0.0
-    for t in TASKS:
-        for a, b in zip(items_k[t], items_p[t]):
-            rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-            worst = max(worst, rel)
-            if rel > 1e-5:
-                raise AssertionError(f"{t}: kernel-assigner loss {float(a)} vs plain {float(b)}")
-    log(f"[train] one step with the plain assigner from the same state: losses within "
-        f"rtol {worst:.3g} (limit 1e-5)")
-    tal_work_flag = tal_work(flag_inp, flag_pos, NCS[0])
-    del state, trainer, model, batches, snap, planes
-    torch.cuda.empty_cache()
-
-    for name in ("tal_select", "tal_assign", "tal_norm"):
-        ops, nbytes = tal_work_flag[name]
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "cerberusdet_tpu_torch/csrc/tal.cu",
-            "replaces": ("cerberusdet_tpu/ops/tal_pallas.py:146" if name == "tal_norm"
-                         else "cerberusdet_tpu/ops/tal_pallas.py:99"),
-            "launches": tal_launches[name],
-            "max_abs_err": tal_err[name],
-            "ms": tal_ms[name][0],
-            "plain_ms": tal_ms[name][1],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,  # no PyTorch call computes a task-aligned assignment
-        })
+    kernels.extend(train_step(card, dev, tal_err))
+    log(f"[train] phase in {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. against a reference on a small input: card float64 vs CPU float64
     small = CerberusModel(SMALL, ["a", "b"], [3, 5], device="cpu").init(seed=2)
