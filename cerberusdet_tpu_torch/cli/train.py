@@ -12,9 +12,11 @@ replaces the command line's flags and the run continues in its own
 directory). --platform gives way to --device (the card, "cuda", by default;
 "cpu" runs on the CPU), and --compile-cache, an XLA cache, has no
 counterpart. --bf16 computes in bfloat16 over float32 master weights.
-Not ported yet, and refused: --evolve (ROADMAP.md queue 1, item 9), --mesh
-(item 6), --augment-device (item 8), --proc-workers > 0 and --cache-images
-disk (item 2), --mlflow-url (item 9).
+--augment-device runs the mosaic, warps, HSV jitter and flips on the card
+from the packed cache (--cache-images disk, which it implies); --proc-workers
+N decodes and augments (or, with --augment-device, plans) in N spawned
+worker processes. Not ported yet, and refused: --evolve (ROADMAP.md queue 1,
+item 9), --mesh (item 6), --mlflow-url (item 9).
 """
 
 from __future__ import annotations
@@ -55,14 +57,17 @@ def parse_opt(argv=None):
     p.add_argument("--use-soft-labels", action="store_true")
     p.add_argument("--cache-images", nargs="?", const="ram", default="",
                    choices=["", "ram", "disk"],
-                   help="cache decoded images in ram (disk is not ported yet)")
-    p.add_argument("--augment-device", action="store_true", help="not ported yet: raises")
+                   help="cache decoded images: ram, or disk (one packed memmap of every "
+                        "image decoded and resized, reused across epochs and runs)")
+    p.add_argument("--augment-device", action="store_true",
+                   help="run mosaic / affine / HSV / flip augmentation on the card; the host "
+                        "plans and copies packed-cache tiles (implies --cache-images disk)")
     p.add_argument("--single-cls", action="store_true",
                    help="train multi-class data as single-class")
     p.add_argument("--workers", type=int, default=None,
                    help="dataloader decode threads (reference --workers)")
     p.add_argument("--proc-workers", type=int, default=0,
-                   help="decode in worker processes: not ported yet, raises when > 0")
+                   help="decode / augment in N worker processes instead of threads")
     p.add_argument("--sync-bn", action="store_true",
                    help="accepted for parity: one process has one set of BatchNorm statistics")
     p.add_argument("--bf16", action="store_true",
@@ -92,12 +97,6 @@ def _refuse_unported(opt_ns) -> None:
                         "(ROADMAP.md queue 1, item 9)"),
         (opt_ns.mesh, "--mesh: data-parallel training is not ported yet "
                       "(ROADMAP.md queue 1, item 6)"),
-        (opt_ns.augment_device, "--augment-device: GPU-side augmentation is not ported "
-                                "yet (ROADMAP.md queue 1, item 8)"),
-        (opt_ns.proc_workers > 0, "--proc-workers > 0: the worker-process pool is not "
-                                  "ported yet (ROADMAP.md queue 1, item 2)"),
-        (opt_ns.cache_images == "disk", "--cache-images disk: the packed disk cache is not "
-                                        "ported yet (ROADMAP.md queue 1, item 2)"),
         (opt_ns.mlflow_url, "--mlflow-url: MLflow tracking is not ported yet "
                             "(ROADMAP.md queue 1, item 9)"),
     ]

@@ -9,13 +9,17 @@ labels, which the loader pads to a fixed count (data/loaders.py). Under
 augment=True each item draws from its own random.Random(hash((seed, epoch,
 index))), so that items do not depend on the loader's threads. The native
 scaled JPEG decoder (fast_decode, on by default under augment) is the port's
-own copy (native/). The packed disk cache (cache_images="disk") comes with
-ROADMAP.md queue 1, item 2, and raises NotImplementedError until then.
+own copy (native/). cache_images="disk" is the JAX package's packed disk
+cache: one memmapped (n, imgsz, imgsz, 3) uint8 file of every image decoded
+and resized, with the same file names, key and layout, so that a pack either
+package wrote serves the other without a rebuild.
 """
 
 from __future__ import annotations
 
+import os
 import random
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -29,11 +33,14 @@ from cerberusdet_tpu_torch.data.augment import (
     mixup,
     random_perspective,
 )
-from cerberusdet_tpu_torch.data.labels import build_label_cache, img2label_paths, list_images
+from cerberusdet_tpu_torch.data.labels import (
+    build_label_cache,
+    get_hash,
+    img2label_paths,
+    list_images,
+)
 from cerberusdet_tpu_torch.ops.letterbox import letterbox_host
 
-TRAIN_SIDE = ("is not ported yet: it comes with the data pipeline's next slice "
-              "(ROADMAP.md queue 1, item 2)")
 DEFAULT_HYP = dict(
     mosaic=0.0, mixup=0.0, degrees=0.0, translate=0.0, scale=0.0, shear=0.0,
     perspective=0.0, scaleup=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
@@ -94,8 +101,9 @@ class DetectionDataset:
     rect=True sorts the images by aspect ratio and letterboxes each batch of
     `batch_size` to one stride-multiple shape, ceil(shape * imgsz / stride +
     pad) * stride (the reference's val protocol uses pad 0.5). cache_images
-    True or "ram" keeps decoded images in memory. The arguments are the JAX
-    package's eval side; `hyp` and `seed` come with augment=True."""
+    True or "ram" keeps decoded images in memory; "disk" packs them into one
+    memmapped file beside the label cache (`_build_pack`). `hyp` and `seed`
+    come with augment=True."""
 
     def __init__(
         self,
@@ -111,7 +119,7 @@ class DetectionDataset:
         classnames: Optional[Sequence[str]] = None,
         multi_label: bool = False,
         soft_label: bool = False,
-        cache_images="",  # False/"" | True/"ram"
+        cache_images="",  # False/"" | True/"ram" | "disk"
         task: str = "task",
         cache_dir: Optional[str] = None,
         seed: int = 0,
@@ -119,10 +127,9 @@ class DetectionDataset:
         fast_decode: Optional[bool] = None,
     ):
         cache_mode = {True: "ram", False: ""}.get(cache_images, cache_images or "")
-        if cache_mode == "disk":
-            raise NotImplementedError(f'cache_images="disk" (the packed cache) {TRAIN_SIDE}')
-        if cache_mode not in ("", "ram"):
-            raise ValueError(f"cache_images must be '', 'ram' or True, got {cache_images!r}")
+        if cache_mode not in ("", "ram", "disk"):
+            raise ValueError(f"cache_images must be '', 'ram', 'disk' or True, got "
+                             f"{cache_images!r}")
         self.imgsz = imgsz
         self.seed = seed
         self.epoch = 0
@@ -184,6 +191,21 @@ class DetectionDataset:
         # the reference protocol decodes full size for eval: fast_decode
         # follows augment unless asked for
         self.fast_decode = augment if fast_decode is None else fast_decode
+        self._pack = None  # (pixels memmap, hw0 (n, 2), hw (n, 2)) under "disk"
+        self._pack_path = None
+        if cache_mode == "disk":
+            self._pack = self._build_pack(cache_path.parent)
+
+    def __getstate__(self):
+        """Pickle without pixels (a worker process of data/loaders.py gets
+        the dataset so): no RAM cache, and the pack by its path alone, which
+        load_image maps again on the first read. Pickling the memmap would
+        copy every pixel of the pack into every worker."""
+        state = self.__dict__.copy()
+        state["_im_cache"] = None  # each worker filling its own would copy the cache
+        if state["_pack"] is not None and state["_pack"][0] is not None:
+            state["_pack"] = (None,) + state["_pack"][1:]
+        return state
 
     def set_epoch(self, epoch: int):
         """Move the augmentation draws to `epoch`'s."""
@@ -192,10 +214,69 @@ class DetectionDataset:
     def __len__(self) -> int:
         return self.n
 
+    def _build_pack(self, cache_dir: Path):
+        """The packed disk cache: one (n, imgsz, imgsz, 3) uint8 .npy of every
+        image decoded and resized as _decode_image does (row i holds image i
+        at its top left), and a .meta.npz of its key and the (h0, w0) and
+        (h, w) of each image. Built once, then memory-mapped read-only by
+        every later run whose key matches: the file list's hash and the
+        decode configuration (augment picks the resize interpolation,
+        fast_decode the decoder). Returns (pixels, hw0, hw)."""
+        pack_path = Path(cache_dir) / f"{self.task}.pack{self.imgsz}.npy"
+        meta_path = Path(cache_dir) / f"{self.task}.pack{self.imgsz}.meta.npz"
+        want = (get_hash(self.img_files)
+                + f"|aug={int(self.augment)}|fast={int(bool(self.fast_decode))}")
+        self._pack_path = str(pack_path)
+        if pack_path.exists() and meta_path.exists():
+            meta = np.load(meta_path, allow_pickle=False)
+            if str(meta["hash"]) == want and int(meta["n"]) == self.n:
+                return np.lib.format.open_memmap(pack_path, mode="r"), meta["hw0"], meta["hw"]
+        # written under this process's names and renamed into place: a
+        # concurrent reader sees the old pack and its meta, or the new ones
+        tmp_pack = pack_path.with_name(f"{pack_path.name}.tmp{os.getpid()}")
+        tmp_meta = meta_path.with_name(f"{meta_path.name}.tmp{os.getpid()}")
+        arr = np.lib.format.open_memmap(tmp_pack, mode="w+", dtype=np.uint8,
+                                        shape=(self.n, self.imgsz, self.imgsz, 3))
+        hw0 = np.zeros((self.n, 2), np.int32)
+        hw = np.zeros((self.n, 2), np.int32)
+
+        def fill(i: int) -> None:
+            im, (h0, w0), (h, w) = self._decode_image(i)
+            arr[i, :h, :w] = im
+            hw0[i] = (h0, w0)
+            hw[i] = (h, w)
+
+        # the decoders release the GIL: threads over disjoint rows
+        workers = min(16, os.cpu_count() or 1)
+        if workers > 1 and self.n > 1:
+            with ThreadPoolExecutor(workers) as ex:
+                list(ex.map(fill, range(self.n)))
+        else:
+            for i in range(self.n):
+                fill(i)
+        arr.flush()
+        del arr
+        with open(tmp_meta, "wb") as f:
+            np.savez(f, hash=want, n=self.n, hw0=hw0, hw=hw)
+        os.replace(tmp_pack, pack_path)
+        os.replace(tmp_meta, meta_path)
+        arr = np.lib.format.open_memmap(pack_path, mode="r")
+        print(f"{self.task}: packed {self.n} images -> {pack_path} ({arr.nbytes / 1e9:.2f} GB)")
+        return arr, hw0, hw
+
     def load_image(self, i: int):
-        """Load + resize longest side to imgsz. Returns (im RGB, (h0, w0), (h, w))."""
+        """Load + resize longest side to imgsz. Returns (im RGB, (h0, w0), (h, w)).
+        From the pack, the image is a read-only view of its row: every
+        consumer copies before it writes."""
         if self._im_cache is not None and i in self._im_cache:
             return self._im_cache[i]
+        if self._pack is not None:
+            arr, hw0, hw = self._pack
+            if arr is None:  # a pickled copy: map the pack again
+                arr = np.lib.format.open_memmap(self._pack_path, mode="r")
+                self._pack = (arr, hw0, hw)
+            h, w = int(hw[i, 0]), int(hw[i, 1])
+            return arr[i, :h, :w], (int(hw0[i, 0]), int(hw0[i, 1])), (h, w)
         out = self._decode_image(i)
         if self._im_cache is not None:
             self._im_cache[i] = out

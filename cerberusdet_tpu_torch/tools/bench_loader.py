@@ -3,15 +3,17 @@
 The port's counterpart of cerberusdet_tpu/tools/bench_loader.py: host-side
 images a second through the training data path of data/loaders.py (JPEG
 decode -> mosaic / mixup / affine / HSV augmentation -> letterbox -> padded
-collate), so that the loader's rate can be set beside the step's. The
-JAX tool's worker processes (--proc-workers), packed disk cache
-(--cache-images disk) and device augmentation (--device-augment) are not
-ported yet and raise, as the port's loaders do (ROADMAP.md queue 1, items 2
-and 8).
+collate), so that the loader's rate can be set beside the step's.
+--proc-workers N decodes and augments in N spawned processes instead of
+threads (the same count of each tells the GIL's share), --cache-images disk
+reads the packed cache, and --device-augment plans on the host and runs the
+pixel work on --device (the card by default), synchronised before the clock
+stops.
 
 Usage:
     python -m cerberusdet_tpu_torch.tools.bench_loader [--imgsz 640] [--n 256]
         [--threads N] [--no-aug] [--batch 32] [--src-size 1920] [--fast-decode on|off|auto]
+        [--cache-images ram|disk] [--proc-workers N] [--device-augment [--device cpu]]
 Prints one JSON line {"imgs_per_sec", "threads", "augment", "imgsz", "src_size",
 "fast_decode", "cache_images", "device_augment"}.
 """
@@ -51,9 +53,16 @@ def make_dataset(root: Path, n_images: int, size: int) -> str:
 
 def run(imgsz: int, n: int, threads, augment: bool, batch: int = 32, src_size: int = 0,
         fast_decode=None, num_workers: int = 0, cache_images="",
-        augment_device: bool = False) -> float:
+        augment_device: bool = False, device=None) -> float:
     """Images a second over n images after one warm batch."""
+    import torch
+
     from cerberusdet_tpu_torch.data.loaders import create_dataloader
+
+    def fence():
+        # device-augmented batches are queued on the card: wait for them
+        if augment_device and torch.device(device or "cuda").type == "cuda":
+            torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory() as td:
         path = make_dataset(Path(td), min(n, 128), src_size or imgsz)
@@ -62,9 +71,10 @@ def run(imgsz: int, n: int, threads, augment: bool, batch: int = 32, src_size: i
             hyp=AUG_HYP if augment else None, task="bench", seed=0,
             host_sharded=False, num_threads=threads, fast_decode=fast_decode,
             num_workers=num_workers, cache_images=cache_images,
-            augment_device=augment_device)
+            augment_device=augment_device, device=device)
         it = iter(loader)
-        next(it)  # warm the pipeline (thread pool, cv2, the native decoder's build)
+        next(it)  # warm the pipeline (pools, cv2, the native decoder's build)
+        fence()
         seen = 0
         t0 = time.perf_counter()
         while seen < n:
@@ -74,8 +84,10 @@ def run(imgsz: int, n: int, threads, augment: bool, batch: int = 32, src_size: i
                 it = iter(loader)
                 b = next(it)
             seen += len(b["img"])
+        fence()
         dt = time.perf_counter() - t0
         it.close()  # stop the prefetch thread before the directory goes
+        loader.close()
     return seen / dt
 
 
@@ -93,17 +105,21 @@ def main(argv=None):
                    help="native DCT-scaled JPEG decode: auto = dataset default (on when "
                         "augmenting), on/off = force")
     p.add_argument("--cache-images", default="", choices=["", "ram", "disk"],
-                   help="decoded-image cache mode (disk is not ported yet)")
+                   help="decoded-image cache mode (disk = packed memmap)")
     p.add_argument("--proc-workers", type=int, default=0,
-                   help="worker processes (not ported yet)")
+                   help="decode / augment in N worker processes instead of threads")
     p.add_argument("--device-augment", action="store_true",
-                   help="augmentation on the card (not ported yet)")
+                   help="run mosaic / warp / HSV on --device (data/device_augment.py); "
+                        "implies --cache-images disk")
+    p.add_argument("--device", default=None,
+                   help="where --device-augment runs: cuda (default) or cpu")
     args = p.parse_args(argv)
     fast = {"auto": None, "on": True, "off": False}[args.fast_decode]
     rate = run(args.imgsz, args.n, args.threads, not args.no_aug, batch=args.batch,
                src_size=args.src_size,
                fast_decode=fast, num_workers=args.proc_workers,
-               cache_images=args.cache_images, augment_device=args.device_augment)
+               cache_images=args.cache_images, augment_device=args.device_augment,
+               device=args.device)
     print(json.dumps({
         "imgs_per_sec": round(rate, 1),
         "threads": args.threads or "auto",

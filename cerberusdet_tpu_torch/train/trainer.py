@@ -76,11 +76,12 @@ class TrainOptions:
     labels_from_xml: bool = False
     use_multi_labels: bool = False
     use_soft_labels: bool = False
-    cache_images: str = ""                 # "" | "ram" ("disk" is not ported yet)
-    augment_device: bool = False           # not ported yet (queue 1, item 8)
+    cache_images: str = ""                 # "" | "ram" | "disk" (the packed memmap)
+    augment_device: bool = False           # mosaic / warp / HSV on the card; implies
+                                           # cache_images="disk"
     single_cls: bool = False               # train multi-class data as one class
     workers: Optional[int] = None          # loader decode threads (--workers)
-    proc_workers: int = 0                  # worker processes: not ported yet
+    proc_workers: int = 0                  # decode / augment worker processes
     warmup_min_iters: int = 1000           # reference warmup floor (averaging.py:57)
     use_mesh: bool = False                 # data parallelism: not ported yet
     max_labels: int = 300
@@ -146,7 +147,7 @@ class TrainLoop:
                 soft_label=opt.use_soft_labels, max_labels=opt.max_labels, task=task,
                 seed=opt.seed, cache_images=opt.cache_images, single_cls=opt.single_cls,
                 num_threads=opt.workers, num_workers=opt.proc_workers,
-                augment_device=opt.augment_device)
+                augment_device=opt.augment_device, device=self.device)
             self.datasets[task] = ds
             self.train_loaders[task] = loader
             _, vloader = create_dataloader(

@@ -148,7 +148,23 @@ Phases, each of which fails the run on anything wrong:
      once per task and replay; the train-step routes (each timed eagerly,
      then as back-to-back replays of the captured step) agree on their first
      losses within 1e-5 and the kernels' route launches each TAL kernel once
-     per task and step.
+     per task and step;
+ 10. drive the training data path's routes at full width over
+     tools/bench_train_e2e's seeded set (128 noise JPEGs of 640 px a task,
+     the packed disk cache): each warp route of the augmentation on the card
+     on a batch of 8 (matmul for the default hyps, affine3 for the paper's,
+     gather at perspective 0.0005) equal to the CPU's augmentation of the
+     same collated plans within the CPU tests' bound (2 levels on < 1% of
+     values), the resident form equal to the shipped form bit for bit, each
+     timed; the one-sample blur / median variants within the same bound;
+     integer-translation warps on every route equal to the host cv2 items
+     bit for bit; 4 worker processes' batches equal to 8 threads' (sha1 of
+     img and labels); bench_loader on 8 and 4 threads, 4 and 8 processes
+     and the card; bench_train_e2e host and device for the default and the
+     paper's hyps, whose device runs feed the step the host runs' labels
+     (sha1 a task and step) and launch each TAL kernel once per task and
+     step. Prints each route's device ms, the loaders' img/s and the e2e
+     img/s, the host's wait a step and the loop's busy share.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -3398,6 +3414,349 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     return entries
 
 
+# the data phase: bench_train_e2e's set (128 seeded noise JPEGs of 640 px a
+# task) and batch (8 a task), bench_loader's run (256 images, batch 32)
+DATA_IMAGES, DATA_BATCH, LOADER_IMAGES, LOADER_BATCH = 128, 8, 256, 32
+DEFAULT_HYP = os.path.join(ROOT, "configs", "hyps", "hyp.cerber-default.yaml")
+AUG_MAX_DIFF, AUG_MAX_SHARE = 2, 0.01  # tests/test_torch_device_augment.py's bound
+
+
+def aug_diff(a, b, what: str):
+    """(max |diff|, share of values that differ) of two uint8 image batches;
+    raises past the bound of the CPU tests."""
+    d = (a.cpu().int() - b.cpu().int()).abs()
+    worst, share = int(d.max()), float((d > 0).float().mean())
+    if worst > AUG_MAX_DIFF or share >= AUG_MAX_SHARE:
+        raise AssertionError(f"{what}: max|diff| {worst}, {100 * share:.4f}% of values differ "
+                             f"(bound {AUG_MAX_DIFF} on < {100 * AUG_MAX_SHARE}%)")
+    return worst, share
+
+
+def label_digest(batch) -> str:
+    """A hash of one task's padded label arrays."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1()
+    for k in ("cls", "prob", "bboxes", "mask"):
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def data_path(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+              n_images: int = DATA_IMAGES, batch: int = DATA_BATCH,
+              loader_images: int = LOADER_IMAGES, loader_batch: int = LOADER_BATCH,
+              procs=(4, 8)):
+    """The training data path's routes at full width (phase 10): the packed
+    disk cache, the worker-process pool and the augmentation on the card,
+    over bench_train_e2e's seeded set. Gates: every warp route (matmul for
+    the default hyps, affine3 for the paper's, gather at perspective 0.0005)
+    and pixel-op variant on the card equals the CPU's on the same collated
+    plans within the CPU tests' bound; integer-translation warps equal the
+    host cv2 items bit for bit; resident equals shipped bit for bit; the
+    pool's batches equal the threads' (sha1); bench_train_e2e's device runs
+    feed the step the host runs' labels (sha1 a task and step) and launch
+    each TAL kernel once per task and step. Measures one augmentation batch
+    per route, bench_loader's img/s on threads, processes and the card, and
+    bench_train_e2e's img/s, the host's wait a step and the loop's busy
+    share, host and device, for both hyps. Returns the kernels-line entries
+    of this path."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.data import device_augment as da
+    from cerberusdet_tpu_torch.data.augment import PixelAugment
+    from cerberusdet_tpu_torch.data.dataset import DetectionDataset
+    from cerberusdet_tpu_torch.data.loaders import DataLoader, create_dataloader
+    from cerberusdet_tpu_torch.ops import tal_cuda
+    from cerberusdet_tpu_torch.tools import bench_loader, bench_train_e2e
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.train.step import MultiTaskTrainer
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def host_ms(fn, iters: int = 5) -> float:
+        """Median host-clock ms of fn() ending in a synchronise."""
+        fn()
+        sync()
+        times = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t)
+        return 1e3 * float(np.median(times))
+
+    hyps = {}
+    for name, path in (("default", DEFAULT_HYP), ("paper", PAPER_HYP)):
+        with open(path) as f:
+            hyps[name] = yaml.safe_load(f)
+    route_hyps = {"matmul": hyps["default"], "affine3": hyps["paper"],
+                  "gather": dict(hyps["default"], perspective=0.0005)}
+    # no scale, translation, rotation or shear: every warp an integer translation
+    int_hyp = dict(hyps["default"], translate=0.0, scale=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
+                   fliplr=0.0)
+    kern = {"tal_select": tal_cuda.select_kernel, "tal_assign": tal_cuda.assign_kernel,
+            "tal_norm": tal_cuda.norm_kernel}
+    saved_counts = {k: f.launches for k, f in kern.items()}
+    patches = []
+
+    def patch(obj, name, new):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    root = tempfile.mkdtemp(prefix="cerberus_data_")
+    try:
+        t0 = time.perf_counter()
+        for t in ("t1", "t2"):
+            bench_loader.make_dataset(Path(root) / t, n_images, imgsz)
+        img_dir = os.path.join(root, "t1", "images", "train")
+        packs = os.path.join(root, "packs")
+        os.makedirs(packs)
+        first = DetectionDataset(img_dir, imgsz=imgsz, augment=True, hyp=hyps["default"],
+                                 cache_images="disk", cache_dir=packs, task="t1")
+        log(f"[data] bench_train_e2e's set: {n_images} seeded noise JPEGs of {imgsz} px a task "
+            f"(2 tasks), the packed cache of one task {first._pack[0].nbytes / 1e6:.1f} MB "
+            f"({first._pack[0].shape}); in {time.perf_counter() - t0:.2f} s")
+
+        def dataset(hyp, pixel=(0.1, 0.1, 0.01)):
+            ds = DetectionDataset(img_dir, imgsz=imgsz, augment=True, hyp=hyp,
+                                  cache_images="disk", cache_dir=packs, task="t1")
+            ds._pixel_aug = PixelAugment(*pixel)
+            return ds
+
+        pack = torch.from_numpy(np.array(first._pack[0])).to(dev)
+
+        # ---- each warp route on one batch: card == CPU, resident == shipped
+        route_ms = {}
+        for route, hyp in route_hyps.items():
+            ds = dataset(hyp)
+            loader = DataLoader(ds, batch, device_augment=True, device=dev)
+            if loader.warp_route != route:
+                raise AssertionError(f"the loader routes the {route} hyp to {loader.warp_route}")
+            kw = {"matmul": dict(axis_aligned=True), "gather": {},
+                  "affine3": dict(shear_pad=loader._affine_pad)}[route]
+            loader.close()
+            plans = [da.plan_sample(ds, i) for i in range(batch)]
+            collate_ms = host_ms(lambda: da.collate_device(ds, plans, 60))
+            shipped = da.collate_device(ds, plans, 60)
+            indexed = da.collate_device(ds, plans, 60, as_indices=True)
+            n_slots = shipped["tiles"].shape[1]
+            aug_cpu = {k: torch.from_numpy(v) for k, v in shipped["aug"].items()}
+            aug = {k: v.to(dev) for k, v in aug_cpu.items()}
+            tiles_cpu = torch.from_numpy(shipped["tiles"])
+            tiles = tiles_cpu.to(dev)
+            tidx = torch.from_numpy(indexed["tile_idx"]).to(dev)
+            fn_s = da.make_augment_fn(imgsz, n_slots, **kw)
+            fn_r = da.make_augment_fn(imgsz, n_slots, resident=True, **kw)
+            out_s, out_r = fn_s(tiles, aug), fn_r(pack, tidx, aug)
+            if not torch.equal(out_s, out_r):
+                raise AssertionError(f"{route}: the resident form differs from the shipped form")
+            t = time.perf_counter()
+            cpu = fn_s(tiles_cpu, aug_cpu)
+            cpu_s = time.perf_counter() - t
+            worst, share = aug_diff(out_s, cpu, f"{route}: card vs CPU")
+            res_ms = cuda_ms(lambda: fn_r(pack, tidx, aug), iters=5)
+            ship_ms = cuda_ms(lambda: fn_s(tiles, aug), iters=5)
+            copy_ms = host_ms(lambda: tiles_cpu.to(dev))
+            route_ms[route] = (res_ms, ship_ms, copy_ms)
+            log(f"[data] {route} route (K {kw.get('shear_pad', 0)}), batch {batch} x {n_slots} "
+                f"slots: card == CPU within max|diff| {worst} on {100 * share:.4f}% of values "
+                f"(bound {AUG_MAX_DIFF} on < {100 * AUG_MAX_SHARE}%), resident == shipped bit for "
+                f"bit; device ms a batch resident {res_ms:.3f}, shipped {ship_ms:.3f} (CUDA "
+                f"events, mean of 5), + the shipped tiles' copy from pageable host memory "
+                f"({shipped['tiles'].nbytes / 1e6:.1f} MB) {copy_ms:.3f} ms and their collate "
+                f"{collate_ms:.3f} ms (host clock, median of 5); the same batch on the host's "
+                f"CPU {cpu_s:.2f} s  [{card}]")
+            del tiles, out_s, out_r, cpu
+
+        # the one-sample blur and median variants, on the default hyp's first sample
+        ds = dataset(hyps["default"])
+        one = da.collate_device(ds, [da.plan_sample(ds, 0)], 60)
+        aug_cpu = {k: torch.from_numpy(v) for k, v in one["aug"].items()}
+        aug = {k: v.to(dev) for k, v in aug_cpu.items()}
+        tiles_cpu = torch.from_numpy(one["tiles"])
+        tiles = tiles_cpu.to(dev)
+        variants = []
+        for ops in ((3, 0), (7, 0), (0, 3), (0, 7), (5, 5)):
+            fn = da.make_augment_fn(imgsz, tiles.shape[1], axis_aligned=True, pixel_ops=ops)
+            worst, share = aug_diff(fn(tiles, aug), fn(tiles_cpu, aug_cpu), f"pixel_ops {ops}")
+            variants.append(f"{ops} {cuda_ms(lambda: fn(tiles, aug), iters=3):.3f} ms "
+                            f"(max|diff| {worst})")
+        log(f"[data] one-sample (blur_k, median_k) variants, matmul route, card vs CPU within "
+            f"the bound: {', '.join(variants)}  [{card}]")
+
+        # integer translations: the host cv2 items, bit for bit, on every route
+        ds = dataset(int_hyp, pixel=(0.0, 0.0, 0.0))
+        plans = [da.plan_sample(ds, i) for i in range(batch)]
+        shipped = da.collate_device(ds, plans, 60)
+        aug = {k: torch.from_numpy(v).to(dev) for k, v in shipped["aug"].items()}
+        tiles = torch.from_numpy(shipped["tiles"]).to(dev)
+        host = torch.from_numpy(np.stack([ds[i][0] for i in range(batch)]))
+        for route, kw in (("gather", {}), ("matmul", dict(axis_aligned=True)),
+                          ("affine3", dict(shear_pad=6))):
+            got = da.make_augment_fn(imgsz, tiles.shape[1], **kw)(tiles, aug)
+            if not torch.equal(got.cpu(), host):
+                raise AssertionError(f"{route}: an integer-translation warp differs from the "
+                                     f"host cv2 items")
+        log(f"[data] integer-translation hyp (no scale, translate, rotation or shear): gather, "
+            f"matmul and affine3 on the card == the host cv2 items, bit for bit, {batch} images")
+        del pack, tiles
+
+        # ---- the pool's batches == the threads' (decoding, the paper's hyps)
+        kw = dict(imgsz=imgsz, batch_size=batch, hyp=hyps["paper"], augment=True, task="t1",
+                  cache_dir=packs, seed=0)
+        _, pooled = create_dataloader(img_dir, num_workers=procs[0], **kw)
+        _, threaded = create_dataloader(img_dir, **kw)
+        n_cmp = min(4, len(threaded))
+        try:
+            for i, (a, b) in enumerate(zip(pooled, threaded)):
+                if i == n_cmp:
+                    break
+                if batch_digest(a) != batch_digest(b) or label_digest(a) != label_digest(b):
+                    raise AssertionError(f"batch {i}: the pool's batch differs from the threads'")
+        finally:
+            pooled.close()
+        log(f"[data] {procs[0]} worker processes (spawned) == 8 decode threads on {n_cmp} "
+            f"batches of {batch} (sha1 of img and labels), the paper's hyps, JPEG decode")
+
+        # ---- bench_loader: threads against processes, and the card
+        rates = {}
+        for label, kw in [("8 threads", dict(threads=8)), ("4 threads", dict(threads=4))] + [
+                (f"{p} processes", dict(threads=8, num_workers=p)) for p in procs] + [
+                ("device-augment, 8 threads", dict(threads=8, augment_device=True,
+                                                   device=str(dev)))]:
+            t = time.perf_counter()
+            rates[label] = bench_loader.run(imgsz, loader_images, augment=True,
+                                            batch=loader_batch, **kw)
+            log(f"[data] bench_loader {label}: {rates[label]:.1f} img/s ({loader_images} images "
+                f"of {imgsz} px, batch {loader_batch}, bench_loader's hyp; the run "
+                f"{time.perf_counter() - t:.1f} s)  [{card}]")
+
+        # ---- bench_train_e2e, host and device, both hyps
+        probe = {"labels": [], "enter": [], "profile": None, "prof": None, "result": None,
+                 "capture": False}
+        real_step = MultiTaskTrainer.step
+
+        def step(self, state, batches, lrs, momentum, freeze_shared=False):
+            i = len(probe["enter"])
+            probe["enter"].append(time.perf_counter())
+            probe["labels"].append({t: label_digest(b) for t, b in batches.items()})
+            if probe["profile"] == i:
+                from torch.profiler import ProfilerActivity, profile
+
+                sync()
+                prof = profile(activities=[ProfilerActivity.CUDA if on_card
+                                           else ProfilerActivity.CPU])
+                prof.__enter__()
+                probe["prof"] = (prof, time.perf_counter(), i)
+            out = real_step(self, state, batches, lrs, momentum, freeze_shared)
+            if probe["prof"] is not None and i == probe["prof"][2] + PROFILED_STEPS - 1:
+                sync()
+                prof, t_enter, _ = probe["prof"]
+                wall = time.perf_counter() - t_enter
+                prof.__exit__(None, None, None)
+                busy = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+                probe["result"] = (busy, 1e3 * wall)
+                probe["prof"] = None
+            return out
+
+        patch(MultiTaskTrainer, "step", step)
+        captured = {}
+        real_assign = loss_mod.task_aligned_assign
+
+        def assign(*a, **kw):
+            if probe["capture"] and "tal" not in captured:  # a device-augmented batch's
+                captured["tal"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+            return real_assign(*a, **kw)
+
+        patch(loss_mod, "task_aligned_assign", assign)
+        e2e, labels_by_run, launches = {}, {}, {}
+        for hyp_name, hyp_path in (("default", DEFAULT_HYP), ("paper", PAPER_HYP)):
+            args = bench_train_e2e.parse_opt(["--cfg", cfg, "--hyp", hyp_path, "--imgsz",
+                                              str(imgsz), "--batch", str(batch), "--n",
+                                              str(n_images), "--device", str(dev)])
+            for device_aug in (False, True):
+                mode = "device" if device_aug else "host"
+                for f in kern.values():
+                    f.launches = 0
+                probe.update(labels=[], enter=[], profile=None, result=None, capture=device_aug)
+                t = time.perf_counter()
+                out, loop = bench_train_e2e.run_mode(device_aug, args, Path(root))
+                counts = {k: f.launches for k, f in kern.items()}
+                nb = loop.nb
+                if len(probe["labels"]) != 2 * nb:
+                    raise AssertionError(f"{hyp_name} {mode}: {len(probe['labels'])} steps in 2 "
+                                         f"epochs of {nb}")
+                tasks_stepped = sum(len(x) for x in probe["labels"])
+                if device_aug:
+                    launches[hyp_name] = counts
+                    if on_card and counts != {k: tasks_stepped for k in kern}:
+                        raise AssertionError(f"{hyp_name} device: TAL launches {counts}, "
+                                             f"expected {tasks_stepped} each")
+                    routes = {t: ld.warp_route for t, ld in loop.train_loaders.items()}
+                    resident = {t: ld._resident for t, ld in loop.train_loaders.items()}
+                labels_by_run[(hyp_name, mode)] = list(probe["labels"])
+                waits = [1e3 * x["data_s"] for x in loop.timings[nb:]]
+                # the profiler over 3 steps of a third epoch, after 2 warm-up steps
+                probe["profile"] = 2 * nb + min(2, max(0, nb - PROFILED_STEPS))
+                loop.train_epoch(2)
+                busy, wall = probe["result"] if probe["result"] else (float("nan"),) * 2
+                e2e[(hyp_name, mode)] = out
+                log(f"[data] bench_train_e2e {hyp_name} hyp, {mode}: {out['imgs_per_sec']} img/s "
+                    f"({out['imgs']} images in {out['sec_per_epoch']} s, the timed epoch); the "
+                    f"host in the loaders a step (TrainLoop's data_s"
+                    + ("; with the augmentation's enqueue, whose copies from pageable memory "
+                       "wait for the card's queue" if device_aug else "")
+                    + f") median {np.median(waits):.2f} ms, max {max(waits):.2f} ms; the loop busy {busy:.2f} of {wall:.2f} ms over "
+                    f"{PROFILED_STEPS} steps ({100 * busy / wall:.1f}%, profiler, not "
+                    f"synchronised)"
+                    + (f"; warp routes {routes}, resident packs {resident}; TAL launches "
+                       f"{counts} for {tasks_stepped} task steps" if device_aug else "")
+                    + f"; the run {time.perf_counter() - t:.1f} s  [{card}]")
+                for ld in loop.train_loaders.values():
+                    ld.close()
+                del loop
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+            host_l, dev_l = labels_by_run[(hyp_name, "host")], labels_by_run[(hyp_name, "device")]
+            if host_l != dev_l:
+                bad = sum(a != b for a, b in zip(host_l, dev_l))
+                raise AssertionError(f"{hyp_name}: {bad} of {len(host_l)} device-augmented steps "
+                                     f"got other labels than the host loader's")
+            log(f"[data] {hyp_name} hyp: the device-augmented steps got the disk-cached host "
+                f"loader's labels, {len(host_l)} steps x 2 tasks (sha1 of cls, prob, bboxes, "
+                f"mask)")
+        log(f"[data] e2e img/s host / device: default "
+            f"{e2e[('default', 'host')]['imgs_per_sec']} / "
+            f"{e2e[('default', 'device')]['imgs_per_sec']}, paper "
+            f"{e2e[('paper', 'host')]['imgs_per_sec']} / {e2e[('paper', 'device')]['imgs_per_sec']}"
+            f"; one augmentation batch (ms, resident / shipped + copy) "
+            + ", ".join(f"{r} {a:.3f} / {b:.3f} + {c:.3f}" for r, (a, b, c) in route_ms.items())
+            + f"; bench_loader img/s {', '.join(f'{k} {v:.1f}' for k, v in rates.items())}  "
+            f"[{card}]")
+        args, nc = captured["tal"]
+        total = {k: sum(c[k] for c in launches.values()) for k in kern}
+        return tal_entries(args, nc, total, "data phase: device-augmented batches", card,
+                           {k: {"launches_by_hyp": {h: c[k] for h, c in launches.items()}}
+                            for k in TAL_KERNELS})
+    finally:
+        for obj, name, orig in reversed(patches):
+            setattr(obj, name, orig)
+        for k, f in kern.items():
+            f.launches = saved_counts[k]
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3777,6 +4136,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(headline(card, dev))
     log(f"[bench] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. the training data path's routes at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(True)
+    t0 = time.perf_counter()
+    kernels.extend(data_path(card, dev))
+    log(f"[data] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

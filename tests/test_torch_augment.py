@@ -301,12 +301,30 @@ def test_infinite_loader_moves_the_epoch(train_set, tmp_path):
 
 @pytest.mark.parametrize("what", ["process pool", "disk cache", "device augmentation"])
 def test_training_side_left_out_raises(train_set, tmp_path, what):
-    kw = dict(imgsz=64, batch_size=4, hyp=AUG_HYP, augment=True, task="t",
-              cache_dir=str(tmp_path))
+    """The routes that raised until the pool, the pack and the device
+    augmentation were ported: each now gives the JAX package's training
+    loader's first batch (tests/test_torch_loaders.py and
+    tests/test_torch_device_augment.py hold them in full)."""
+    kw = dict(imgsz=64, batch_size=4, hyp=AUG_HYP, augment=True, task="t", seed=2,
+              host_sharded=False)
     extra = {"process pool": dict(num_workers=2), "disk cache": dict(cache_images="disk"),
              "device augmentation": dict(augment_device=True)}[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item [28]"):
-        create_dataloader(train_set, **kw, **extra)
+    ours_dir, ref_dir = tmp_path / "port", tmp_path / "jax"
+    ours_dir.mkdir()
+    ref_dir.mkdir()
+    _, loader = create_dataloader(train_set, **kw, **extra, cache_dir=str(ours_dir),
+                                  **({"device": "cpu"} if extra.get("augment_device") else {}))
+    _, ref = jax_create_dataloader(train_set, **kw, **extra, cache_dir=str(ref_dir))
+    try:
+        got, want = next(iter(loader)), next(iter(ref))
+        keys = ["cls", "prob", "bboxes", "mask"]
+        if what != "device augmentation":  # the device's pixels are within a bound
+            keys.append("img")
+        _same({k: got[k] for k in keys}, {k: np.asarray(want[k]) for k in keys})
+        assert tuple(got["img"].shape) == np.asarray(want["img"]).shape
+    finally:
+        loader.close()
+        ref.close()
 
 
 # ---------------------------------------------------------------- native

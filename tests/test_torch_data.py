@@ -288,14 +288,24 @@ def test_training_side_raises(val_set, tmp_path, what, monkeypatch):
         with pytest.raises(NotImplementedError, match="queue 1, item 6"):
             create_dataloader(val_set, **kw)
         return
-    # augment and fast_decode are ported (tests/test_torch_augment.py); what
-    # is left of the training side still raises under them
+    # the rest of the training side is ported: each route gives the batches
+    # of the plain loader with the same dataset arguments (an eval loader
+    # ignores augment_device, as the JAX package's does)
     extra = {"augment": dict(augment=True, num_workers=2),
              "fast_decode": dict(fast_decode=True, cache_images="disk"),
              "disk cache": dict(cache_images="disk"), "num_workers": dict(num_workers=2),
              "augment_device": dict(augment_device=True)}[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-        create_dataloader(val_set, **kw, **extra)
+    plain = {k: v for k, v in extra.items()
+             if k in ("augment", "fast_decode")}
+    _, loader = create_dataloader(val_set, **kw, **extra)
+    _, ref = create_dataloader(val_set, **kw, **plain)
+    try:
+        assert not loader.device_augment
+        for a, b in zip(loader, ref):
+            _same({k: v for k, v in a.items() if k != "meta"},
+                  {k: v for k, v in b.items() if k != "meta"})
+    finally:
+        loader.close()
 
 
 # ---------------------------------------------------------------- samplers

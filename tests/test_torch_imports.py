@@ -40,6 +40,7 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.ops.conv_int8_cuda",
             "cerberusdet_tpu_torch.data.labels", "cerberusdet_tpu_torch.data.samplers",
             "cerberusdet_tpu_torch.data.dataset", "cerberusdet_tpu_torch.data.loaders",
+            "cerberusdet_tpu_torch.data.device_augment",
             "cerberusdet_tpu_torch.evaluation.metrics", "cerberusdet_tpu_torch.evaluation.val",
             "cerberusdet_tpu_torch.cli.val", "cerberusdet_tpu_torch.manager.run_manager",
             "cerberusdet_tpu_torch.utils.checks", "cerberusdet_tpu_torch.utils.hyp",

@@ -7,8 +7,8 @@ against the JAX package's tools (cerberusdet_tpu/tools/).
     JAX tool's keys (bench_loader's are held against the JAX tool's own
     run); bench_train_step's two routes (plain assigner and TAL kernels,
     which take their plain versions on the CPU) give equal losses.
-  * bench_loader and bench_train_e2e refuse what the port does not have
-    yet: worker processes, the disk cache, augmentation on the card.
+  * bench_loader runs worker processes, the disk cache and augmentation on
+    the device; bench_train_e2e runs --mode host, device and both.
   * profile_step writes a Chrome trace that summarize_trace reads;
     summarize_trace totals a hand-written trace exactly.
   * make_synthetic_data writes files byte-identical to the JAX tool's;
@@ -117,13 +117,20 @@ def test_bench_loader_keys_match_jax(capsys):
 
 @pytest.mark.parametrize("flags", [["--proc-workers", "2"], ["--cache-images", "disk"],
                                    ["--device-augment"]])
-def test_bench_loader_refuses_unported_modes(flags):
-    with pytest.raises(NotImplementedError, match="item (2|8)"):
-        bench_loader.main(["--imgsz", "64", "--n", "4", "--batch", "2"] + flags)
+def test_bench_loader_refuses_unported_modes(flags, capsys):
+    """The modes that raised until the pool, the pack and the device
+    augmentation were ported: each runs and prints its line."""
+    extra = ["--device", "cpu"] if flags == ["--device-augment"] else []
+    rate = bench_loader.main(["--imgsz", "64", "--n", "4", "--batch", "2"] + flags + extra)
+    out = _last_json(capsys)
+    assert rate > 0 and out["imgs_per_sec"] == round(rate, 1)
+    assert out["device_augment"] == (flags == ["--device-augment"])
+    assert out["cache_images"] == (flags[1] if flags[0] == "--cache-images" else "")
 
 
 def test_bench_train_e2e_host(capsys):
-    out = bench_train_e2e.main(CPU + ["--batch", "2", "--n", "4", "--workers", "1"])
+    out = bench_train_e2e.main(CPU + ["--batch", "2", "--n", "4", "--workers", "1",
+                                      "--mode", "host"])
     assert _last_json(capsys) == out
     assert list(out) == ["mode", "imgs_per_sec", "sec_per_epoch", "imgs", "imgsz", "batch",
                          "cfg", "hyp"]
@@ -131,9 +138,15 @@ def test_bench_train_e2e_host(capsys):
 
 
 @pytest.mark.parametrize("mode", ["device", "both"])
-def test_bench_train_e2e_refuses_device_mode(mode):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bench_train_e2e.main(CPU + ["--mode", mode])
+def test_bench_train_e2e_refuses_device_mode(mode, capsys):
+    """--mode device and both, which raised until the device augmentation
+    was ported: one JSON line a mode, the host's first."""
+    out = bench_train_e2e.main(CPU + ["--batch", "2", "--n", "4", "--workers", "1",
+                                      "--mode", mode])
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()
+             if x.startswith("{")]
+    assert [x["mode"] for x in lines] == (["device"] if mode == "device" else ["host", "device"])
+    assert lines[-1] == out and out["imgs"] == 8 and out["imgs_per_sec"] > 0
 
 
 @pytest.mark.parametrize("mode", ["train", "infer"])

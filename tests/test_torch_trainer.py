@@ -390,7 +390,27 @@ def test_cli_resume_auto_picks_newest_by_mtime(case, tmp_path, monkeypatch):
     (["--evolve", "2"], "item 9"), (["--mesh"], "item 6"), (["--augment-device"], "item 8"),
     (["--proc-workers", "2"], "item 2"), (["--cache-images", "disk"], "item 2"),
     (["--mlflow-url", "http://localhost:1"], "item 9")])
-def test_cli_refuses_what_is_not_ported(case, tmp_path, flag, item):
+def test_cli_refuses_what_is_not_ported(case, tmp_path, flag, item, monkeypatch):
+    if item in ("item 2", "item 8"):
+        # ported (tests/test_torch_loaders.py trains with them): the flags
+        # reach TrainLoop's options as the JAX CLI passes them
+        class Stop(Exception):
+            pass
+
+        seen = {}
+
+        def loop(opt, *a, **kw):
+            seen.update(cache=opt.cache_images, procs=opt.proc_workers,
+                        device_aug=opt.augment_device)
+            raise Stop
+
+        monkeypatch.setattr(port_trainer, "TrainLoop", loop)
+        with pytest.raises(Stop):
+            cli.main(_cli_args(case, tmp_path, *flag))
+        want = {"--augment-device": ("", 0, True), "--proc-workers": ("", 2, False),
+                "--cache-images": ("disk", 0, False)}[flag[0]]
+        assert (seen["cache"], seen["procs"], seen["device_aug"]) == want
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         cli.main(_cli_args(case, tmp_path, *flag))
     assert not (tmp_path / "exp").exists()
