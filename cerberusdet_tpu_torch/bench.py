@@ -24,8 +24,10 @@ the device; they are held at rtol 0.05 against the port's own golden,
 cerberusdet_tpu_torch/assets/amax_golden.json. The JAX golden
 (assets/calib/amax_golden.json) comes from jax.random.PRNGKey(0), which the
 port cannot draw; nothing here writes it. `--write-golden` records this
-configuration's scales in the port's golden and exits. The model then runs
-in bfloat16 (the int8 Convs keep their int8 weights and float32 scales).
+configuration's scales in the port's golden and exits. The quantize
+propagates (quant/ptq.py:propagate_act_quant, as the JAX bench passes
+model=): int8 crosses the blocks. The model then runs in bfloat16 (the int8
+Convs keep their int8 weights and float32 scales).
 
 Method (utils/profiling.py:HonestLoop): the all-heads forward on a seeded
 uniform (B, 640, 640, 3) batch is captured once as a CUDA graph; each replay
@@ -33,7 +35,10 @@ feeds the next through its input (x += 0 * the float32 mean of every output
 of every task); K replays are timed between CUDA events, best of 3 rounds,
 with the host clock of the same rounds beside. Guard: the graph holds a conv
 kernel node for every convolution of the all-heads forward, and exactly one
-conv_s8 and one quant_pack_s8 node per int8 Conv. Runs on the card; with
+conv_s8 and one quant_pack_s8 node per int8 Conv; and in one eager forward
+before the capture, every annotated block whose last Conv is int8 gets its
+int8 output from that Conv's conv_s8 launch, which requantizes in its
+epilogue (utils/profiling.py:check_requant). Runs on the card; with
 `--device cpu` (tests, small sizes) the loop runs eagerly and the kernel
 wrappers take their plain versions.
 """
@@ -50,20 +55,25 @@ import torch
 
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
-from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8, quant_s8
 from cerberusdet_tpu_torch.quant import (
     calibrate_amax,
     fused_conv_weights,
     quantize_params,
     select_all,
 )
-from cerberusdet_tpu_torch.utils.profiling import device_label, honest_time, model_convs
+from cerberusdet_tpu_torch.utils.profiling import (
+    check_requant,
+    device_label,
+    honest_time,
+    model_convs,
+)
 
 GOLDEN = Path(__file__).parent / "assets" / "amax_golden.json"
 CALIB_DIR = Path(__file__).resolve().parent.parent / "assets" / "calib"
 TASKS, NCS = ["voc", "animals"], [20, 19]
 BASELINE_IMGS_PER_S = 1000.0 / 7.2  # reference: 7.2 ms/img, V100 b32 fp16
-INT8_KERNELS = (quant_pack_s8, conv_s8)
+INT8_KERNELS = (quant_pack_s8, conv_s8, quant_s8)
 
 
 def calib_batches(imgsz: int = 640):
@@ -117,15 +127,16 @@ def build(cfg: str, device, int8: bool, imgsz: int = 640, write_golden: bool = F
           golden: Optional[Path] = None) -> CerberusModel:
     """The benchmark's model on `device`: seeded, fused in float64, for int8
     calibrated in float64 on the calibration images, checked against the
-    golden and quantized from its fused float32 weights; then cast to
-    bfloat16 (the int8 Convs' scales stay float32)."""
+    golden, quantized from its fused float32 weights and annotated so that
+    int8 crosses the blocks; then cast to bfloat16 (the int8 Convs' scales
+    and the annotations stay float32)."""
     model = CerberusModel(cfg, TASKS, NCS, device=device).init(0)
     model = model.to(torch.float64).fuse().eval()
     if int8:
         fused = fused_conv_weights(model)
         amax = calibrate_amax(model, calib_batches(imgsz))
         check_golden_amax(amax, golden_key(cfg, imgsz), write_golden, golden)
-        quantize_params(model, amax, select=select_all, weights=fused)
+        quantize_params(model, amax, select=select_all, weights=fused, propagate=True)
     return model.to(torch.bfloat16)
 
 
@@ -148,12 +159,15 @@ def forward_fn(model: CerberusModel):
 
 @torch.no_grad()
 def time_forward(model: CerberusModel, img: torch.Tensor, iters: int) -> Dict:
-    """utils/profiling.py:honest_time over forward_fn(model) on img. Returns
-    its {"ms" (device, None on the CPU), "host_ms", "conv_nodes",
-    "pool_mib"} and the forward's "convs" and "int8_convs"."""
+    """utils/profiling.py:honest_time over forward_fn(model) on img, after
+    check_requant on one eager forward. Returns honest_time's {"ms" (device,
+    None on the CPU), "host_ms", "conv_nodes", "pool_mib"}, the forward's
+    "convs" and "int8_convs", and "requant_blocks", the annotated blocks
+    whose int8 output their last Conv's kernel writes."""
     n_convs, n_int8 = model_convs(model)
+    n_requant = check_requant(model, forward_fn(model), img, "bench")
     r = honest_time(forward_fn(model), img, iters, n_convs, n_int8, INT8_KERNELS, "bench")
-    return {**r, "convs": n_convs, "int8_convs": n_int8}
+    return {**r, "convs": n_convs, "int8_convs": n_int8, "requant_blocks": n_requant}
 
 
 def parse_opt(argv=None):
@@ -193,7 +207,8 @@ def main(argv=None) -> Optional[Dict]:
     print(f"[bench] {device_label(device)} | {Path(opt.cfg).stem} "
           f"{'bf16' if opt.bf16 else 'int8 all'} batch {opt.batch} at {opt.imgsz} px: "
           f"{dev_ms}host {r['host_ms']:.3f} ms, best of 3 rounds of {opt.iters}; "
-          f"{r['convs']} convolutions ({r['int8_convs']} int8); {graph}", flush=True)
+          f"{r['convs']} convolutions ({r['int8_convs']} int8); {r['requant_blocks']} "
+          f"annotated blocks requantized in conv_s8; {graph}", flush=True)
     result = {"metric": metric, "value": round(imgs_per_s, 1), "unit": "img/s/chip",
               "vs_baseline": round(imgs_per_s / BASELINE_IMGS_PER_S, 2)}
     print(json.dumps(result), flush=True)

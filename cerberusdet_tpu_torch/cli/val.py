@@ -111,7 +111,9 @@ def quantize_for_eval(model, data_dict, opt, dtype, weights, n_calib_batches: in
     """PTQ of the fused model in place, with activation scales calibrated in
     `dtype` on the first val batches of task 0 (square batches of at most 8,
     quant/ptq.py) and weights quantized from `weights`, the fused float32
-    weights taken before the cast (quant/ptq.py:fused_conv_weights)."""
+    weights taken before the cast (quant/ptq.py:fused_conv_weights), then
+    annotated so that int8 crosses the blocks (propagate_act_quant, as the
+    JAX package's val.py passes model=)."""
     from cerberusdet_tpu_torch.data.loaders import create_dataloader
     from cerberusdet_tpu_torch.quant import calibrate_amax, quantize_params, select_all
     from cerberusdet_tpu_torch.quant.ptq import select_deep
@@ -127,7 +129,7 @@ def quantize_for_eval(model, data_dict, opt, dtype, weights, n_calib_batches: in
             break
     amax = calibrate_amax(model, batches, dtype=dtype)
     select = select_all if opt.int8 == "all" else select_deep()
-    return quantize_params(model, amax, select=select, weights=weights)
+    return quantize_params(model, amax, select=select, weights=weights, propagate=True)
 
 
 def main(argv=None):

@@ -4,7 +4,10 @@
 //                   channels zero-padded to Ci16 = ceil(Ci / 16) * 16; int8
 //                   activations, already quantized, are packed unscaled;
 //   conv_s8         the implicit-GEMM conv on the int8 tensor cores, s8 x s8
-//                   summed in int32, then a float32 epilogue, NCHW out.
+//                   summed in int32, then a float32 epilogue, NCHW out;
+// and quant_s8, the per-tensor quantize of an NCHW tensor into int8 NCHW (a
+// channel slice of a concat buffer), for the activations that int8 carries
+// between the blocks and no conv epilogue quantizes (quant/ptq.py).
 //
 // conv_s8 replaces cerberusdet_tpu/ops/conv_int8_pallas.py:_conv_kernel (the
 // implicit-GEMM 3x3 / stride 1 / SAME Pallas kernel), generalised to the conv
@@ -32,7 +35,14 @@
 //           else: y = (float)acc * (s_x * s_w[c]); y = y + bias[c];
 //                 y = y / (1 + expf(-y)) when act (torch's CUDA silu);
 //                 float32: y; bfloat16: y rounded to nearest even;
-//                 int8: clip(rint(y * inv_qs), -127, 127).
+//                 int8: clip(rint(y * inv_qs), -127, 127) (the Pallas
+//                 kernel's q_out, cerberusdet_tpu/ops/conv_int8_pallas.py);
+//                 int8 of bf16: clip(rint(float(bf16(y)) * inv_qs), -127,
+//                 127), the requantize of the value a bf16 graph hands on
+//                 (JAX's Conv casts to the compute dtype, then the block's
+//                 __q_out__ quantizes: cerberusdet_tpu/models/cerberus.py).
+//           inv_qs = 1 / q_s rounded to float32, q_s read on the card from
+//           the scale's pointer (no host value in a capture).
 // Built with --fmad=false and the __f*_rn intrinsics, so no multiply-add is
 // contracted: both kernels give the plain versions' values bit for bit.
 //
@@ -85,7 +95,7 @@
 
 namespace {
 
-enum Mode { kRaw = 0, kF32 = 1, kBF16 = 2, kS8 = 3 };
+enum Mode { kRaw = 0, kF32 = 1, kBF16 = 2, kS8 = 3, kS8BF16 = 4 };
 
 constexpr int kMaxDevices = 64;
 
@@ -317,6 +327,75 @@ int launch_quant_pack(const void* x, const float* s_x, int B, int C, int HW, lon
                  : launch_rows<T>(x, s_x, B, C, HW, sb, sc, sp, C16, out, s);
 }
 
+// ------------------------------------------------------------------ quant_s8
+
+// NCHW planes (row-major pixels sp apart) -> int8 NCHW planes, quantized
+// with code() (int8 input copied as it is), written at the output's own
+// image and channel strides: a contiguous tensor, or a channel slice of the
+// int8 concat buffer its consumer reads, so that the concat moves no other
+// bytes. Block (x, c, b) takes 128 runs of V = 16 / sizeof(T) pixels of
+// plane (b, c): one 16-byte load a run where the plane's pixels are at
+// stride 1 and its runs aligned (vec), one V-byte store where the output's
+// are (vec_out), element by element otherwise (a channels-last input, the
+// ragged end of every plane).
+constexpr int kCThreads = 128;
+
+template <typename T>
+__device__ __forceinline__ uint4 load_run_strided(const T* p, int n, long long sp, bool vec) {
+  if (sp == 1) return load_run(p, n, vec);
+  using R = typename Raw<T>::type;
+  union { uint4 u; R e[16 / sizeof(T)]; } r;
+  r.u = make_uint4(0, 0, 0, 0);
+  const R* q = reinterpret_cast<const R*>(p);
+#pragma unroll
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j)
+    if (j < n) r.e[j] = q[j * sp];
+  return r.u;
+}
+
+template <int V> struct Bytes;
+template <> struct Bytes<4> { using type = uint32_t; };
+template <> struct Bytes<8> { using type = uint2; };
+template <> struct Bytes<16> { using type = uint4; };
+
+template <typename T>
+__global__ void __launch_bounds__(kCThreads)
+quant_nchw_kernel(const T* __restrict__ x, const float* __restrict__ s_x, int HW, long long sb,
+                  long long sc, long long sp, int vec, int8_t* __restrict__ out, long long ob,
+                  long long oc, int vec_out) {
+  constexpr int V = 16 / sizeof(T);
+  const float inv = sizeof(T) == 1 ? 0.f : __fdiv_rn(1.f, *s_x);
+  const int p = (blockIdx.x * kCThreads + threadIdx.x) * V;
+  if (p >= HW) return;
+  const int n = HW - p;  // pixels of the plane from p on
+  const uint4 r = load_run_strided(x + blockIdx.z * sb + blockIdx.y * sc + p * sp, n, sp,
+                                   vec && n >= V);
+  union { typename Bytes<V>::type v; uint8_t b[V]; } o;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    o.b[j] = (uint8_t)(code_word<T>(r, j, inv) >> (sizeof(T) == 1 ? 8 * (j & 3) : 0));
+  int8_t* dst = out + blockIdx.z * ob + blockIdx.y * oc + p;
+  if (vec_out && n >= V) {
+    *reinterpret_cast<typename Bytes<V>::type*>(dst) = o.v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (j < n) dst[j] = (int8_t)o.b[j];
+  }
+}
+
+template <typename T>
+int launch_quant_nchw(const void* x, const float* s_x, int B, int C, int HW, long long sb,
+                      long long sc, long long sp, int vec, int8_t* out, long long ob,
+                      long long oc, int vec_out, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const long long runs = (HW + V - 1) / V;
+  const dim3 grid((unsigned)((runs + kCThreads - 1) / kCThreads), C, B);
+  quant_nchw_kernel<T><<<grid, kCThreads, 0, s>>>(static_cast<const T*>(x), s_x, HW, sb, sc,
+                                                  sp, vec, out, ob, oc, vec_out);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ conv_s8
 
 constexpr int kBK = 64;          // bytes of the reduction a stage: 4 chunks of 16
@@ -435,8 +514,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ s_x, const float* __restrict__ s_w,
                const float* __restrict__ bias, int H, int W, int C16, int Co, int Ho, int Wo,
-               int ks, int stride, int pad, int M, int act, int mode, float inv_qs,
-               void* __restrict__ out) {
+               int ks, int stride, int pad, int M, int act, int mode,
+               const float* __restrict__ q_s, void* __restrict__ out) {
   using T = ConvTile<BM, BN>;
   extern __shared__ __align__(128) int8_t smem_raw[];
   int8_t* smem = smem_raw + ((512 - (smem_u32(smem_raw) & 511)) & 511);
@@ -591,6 +670,7 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (m >= M) return;
   const int b = m / HoWo;
   const int r = m - b * HoWo;
+  const float inv = mode >= kS8 ? __fdiv_rn(1.f, *q_s) : 0.f;
   for (int nl = tid / BM; nl < BN && n0 + nl < Co; nl += kThreads / BM) {
     const size_t o = ((size_t)b * Co + n0 + nl) * HoWo + r;
     const int32_t v = so[nl * T::kLdo + ml];
@@ -600,8 +680,11 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       static_cast<float*>(out)[o] = __int_as_float(v);
     } else if (mode == kBF16) {
       static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(__int_as_float(v));
+    } else if (mode == kS8) {
+      static_cast<int8_t*>(out)[o] = to_s8(__fmul_rn(__int_as_float(v), inv));
     } else {
-      static_cast<int8_t*>(out)[o] = to_s8(__fmul_rn(__int_as_float(v), inv_qs));
+      const float yb = __bfloat162float(__float2bfloat16_rn(__int_as_float(v)));
+      static_cast<int8_t*>(out)[o] = to_s8(__fmul_rn(yb, inv));
     }
   }
 }
@@ -609,7 +692,8 @@ conv_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 template <int BM, int BN>
 int launch_conv(const int8_t* x, const int8_t* w, const float* s_x, const float* s_w,
                 const float* bias, int B, int H, int W, int C16, int Co, int ks, int stride,
-                int pad, int act, int mode, float inv_qs, void* out, cudaStream_t s) {
+                int pad, int act, int mode, const float* q_s, void* out,
+                cudaStream_t s) {
   using T = ConvTile<BM, BN>;
   const int Ho = (H + 2 * pad - ks) / stride + 1;
   const int Wo = (W + 2 * pad - ks) / stride + 1;
@@ -629,7 +713,7 @@ int launch_conv(const int8_t* x, const int8_t* w, const float* s_x, const float*
   }
   const dim3 grid((M + BM - 1) / BM, (Co + BN - 1) / BN);
   conv_s8_kernel<BM, BN><<<grid, kThreads, T::kSmem, s>>>(
-      x, w, s_x, s_w, bias, H, W, C16, Co, Ho, Wo, ks, stride, pad, M, act, mode, inv_qs, out);
+      x, w, s_x, s_w, bias, H, W, C16, Co, Ho, Wo, ks, stride, pad, M, act, mode, q_s, out);
   return (int)cudaGetLastError();
 }
 
@@ -661,25 +745,56 @@ int cerberus_quant_pack_s8(const void* x, int dtype, const float* s_x, int B, in
   return (int)cudaErrorInvalidValue;
 }
 
+// x (B, C, H, W) of float32 (dtype 0), bfloat16 (dtype 1) or int8 (dtype 2,
+// copied as it is) with images sb, channels sc and the pixels of an (H, W)
+// plane sp elements apart (row-major); s_x a float32 scalar on the card; out
+// int8 with images ob and channels oc bytes apart, planes at stride 1. vec
+// (1 or 0) says that sp is 1 and x, sb and sc put every plane at a multiple
+// of 16 bytes, vec_out
+// that out, ob and oc put every plane at a multiple of 16 / sizeof(dtype)
+// bytes. B and C at most 65535. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for a dtype
+// it does not know or a B or C out of range.
+int cerberus_quant_s8(const void* x, int dtype, const float* s_x, int B, int C, int H, int W,
+                      long long sb, long long sc, long long sp, int vec, int8_t* out,
+                      long long ob, long long oc, int vec_out, void* stream) {
+  const int HW = H * W;
+  if (B <= 0 || C <= 0 || HW <= 0) return 0;
+  if (B > 65535 || C > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_quant_nchw<float>(x, s_x, B, C, HW, sb, sc, sp, vec, out, ob, oc, vec_out, s);
+  if (dtype == 1)
+    return launch_quant_nchw<__nv_bfloat16>(x, s_x, B, C, HW, sb, sc, sp, vec, out, ob, oc,
+                                            vec_out, s);
+  if (dtype == 2)
+    return launch_quant_nchw<int8_t>(x, s_x, B, C, HW, sb, sc, sp, vec, out, ob, oc, vec_out,
+                                     s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // x (B, H, W, C16) int8 and w (Co, ks, ks, C16) int8, both 16-byte aligned,
 // C16 a multiple of 16; s_x a float32 scalar, s_w and bias (Co,) float32, all
 // on the card; out (B, Co, Ho, Wo) of the type `mode` names (0 int32, 1
-// float32, 2 bfloat16, 3 int8) with Ho = (H + 2 pad - ks) / stride + 1, Wo
-// likewise. (bm, bn) is the block tile: (128 | 64, 160 | 80). The caller
-// checks that B * Ho * Wo fits an int. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for a mode or
-// tile it does not know.
+// float32, 2 bfloat16, 3 int8 of y, 4 int8 of bf16(y)) with Ho = (H + 2 pad -
+// ks) / stride + 1, Wo likewise. Modes 3 and 4 multiply by 1 / *q_s, q_s a
+// float32 scalar on the card (null for the other modes). (bm, bn) is the
+// block tile: (128 | 64, 160 | 80). The caller checks that B * Ho * Wo fits
+// an int. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); 1 (cudaErrorInvalidValue) for a mode or tile it does not know,
+// or for mode 3 or 4 without q_s.
 int cerberus_conv_s8(const int8_t* x, const int8_t* w, const float* s_x, const float* s_w,
                      const float* bias, int B, int H, int W, int C16, int Co, int ks,
-                     int stride, int pad, int act, int mode, float inv_qs, int bm, int bn,
-                     void* out, void* stream) {
-  if (mode < kRaw || mode > kS8) return (int)cudaErrorInvalidValue;
+                     int stride, int pad, int act, int mode, const float* q_s, int bm,
+                     int bn, void* out, void* stream) {
+  if (mode < kRaw || mode > kS8BF16 || (mode >= kS8 && q_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || Co <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
 #define CERBERUS_CONV_S8_LAUNCH(BM_, BN_)                                                      \
   if (bm == BM_ && bn == BN_)                                                                  \
     return launch_conv<BM_, BN_>(x, w, s_x, s_w, bias, B, H, W, C16, Co, ks, stride, pad, act, \
-                                 mode, inv_qs, out, s);
+                                 mode, q_s, out, s);
   CERBERUS_CONV_S8_LAUNCH(128, 160)
   CERBERUS_CONV_S8_LAUNCH(128, 80)
   CERBERUS_CONV_S8_LAUNCH(64, 160)

@@ -22,7 +22,7 @@ from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
 from cerberusdet_tpu_torch.manager.weights import load_jax_params
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
 from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
-from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8, quant_s8
 from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, non_max_suppression
 from cerberusdet_tpu_torch.ops.nms_cuda import greedy_nms_cuda
 from cerberusdet_tpu_torch.quant import (
@@ -36,7 +36,7 @@ from cerberusdet_tpu_torch.quant import (
 
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 # the kernel wrappers that predict_device reaches on the card
-SERVING_KERNELS = (greedy_nms_cuda, quant_pack_s8, conv_s8)
+SERVING_KERNELS = (greedy_nms_cuda, quant_pack_s8, conv_s8, quant_s8)
 
 
 def build_category_map(names: Dict[str, Sequence[str]]):
@@ -89,8 +89,11 @@ class CerberusDetInference:
     input channels. Activation scales are calibrated by running the fused
     model in `dtype` over `calib_batches` (a list of (B, H, W, 3) float
     arrays in [0, 1]; one batch of uniform noise when omitted, as in the
-    JAX package); the weights are quantized from their fused float32 values.
-    A params tree that is already quantized needs no int8 argument.
+    JAX package); the weights are quantized from their fused float32 values,
+    and the model is annotated so that int8 crosses the blocks
+    (quant/ptq.py:propagate_act_quant, which the JAX package runs by passing
+    model=). A params tree that is already quantized needs no int8 argument,
+    and its annotations, if any, come with it.
     """
 
     def __init__(self, model: Optional[CerberusModel] = None, params=None,
@@ -141,7 +144,7 @@ class CerberusDetInference:
             amax = calibrate_amax(self.model, calib_batches, dtype=dtype)
             quantize_params(self.model, amax,
                             select=select_all if int8 == "all" else select_deep(),
-                            weights=fused)
+                            weights=fused, propagate=True)
             del fused
         self.int8 = int8
         self.int8_convs = [m for _, m in conv_layers(self.model) if m.int8]

@@ -15,10 +15,12 @@ A quantized tree (quant/ptq.py) holds {w_q, s_w, s_x, b} for an int8 Conv:
   <uid>/.../w_q        -> ... .w_q  (HWIO int8 -> the kernel's packed layout,
                                      ops/conv_int8_cuda.py:pack_weight)
   <uid>/.../s_w, s_x   -> ... .s_w, .s_x  (float32; s_x 0-d)
-and turns those Convs into their int8 form first. Its `__q_out__` / `q_in`
-leaves (the JAX package's propagate_act_quant with model=) are skipped: they
-only move where the same quantize runs and change no output bit
-(cerberusdet_tpu/quant/ptq.py:138-142).
+and turns those Convs into their int8 form first. Its int8 annotations
+(the JAX package's propagate_act_quant, run by quantize_params with model=):
+  <uid>/__q_out__      -> blocks.<uid>.q_out  (float32 0-d buffer)
+  <uid>/q_in           -> blocks.<uid>.q_in   (Concat / Upsample)
+replace the model's own (nn/layers.py:Block), so that a propagated tree
+loads and exports back bit for bit.
 Parameterless blocks (Upsample, Concat) may be absent from the tree.
 export_jax_tree / export_jax_params go the other way, so that a state trained
 by the port can be held against the JAX package's and checkpoints move both
@@ -37,11 +39,12 @@ import numpy as np
 import torch
 
 from cerberusdet_tpu_torch.models.cerberus import module_key
+from cerberusdet_tpu_torch.nn.layers import ACT_QUANT
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import pack_weight, unpack_weight
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _BN_BACK = {v: k for k, v in _BN.items()}
-_ACT_QUANT = ("__q_out__", "q_in")  # placement annotations, not parameters
+_ACT_QUANT_TORCH = {v: k for k, v in ACT_QUANT.items()}  # JAX leaf -> buffer name
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -55,6 +58,7 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 def _torch_key(path: Tuple[str, ...]) -> str:
     rest = list(path)
+    rest[-1] = _ACT_QUANT_TORCH.get(rest[-1], rest[-1])
     if len(rest) >= 2 and rest[-2] == "bn":
         if rest[-1] not in _BN:
             raise KeyError(f"unknown BatchNorm leaf {'/'.join(path)}")
@@ -105,24 +109,21 @@ def load_jax_params(model, tree: Mapping[str, Any]):
     """Copy a JAX CerberusModel parameter tree (keyed by block uid) into the
     port's CerberusModel `model` in place and return it; fuses the model
     first when the tree is fused, and turns the Convs that the tree holds in
-    int8 into their int8 form. Errors as `load_jax_tree`."""
-    tree = _without_act_quant(tree)
+    int8 into their int8 form; its int8 annotations replace the model's.
+    Errors as `load_jax_tree`."""
     if not _has_bn(tree) and not model.fused:
         model.fuse()
+    for uid in model.block_nodes:
+        model.block(uid).clear_act_quant()
+    device = next(model.parameters()).device
     for path, _ in _leaves(tree):
         if path[-1] == "w_q":
             model.block(path[0]).get_submodule(".".join(path[1:-1])).to_int8()
+        elif path[-1] in _ACT_QUANT_TORCH and len(path) == 2:
+            model.block(path[0]).annotate(_ACT_QUANT_TORCH[path[-1]],
+                                          torch.zeros((), device=device))
     load_jax_tree(model.blocks, {module_key(uid): sub for uid, sub in tree.items()})
     return model
-
-
-def _without_act_quant(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    out = {}
-    for k, v in tree.items():
-        if k in _ACT_QUANT:
-            continue
-        out[k] = _without_act_quant(v) if isinstance(v, Mapping) else v
-    return out
 
 
 @torch.no_grad()
@@ -145,8 +146,10 @@ def export_jax_tree(module: torch.nn.Module,
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif path[-1] == "w_q":
-            ci = module.get_submodule(".".join(path[:-1])).c1
-            a = unpack_weight(t.detach().cpu(), ci).numpy()
+            conv = module.get_submodule(".".join(path[:-1]))
+            a = unpack_weight(t.detach().cpu(), conv.c1 // conv.g).numpy()
+        elif path[-1] in ACT_QUANT:
+            path[-1] = ACT_QUANT[path[-1]]
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -219,7 +219,10 @@ class CerberusModel(nn.Module):
         in eval mode, {task: feats} in training mode. In training, the
         BatchNorms of blocks in `freeze_bn_uids` use their running
         statistics, and `img_mask` (B,) weights the batch statistics of the
-        others."""
+        others. A block annotated with `q_out` (quant/ptq.py:
+        propagate_act_quant) hands its output on quantized to int8 with that
+        scale, as the JAX package's forward does: the block quantizes it
+        itself (nn/layers.py), in its last Conv."""
         frozen = frozenset(freeze_bn_uids)
         outputs = {"__input__": x}
         results = {}

@@ -1,18 +1,29 @@
-"""YOLOv8 layers of the flagship configs, as NCHW nn.Modules.
+"""The layer zoo of the JAX package's main registry, as NCHW nn.Modules.
 
-Counterpart of cerberusdet_tpu/nn/layers.py, restricted to the layers that
-configs/models/yolov8{n,x}*.yaml use: Conv, PlainConv, Seq, Bottleneck, C2f,
-SPPF, Concat, Upsample and Detect. Parameter names follow the JAX tree
-(Conv: `w` + `bn`, `w` + `b` once fused, or `w_q`, `s_w`, `s_x`, `b` once
-quantized; Detect: `box{i}`/`cls{i}`, each a
-Seq with children 0/1/2), so a JAX tree maps onto `state_dict` key by key
-(manager/weights.py). The rest of the layer zoo is a later slice.
+Counterpart of cerberusdet_tpu/nn/layers.py:1-464: Conv, DWConv, PlainConv,
+Seq, Bottleneck, C2, C2f, C3, SPP, SPPF, Focus, GhostConv, Concat, Upsample
+and Detect. Parameter names follow the JAX tree (Conv: `w` + `bn`, `w` +
+`b` once fused, or `w_q`, `s_w`, `s_x`, `b` once quantized; Detect:
+`box{i}`/`cls{i}`, each a Seq with children 0/1/2), so a JAX tree maps onto
+`state_dict` key by key (manager/weights.py). The blocks of its second
+registry (nn/layers.py:811-823, BottleneckCSP to ImplicitM) are a later
+slice.
+
+int8 serving (quant/ptq.py) annotates blocks with float32 scalar buffers:
+`q_out` (the JAX tree's `__q_out__`) on a block whose output every consumer
+quantizes with that scale, and `q_in` on a Concat or Upsample whose inputs
+are quantized before the data movement. The blocks with a quantized Conv
+after a concat (C2, C2f, C3, SPP, SPPF) quantize the concat's inputs to that
+Conv's scale, as the JAX blocks do, so the concats and SPP pools move int8.
+quantize_act commutes exactly with the concats, the nearest upsample and
+max pooling, so the values the quantized Convs see are bit for bit those of
+the unannotated graph.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,34 +35,75 @@ from cerberusdet_tpu_torch.nn.module import (
     conv2d_int8,
     fuse_conv_bn,
     kaiming_uniform_,
+    quantize_act,
     silu,
     uniform_,
 )
 from cerberusdet_tpu_torch.ops.anchors import dfl_expectation, dist2bbox, make_anchors
-from cerberusdet_tpu_torch.ops.conv_int8_cuda import padded_channels
+from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
+    int8_sums_fit,
+    padded_channels,
+    quant_cat_s8,
+    s8_kernel_takes,
+)
+
+# the int8 placement annotations: buffer name -> the JAX tree's leaf name
+ACT_QUANT = {"q_out": "__q_out__", "q_in": "q_in"}
 
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-class Conv(nn.Module):
+class Block(nn.Module):
+    """Base of the layers: the buffers named in F32 (an int8 Conv's scales and
+    bias, the int8 annotations) stay float32 when the module is cast, as the
+    JAX package keeps them: they go through `_apply`'s fn viewed as int32,
+    which a cast does not touch and a move moves. A scale cast to bfloat16
+    would be another scale."""
+
+    F32 = ("s_w", "s_x", "b", "q_out", "q_in")
+
+    def act_quant(self, name: str) -> Optional[torch.Tensor]:
+        """The annotation `name` ("q_out" or "q_in"), None when absent."""
+        return self._buffers.get(name)
+
+    def annotate(self, name: str, scale: torch.Tensor) -> None:
+        """Set the annotation `name` to `scale`, a float32 scalar tensor on
+        the block's device (registered when absent)."""
+        if name not in ACT_QUANT:
+            raise KeyError(f"unknown int8 annotation {name!r}")
+        self.register_buffer(name, scale.detach().reshape(()).to(torch.float32).clone())
+
+    def clear_act_quant(self) -> None:
+        for name in ACT_QUANT:
+            self._buffers.pop(name, None)
+
+    def _apply(self, fn, recurse=True):
+        keep = {n: self._buffers[n] for n in self.F32 if self._buffers.get(n) is not None}
+        super()._apply(fn, recurse)
+        for n, t in keep.items():
+            self._buffers[n] = fn(t.view(torch.int32)).view(torch.float32)
+        return self
+
+
+class Conv(Block):
     """Conv2d + BatchNorm + SiLU; after `fuse()`, Conv2d with bias + SiLU;
     after `to_int8()`, the int8 conv of the PTQ layout (quant/ptq.py).
 
     The int8 form holds buffers `w_q` (int8, the kernel's layout,
     ops/conv_int8_cuda.py:pack_weight) and `s_w` (Co,), `s_x` () and `b`
-    (Co,) in float32, which stay float32 when the module is cast (`_apply`),
-    as the JAX package keeps its params, and `compute_like`, an empty tensor
-    whose dtype follows the casts: the compute dtype. It takes an int8 input as
-    already quantized and returns the compute dtype, as the JAX package's
-    Conv returns ctx.dtype. `use_kernel` is handed to
-    conv2d_int8 (None: the kernel on the card; False: the plain version).
-    While `tap` is a dict, the forward records max |x| of a float input
-    there under `tap_key` (PTQ calibration, quant/ptq.py:calibrate_amax);
-    an int8 input is already quantized and is not recorded."""
+    (Co,) in float32, which stay float32 when the module is cast (Block),
+    and `compute_like`, an empty tensor whose dtype follows the casts: the
+    compute dtype. It takes an int8 input as already quantized and returns
+    the compute dtype, as the JAX package's Conv returns ctx.dtype; with
+    `q_out` it returns that output quantized to int8 (conv2d_int8 does it in
+    the kernel's epilogue). `use_kernel` is handed to conv2d_int8 (None: the
+    kernel on the card; False: the plain version). While `tap` is a dict,
+    the forward records max |x| of a float input there under `tap_key` (PTQ
+    calibration, quant/ptq.py:calibrate_amax); an int8 input is already
+    quantized and is not recorded."""
 
-    INT8_F32 = ("s_w", "s_x", "b")
     use_kernel = None
     tap = None
     tap_key = None
@@ -74,23 +126,34 @@ class Conv(nn.Module):
     def int8(self) -> bool:
         return "w_q" in self._buffers
 
-    def forward(self, x):
+    @property
+    def s8_kernel(self) -> bool:
+        """Whether the int8 form runs on conv_s8 (its shape class), rather
+        than on the exact integer route of the other shapes."""
+        return s8_kernel_takes(self.k, self.s, self.p, self.g, self.d)
+
+    def forward(self, x, q_out: Optional[torch.Tensor] = None):
         """The compute dtype is a float x's: the weight is cast to it and the
         output cast back to it (float32 master weights in training; a no-op
         on a model cast as a whole, as for serving). An int8 x (int8 form
-        only) carries none: the output takes `compute_like`'s."""
+        only) carries none: the output takes `compute_like`'s. q_out (None:
+        the Conv's own annotation) quantizes the output with that scale."""
+        if q_out is None:
+            q_out = self._buffers.get("q_out")
         if self.tap is not None and x.dtype != torch.int8:
             self.tap[self.tap_key] = x.float().abs().max()
         if self.int8:
             out_dtype = self.compute_like.dtype if x.dtype == torch.int8 else x.dtype
             return conv2d_int8(x, self._buffers, self.s, self.p, act=self.act,
-                               out_dtype=out_dtype, use_kernel=self.use_kernel)
+                               out_dtype=out_dtype, use_kernel=self.use_kernel, groups=self.g,
+                               dilation=self.d, q_out=q_out)
         bn = getattr(self, "bn", None)
         if bn is None:
             y = F.conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
         else:
             y = bn(F.conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g))
-        return (silu(y) if self.act else y).to(x.dtype)
+        y = (silu(y) if self.act else y).to(x.dtype)
+        return y if q_out is None else quantize_act(y, q_out)
 
     @torch.no_grad()
     def fuse(self) -> None:
@@ -105,33 +168,33 @@ class Conv(nn.Module):
     @torch.no_grad()
     def to_int8(self) -> None:
         """Replace the fused `w` and `b` by zeroed int8-form buffers on the
-        same device, to be filled by quantize_params or a weight load."""
+        same device, to be filled by quantize_params or a weight load. The
+        int8 sums must be exact in int32 (ops/conv_int8_cuda.py:int8_sums_fit);
+        a larger conv is refused."""
         if self.int8:
             return
-        if hasattr(self, "bn") or self.g != 1 or self.d != 1:
-            raise ValueError("only a fused Conv with groups 1 and dilation 1 has an int8 form")
-        dev, dtype = self.w.device, self.w.dtype
+        if hasattr(self, "bn"):
+            raise ValueError("only a fused Conv has an int8 form")
         kh, kw = self.k
+        if not int8_sums_fit(kh, kw, self.c1 // self.g):
+            raise ValueError(f"an int8 {kh}x{kw} conv over {self.c1 // self.g} channels a "
+                             f"group can sum past 2^31: its int32 sums are not exact")
+        dev, dtype = self.w.device, self.w.dtype
         del self.w, self.b
-        self.register_buffer("w_q", torch.zeros((self.c2, kh, kw, padded_channels(self.c1)),
-                                                dtype=torch.int8, device=dev))
+        self.register_buffer("w_q", torch.zeros(
+            (self.c2, kh, kw, padded_channels(self.c1 // self.g)), dtype=torch.int8, device=dev))
         self.register_buffer("s_w", torch.zeros(self.c2, device=dev))
         self.register_buffer("s_x", torch.zeros((), device=dev))
         self.register_buffer("b", torch.zeros(self.c2, device=dev))
         self.register_buffer("compute_like", torch.empty(0, dtype=dtype, device=dev),
                              persistent=False)
 
-    def _apply(self, fn, recurse=True):
-        """Casts leave the int8 form's float32 buffers float32: they go
-        through `fn` viewed as int32, which a cast does not touch and a move
-        moves."""
-        if not self.int8:
-            return super()._apply(fn, recurse)
-        keep = {n: self._buffers[n] for n in self.INT8_F32}
-        super()._apply(fn, recurse)
-        for n, t in keep.items():
-            self._buffers[n] = fn(t.view(torch.int32)).view(torch.float32)
-        return self
+
+class DWConv(Conv):
+    """Depthwise conv: groups gcd(c1, c2) (common.py:11 of the reference)."""
+
+    def __init__(self, c1, c2, k=1, s=1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
 
 
 class PlainConv(nn.Module):
@@ -165,10 +228,10 @@ class Seq(nn.Sequential):
 
     def __init__(self, *layers):
         super().__init__(*layers)
-        self.c2 = layers[-1].c2
+        self.c2 = layers[-1].c2 if layers else 0
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(Block):
     def __init__(self, c1, c2, shortcut=True, g=1, k=(3, 3), e=0.5):
         super().__init__()
         c_ = int(c2 * e)
@@ -177,14 +240,31 @@ class Bottleneck(nn.Module):
         self.add = shortcut and c1 == c2
         self.c2 = c2
 
-    def forward(self, x):
-        y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+    def forward(self, x, q_out: Optional[torch.Tensor] = None):
+        """q_out quantizes the output with that scale (in cv2's epilogue
+        where there is no shortcut)."""
+        if not self.add:
+            return self.cv2(self.cv1(x), q_out=q_out)
+        y = x + self.cv2(self.cv1(x))
+        return y if q_out is None else quantize_act(y, q_out)
 
 
-class C2f(nn.Module):
+def _s_x(conv: Conv) -> Optional[torch.Tensor]:
+    """An int8 Conv's input scale, None for a float Conv."""
+    return conv.s_x if conv.int8 else None
+
+
+def _cat(xs, q: Optional[torch.Tensor]) -> torch.Tensor:
+    """torch.cat of xs on channels; with q, each quantized with it first
+    (one quant_s8 a tensor into its slice of the int8 result)."""
+    return torch.cat(xs, dim=1) if q is None else quant_cat_s8(xs, q)
+
+
+class C2f(Block):
     """CSP bottleneck with 2 convs, the main YOLOv8 block. The split and the
-    concat are on channels, dim 1 in NCHW."""
+    concat are on channels, dim 1 in NCHW. With an int8 cv2 the chunks are
+    quantized to its scale before the concat (the last bottleneck's in its
+    own cv2's epilogue where it has no shortcut)."""
 
     def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
         super().__init__()
@@ -196,15 +276,88 @@ class C2f(nn.Module):
         self.c2 = c2
 
     def forward(self, x):
+        q = _s_x(self.cv2)
         y = self.cv1(x)
         ys = [y[:, : self.c], y[:, self.c:]]
-        for b in self.m:
-            ys.append(b(ys[-1]))
-        return self.cv2(torch.cat(ys, dim=1))
+        for i, b in enumerate(self.m):
+            ys.append(b(ys[-1], q_out=q if i == len(self.m) - 1 else None))
+        return self.cv2(_cat(ys, q), q_out=self.act_quant("q_out"))
 
 
-class SPPF(nn.Module):
-    """Fast SPP: three chained k-pools, padded with -inf."""
+class C2(Block):
+    """CSP bottleneck with 2 convs (common.py:154-171 of the reference)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = Seq(*[Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+                       for _ in range(n)])
+        self.c2 = c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        a, b = y[:, : self.c], y[:, self.c:]
+        a = self.m(a)
+        return self.cv2(_cat([a, b], _s_x(self.cv2)), q_out=self.act_quant("q_out"))
+
+
+class C3(Block):
+    """CSP bottleneck with 3 convs (common.py:139-151 of the reference). With
+    an int8 cv3, cv2 requantizes to its scale in its epilogue (its output
+    feeds the concat alone) and the bottlenecks' output is quantized."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = Seq(*[Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
+        self.c2 = c2
+
+    def forward(self, x):
+        q = _s_x(self.cv3)
+        a = self.m(self.cv1(x))
+        b = self.cv2(x, q_out=q)
+        return self.cv3(_cat([a, b], q), q_out=self.act_quant("q_out"))
+
+
+def max_pool(x: torch.Tensor, k: int, s: int = 1, p: Optional[int] = None) -> torch.Tensor:
+    """k x k max pool, padding k // 2, the padding never chosen (-inf for a
+    float x, the dtype's minimum for an int8 one in the JAX package: every
+    window holds an input). An int8 x on the card pools in bfloat16, which
+    holds every int8 value exactly, and is cast back: torch's CUDA max pool
+    has no int8 form. The CPU pools int8 as it is."""
+    p = k // 2 if p is None else p
+    if x.dtype == torch.int8 and x.device.type == "cuda":
+        return F.max_pool2d(x.to(torch.bfloat16), k, s, p).to(torch.int8)
+    return F.max_pool2d(x, k, s, p)
+
+
+class SPP(Block):
+    """Spatial pyramid pooling (common.py:216-227 of the reference). With an
+    int8 cv2, cv1 requantizes to its scale in its epilogue and the pools and
+    the concat run on int8."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.k = tuple(k)
+        self.c2 = c2
+
+    def forward(self, x):
+        x = self.cv1(x, q_out=_s_x(self.cv2))
+        ys = [x] + [max_pool(x, k) for k in self.k]
+        return self.cv2(torch.cat(ys, dim=1), q_out=self.act_quant("q_out"))
+
+
+class SPPF(Block):
+    """Fast SPP: three chained k-pools. With an int8 cv2, cv1 requantizes to
+    its scale in its epilogue and the pools and the concat run on int8."""
 
     def __init__(self, c1, c2, k=5):
         super().__init__()
@@ -215,15 +368,46 @@ class SPPF(nn.Module):
         self.c2 = c2
 
     def forward(self, x):
-        x = self.cv1(x)
-        y1 = F.max_pool2d(x, self.k, 1, self.k // 2)
-        y2 = F.max_pool2d(y1, self.k, 1, self.k // 2)
-        y3 = F.max_pool2d(y2, self.k, 1, self.k // 2)
-        return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+        x = self.cv1(x, q_out=_s_x(self.cv2))
+        y1 = max_pool(x, self.k)
+        y2 = max_pool(y1, self.k)
+        y3 = max_pool(y2, self.k)
+        return self.cv2(torch.cat([x, y1, y2, y3], dim=1), q_out=self.act_quant("q_out"))
 
 
-class Concat(nn.Module):
-    """Concatenate NCHW tensors on `dimension` (1 = channels)."""
+class Focus(Block):
+    """Space-to-depth stem (common.py:248-257 of the reference)."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True):
+        super().__init__()
+        self.conv = Conv(c1 * 4, c2, k, s, p, g, act=act)
+        self.c2 = c2
+
+    def forward(self, x):
+        y = torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
+                       x[:, :, 1::2, 1::2]], dim=1)
+        return self.conv(y)
+
+
+class GhostConv(Block):
+    """Ghost convolution (experimental.py:29-41 of the reference): a conv to
+    half the channels, then a 5x5 depthwise conv of that half beside it."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+        self.c2 = c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=1)
+
+
+class Concat(Block):
+    """Concatenate NCHW tensors on `dimension` (1 = channels); with `q_in`,
+    each input quantized first."""
 
     def __init__(self, dimension: int = 1):
         super().__init__()
@@ -231,11 +415,17 @@ class Concat(nn.Module):
         self.c2 = 0  # filled by the config parser
 
     def forward(self, xs):
-        return torch.cat(xs, dim=self.dim)
+        q = self.act_quant("q_in")
+        if q is None:
+            return torch.cat(xs, dim=self.dim)
+        if self.dim == 1:
+            return _cat(xs, q)
+        return torch.cat([quantize_act(x, q) for x in xs], dim=self.dim)
 
 
-class Upsample(nn.Module):
-    """Nearest-neighbour integer upsample."""
+class Upsample(Block):
+    """Nearest-neighbour integer upsample; with `q_in`, the input quantized
+    before it is replicated."""
 
     def __init__(self, size=None, scale_factor: int = 2, mode: str = "nearest"):
         super().__init__()
@@ -245,6 +435,9 @@ class Upsample(nn.Module):
         self.c2 = 0
 
     def forward(self, x):
+        q = self.act_quant("q_in")
+        if q is not None:
+            x = quantize_act(x, q)
         return x.repeat_interleave(self.f, dim=2).repeat_interleave(self.f, dim=3)
 
 
@@ -298,12 +491,31 @@ class Detect(nn.Module):
         return torch.cat([boxes, torch.sigmoid(cls.float())], dim=-1)
 
 
-# Registry used by the model-config interpreter (models/config.py).
+def last_conv(block: nn.Module) -> Optional[Conv]:
+    """The Conv whose output is a block's output (a Conv or DWConv block
+    itself; cv2 of C2, C2f, SPP and SPPF; cv3 of C3); None for the others."""
+    if isinstance(block, Conv):
+        return block
+    if isinstance(block, (C2, C2f, SPP, SPPF)):
+        return block.cv2
+    if isinstance(block, C3):
+        return block.cv3
+    return None
+
+
+# Registry used by the model-config interpreter (models/config.py): the JAX
+# package's main LAYERS (cerberusdet_tpu/nn/layers.py:454-469).
 LAYERS = {
     "Conv": Conv,
+    "DWConv": DWConv,
     "Bottleneck": Bottleneck,
+    "C2": C2,
     "C2f": C2f,
+    "C3": C3,
+    "SPP": SPP,
     "SPPF": SPPF,
+    "Focus": Focus,
+    "GhostConv": GhostConv,
     "Concat": Concat,
     "nn.Upsample": Upsample,
     "Upsample": Upsample,

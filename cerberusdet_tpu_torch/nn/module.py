@@ -15,10 +15,15 @@ import torch
 import torch.nn as nn
 
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
+    conv_epilogue,
     conv_s8,
     conv_s8_plain,
+    conv_sums_s8,
     quant_pack_s8,
     quant_pack_s8_plain,
+    quant_s8,
+    quant_s8_plain,
+    s8_kernel_takes,
 )
 
 BN_EPS = 1e-3
@@ -137,40 +142,60 @@ def quantize_act(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """Per-tensor symmetric int8 activation quantization:
     clip(round(x * (1 / s_x)), -127, 127), with the reciprocal in float32
     and round half to even, as the JAX package's quantize_act. int8 input
-    passes through."""
+    passes through. An NCHW tensor on the card is quantized by one kernel
+    (ops/conv_int8_cuda.py:quant_s8), which gives these codes."""
     if x.dtype == torch.int8:
         return x
-    inv_sx = 1.0 / s_x
-    return torch.clamp(torch.round(x.float() * inv_sx), -127.0, 127.0).to(torch.int8)
+    return quant_s8(x, s_x) if x.device.type == "cuda" else quant_s8_plain(x, s_x)
 
 
 def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
                 out_dtype: torch.dtype = torch.float32,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                use_kernel: Optional[bool] = None, groups: int = 1, dilation=1,
+                q_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantized inference conv, NCHW in and out: x quantized per tensor
     with p["s_x"] (quantize_act's arithmetic; int8 x is taken as already
-    quantized, as the JAX package's conv2d_int8 takes it) and packed NHWC
-    int8, the int32 sums of the int8 conv against p["w_q"] (pack_weight's
-    layout), then float32 acc * (s_x * s_w) + b. With the defaults that
-    float32 is the result (the JAX package's conv2d_int8); act applies SiLU
-    to it in float32 and out_dtype casts it, which the kernel does in its
-    epilogue.
+    quantized, as the JAX package's conv2d_int8 takes it), the int32 sums of
+    the int8 conv against p["w_q"] (pack_weight's layout), then float32
+    acc * (s_x * s_w) + b. With the defaults that float32 is the result (the
+    JAX package's conv2d_int8); act applies SiLU to it in float32 and
+    out_dtype casts it, which the kernel does in its epilogue. With q_out
+    (a float32 scalar tensor) the result is int8:
+    quantize_act(silu(y).to(out_dtype), q_out), which is the JAX package's
+    Conv (its output cast to the compute dtype) followed by a block's
+    __q_out__ quantize (cerberusdet_tpu/models/cerberus.py); the kernel
+    requantizes in its epilogue (the bf16-rounded y for a bf16 out_dtype).
 
-    p: {"w_q" int8 (Co, k, k, Ci16), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,) f32};
-    x float32, bfloat16 or int8. use_kernel: None goes through
-    ops/conv_int8_cuda.py:quant_pack_s8 and conv_s8, two CUDA kernels for a
-    tensor on the card and their plain versions on the CPU; False forces the
-    plain versions (a test hook)."""
+    p: {"w_q" int8 (Co, kh, kw, Cg16), "s_w" (Co,) f32, "s_x" () f32, "b" (Co,)
+    f32}, Cg16 the group's channels padded to 16; x float32, bfloat16 or
+    int8. The shapes conv_s8 takes (ops/conv_int8_cuda.py:s8_kernel_takes)
+    go through quant_pack_s8 and conv_s8, two CUDA kernels for a tensor on
+    the card and their plain versions on the CPU; use_kernel=False forces
+    the plain versions (a test hook). Other shapes (groups, other kernel
+    sizes, dilation) sum exactly in conv_sums_s8 on either device."""
     w_q = p["w_q"]
-    k = w_q.shape[1]
-    pad = autopad(k, padding)
+    kh, kw = w_q.shape[1], w_q.shape[2]
+    pad = autopad((kh, kw), padding, dilation)
+    q_dtype = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
+    kernel_out = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    if q_out is not None:
+        kernel_out = torch.int8
+    if not s8_kernel_takes((kh, kw), stride, pad, groups, dilation):
+        if x.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise TypeError(f"conv2d_int8 takes float32, bfloat16 or int8 activations, "
+                            f"not {x.dtype}")
+        acc = conv_sums_s8(quantize_act(x, p["s_x"]), w_q, stride, pad, dilation, groups)
+        y = conv_epilogue(acc, p["s_x"], p["s_w"], p["b"], act, kernel_out, q_out, q_dtype)
+        return y if q_out is not None else y.to(out_dtype)
     s, pad = (_single(stride, "stride"), _single(pad, "padding"))
     if use_kernel is False:
         pack, conv = quant_pack_s8_plain, conv_s8_plain
     else:  # the kernels on the card, the plain versions on the CPU
         pack, conv = quant_pack_s8, conv_s8
     xq = pack(x, p["s_x"], w_q.shape[3])
-    kernel_out = out_dtype if out_dtype == torch.bfloat16 else torch.float32
+    if q_out is not None:
+        return conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, torch.int8, q_out,
+                    q_dtype=q_dtype)
     y = conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, kernel_out)
     return y.to(out_dtype)
 

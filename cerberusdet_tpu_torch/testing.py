@@ -311,3 +311,41 @@ def calibrate_bn(model, x) -> None:
         for h in hooks:
             h.remove()
         model.train(was_training)
+
+
+# A 2-task model config that uses every block of the main layer registry
+# (DWConv, C2, C3, SPP, Focus and GhostConv beside Conv, C2f, Upsample and
+# Concat), the heads at strides 8 / 16 / 32, the neck split after its second
+# layer; yolov8n's multiples. Write it with yaml.safe_dump.
+ZOO_CFG = {
+    "depth_multiple": 0.33,
+    "width_multiple": 0.25,
+    "backbone": [
+        [-1, 1, "Focus", [64, 3]],               # 0  P1/2
+        [-1, 1, "Conv", [128, 3, 2]],            # 1  P2/4
+        [-1, 1, "C3", [128]],                    # 2
+        [-1, 1, "GhostConv", [256, 3, 2]],       # 3  P3/8
+        [-1, 2, "C2", [256]],                    # 4
+        [-1, 1, "DWConv", [512, 3, 2]],          # 5  P4/16
+        [-1, 1, "C3", [512]],                    # 6
+        [-1, 1, "Conv", [512, 3, 2]],            # 7  P5/32
+        [-1, 1, "SPP", [512, [5, 9, 13]]],       # 8
+    ],
+    "neck": [
+        [8, 1, "nn.Upsample", [None, 2, "nearest"]],   # 9
+        [[-1, 6], 1, "Concat", [1]],                   # 10
+        [-1, 1, "C2", [256, False]],                   # 11
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],  # 12
+        [[-1, 4], 1, "Concat", [1]],                   # 13
+        [-1, 1, "C3", [256, False]],                   # 14  P3 out
+        [-1, 1, "DWConv", [256, 3, 2]],                # 15
+        [[-1, 11], 1, "Concat", [1]],                  # 16
+        [-1, 1, "C2f", [256]],                         # 17  P4 out
+        [-1, 1, "GhostConv", [512, 3, 2]],             # 18
+        [[-1, 8], 1, "Concat", [1]],                   # 19
+        [-1, 1, "C3", [512, False]],                   # 20  P5 out
+    ],
+    "head": [[[14, 17, 20], 1, "Detect", []]],
+    "cerber": [[2, [[13], [14]]]],
+}
+

@@ -6,7 +6,9 @@ The port's counterpart of cerberusdet_tpu/tools/bench_int8.py: the full
 "all" — each with the headline's method (cerberusdet_tpu_torch/bench.py:
 a captured forward replayed as dependent iterations between CUDA events,
 best of 3, and the conv-node guard). Activation scales calibrate on the
-first 4 images of the timed batch, as the JAX tool's do. Prints one line a
+first 4 images of the timed batch, as the JAX tool's do, and both int8
+variants propagate them (quant/ptq.py:propagate_act_quant; the JAX tool
+passes model=). Prints one line a
 variant, then ONE JSON object {variant: {"ms_per_batch", "img_per_s",
 "speedup_vs_bf16"}}.
 
@@ -64,7 +66,7 @@ def main(argv=None):
         for v in chosen:
             model = copy.deepcopy(fused)
             if v != "bf16":
-                quantize_params(model, amax, weights=weights,
+                quantize_params(model, amax, weights=weights, propagate=True,
                                 select=select_all if v == "all" else select_deep(args.min_cin))
             r = time_forward(model, img, args.iters)
             del model

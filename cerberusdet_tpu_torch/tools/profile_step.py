@@ -12,7 +12,8 @@ trace, <out>/<host>_<pid>.pt.trace.json.gz (utils/profiling.py:trace):
     python -m cerberusdet_tpu_torch.tools.summarize_trace DIR --iters 5
 
 infer mode runs the fused seeded model in bf16, int8 calibrated on a
-seeded uniform batch (timing-faithful, accuracy-irrelevant), eagerly: the
+seeded uniform batch (timing-faithful, accuracy-irrelevant) and propagated
+(quant/ptq.py:propagate_act_quant, as the JAX tool), eagerly: the
 trace shows each kernel of the forward by name. train mode runs
 MultiTaskTrainer.step (float32, or bf16 compute with --bf16) on seeded
 batches with every gt row valid: on the card the untraced call captures the
@@ -70,7 +71,7 @@ def main(argv=None):
                 cal = [np.random.default_rng(0).uniform(
                     0, 1, (2, args.imgsz, args.imgsz, 3)).astype(np.float32)]
                 amax = calibrate_amax(model, cal)
-                quantize_params(model, amax, weights=weights,
+                quantize_params(model, amax, weights=weights, propagate=True,
                                 select=select_all if args.int8 == "all" else select_deep())
         img = torch.zeros((args.batch, args.imgsz, args.imgsz, 3), device=device)
 

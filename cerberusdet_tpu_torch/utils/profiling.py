@@ -175,12 +175,76 @@ def print_unmatched_once(nodes: Dict[str, Any], width: int = 160) -> None:
 
 
 def model_convs(model) -> Tuple[int, int]:
-    """(Conv and PlainConv modules, int8 Convs) of a CerberusModel: the
-    convolutions of its all-heads forward, which runs every block once."""
+    """(convolutions, int8 Convs on conv_s8) of a CerberusModel's all-heads
+    forward, which runs every block once: its Conv and PlainConv modules
+    except the int8 Convs of shapes conv_s8 does not take, which sum in a
+    float64 F.conv2d (ops/conv_int8_cuda.py:conv_sums_s8)."""
     from cerberusdet_tpu_torch.nn.layers import Conv, PlainConv
 
-    convs = [m for m in model.modules() if isinstance(m, (Conv, PlainConv))]
+    convs = [m for m in model.modules() if isinstance(m, (Conv, PlainConv))
+             and not (isinstance(m, Conv) and m.int8 and not m.s8_kernel)]
     return len(convs), sum(isinstance(m, Conv) and m.int8 for m in convs)
+
+
+def requant_convs(model) -> Dict[str, Any]:
+    """{uid: Conv} of a CerberusModel's blocks annotated with q_out
+    (quant/ptq.py:propagate_act_quant) whose last Conv is int8 on conv_s8:
+    the Convs whose kernel writes the block's int8 output."""
+    from cerberusdet_tpu_torch.nn.layers import last_conv
+
+    out = {}
+    for uid in model.block_nodes:
+        block = model.block(uid)
+        conv = last_conv(block)
+        if block.act_quant("q_out") is not None and conv is not None and conv.int8 \
+                and conv.s8_kernel:
+            out[uid] = conv
+    return out
+
+
+def check_requant(model, fn: Callable, x: torch.Tensor, what: str) -> int:
+    """The int8 guard's second half, on one eager fn(x): every block of
+    requant_convs(model) hands on int8 that its last Conv wrote, and on the
+    card that Conv launched conv_s8 once and no quant_s8, so the int8 came
+    from conv_s8's requantizing epilogue (hooks around each such Conv read
+    the launch counts before and after it). The check's kernel launches are
+    taken back from the wrappers' counts. Returns the number of such
+    blocks; raises otherwise."""
+    from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8, quant_s8
+
+    convs = requant_convs(model)
+    seen: Dict[str, Tuple[int, int, torch.dtype]] = {}
+
+    def hooks(uid):
+        def pre(mod, args):
+            seen[uid] = (conv_s8.launches, quant_s8.launches, None)
+
+        def post(mod, args, out):
+            n_conv, n_quant, _ = seen[uid]
+            seen[uid] = (conv_s8.launches - n_conv, quant_s8.launches - n_quant, out.dtype)
+
+        return pre, post
+
+    handles = []
+    for uid, conv in convs.items():
+        pre, post = hooks(uid)
+        handles += [conv.register_forward_pre_hook(pre), conv.register_forward_hook(post)]
+    counters = (conv_s8, quant_pack_s8, quant_s8)
+    before = [c.launches for c in counters]
+    try:
+        fn(x)
+    finally:
+        for h in handles:
+            h.remove()
+        for c, n in zip(counters, before):
+            c.launches = n
+    want = 1 if x.device.type == "cuda" else 0
+    bad = {uid: v for uid, v in seen.items() if v != (want, 0, torch.int8)}
+    if bad or len(seen) != len(convs):
+        raise AssertionError(f"{what}: {len(bad)} of {len(convs)} annotated blocks did not "
+                             f"requantize in one conv_s8 launch ({len(seen)} ran): "
+                             f"{sorted(bad.items())[:4]}")
+    return len(convs)
 
 
 def check_convs(nodes: Dict[str, Any], n_convs: int, n_int8: int, what: str) -> None:

@@ -164,7 +164,25 @@ Phases, each of which fails the run on anything wrong:
      paper's hyps, whose device runs feed the step the host runs' labels
      (sha1 a task and step) and launch each TAL kernel once per task and
      step. Prints each route's device ms, the loaders' img/s and the e2e
-     img/s, the host's wait a step and the loop's busy share.
+     img/s, the host's wait a step and the loop's busy share;
+ 11. carry int8 between the blocks (quant/ptq.py:propagate_act_quant, which
+     every int8 entry point runs): the flagship in bf16 + int8 "all" at
+     batch 1 and 8, 3 replayed requests each, beside a copy of the same
+     quantized model without annotations: responses and packed device
+     outputs identical; conv_s8 and quant_pack_s8 once per quantized Conv
+     and request, conv_s8 requantizing bf16(y) in its epilogue for every
+     annotated block whose last Conv is int8 (no quantize of its own); each
+     annotated block's int8 output equal to the CPU's quantize_act of the
+     unannotated block's; conv_s8 against its plain version at every
+     distinct conv shape and mode of a propagated forward (the new mode is
+     also in every earlier conv_s8 comparison). The headline forward
+     (bench.build) at batch 32 and 128 with and without the annotations,
+     each captured and replayed with the conv-node guard and the requantize
+     guard: ms, img/s, conv_s8 / quant_pack_s8 / concat / pool device time
+     and the graph pool. The int8 max pool (its bf16 route on the card) and
+     the integer route of grouped / 5x5 convs against the CPU; the zoo model
+     (every block of the main registry) served in int8 on the card,
+     propagated == unannotated.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -226,12 +244,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn() in ms: `iters` calls captured in one CUDA
+    graph, one replay between CUDA events, so the host's launch cost of
+    each call is not in it. fn must be capturable (no host sync)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def kernel_ms(fn, iters: int, name: str):
     """(device ms, source) of the kernel whose name contains `name`, per
     call of fn(), which launches it once: the kernel's own time on the card
-    from the profiler's CUDA trace, the mean over the launches it recorded. Where the trace shows no such kernel, the mean time of a
-    call by CUDA events (which counts the host's launch cost when that is
-    the longer), and source says so."""
+    from the profiler's CUDA trace, the mean over the launches it recorded.
+    Where the trace shows no such kernel, the mean time of a call in a CUDA
+    graph of `iters` calls (graph_ms), and source says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,7 +287,8 @@ def kernel_ms(fn, iters: int, name: str):
     if count and us > 0:  # fn launches the kernel once: the mean of the launches seen
         return us / 1e3 / count, ("profiler" if count == iters else
                                   f"profiler, {count} of {iters} launches seen")
-    return cuda_ms(fn, iters), "events (the profiler saw no kernel)"
+    return graph_ms(fn, iters), f"events around a CUDA graph of {iters} calls (the profiler " \
+                                "saw no kernel)"
 
 
 def nms_work(boxes, scores, iou_thres: float, max_det: int):
@@ -378,7 +419,7 @@ def tal_compare(inp, nc: int):
 
 # the symbols of the serving kernels, by wrapper (ops/nms_cuda.py, ops/conv_int8_cuda.py)
 KERNEL_SYMBOLS = {"greedy_nms_cuda": "nms_kernel", "quant_pack_s8": "quant_pack",
-                  "conv_s8": "conv_s8_kernel"}
+                  "conv_s8": "conv_s8_kernel", "quant_s8": "quant_nchw_kernel"}
 
 
 def replay_matches_eager(inf, batch, args) -> None:
@@ -678,10 +719,12 @@ def matched_detections(a, b, iou_min: float = 0.5) -> int:
 
 def conv_s8_compare(xq, w_q, s_x, s_w, bias, stride: int, act: bool, tile=None):
     """conv_s8 (with the block tile `tile`, None for the wrapper's choice)
-    against conv_s8_plain on the same inputs in each of its four output
-    types. Returns the largest |kernel - plain| over them; raises,
-    after printing the count of differing elements and the largest ulp or
-    step, on any difference."""
+    against conv_s8_plain on the same inputs in each of its five epilogue
+    modes: int32, float32, bfloat16, int8 of y and int8 of the bf16-rounded
+    y (the scale a float32 tensor on the card, read there).
+    Returns the largest |kernel - plain| over them; raises, after printing
+    the count of differing elements and the largest ulp or step, on any
+    difference."""
     import torch
 
     from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, conv_s8_plain
@@ -689,10 +732,17 @@ def conv_s8_compare(xq, w_q, s_x, s_w, bias, stride: int, act: bool, tile=None):
     pad = w_q.shape[1] // 2
     plain32 = conv_s8_plain(xq, w_q, s_x, s_w, bias, stride, pad, act, torch.float32)
     q_scale = max(float(plain32.abs().max()), 1e-6) / 127.0
+    q_full = torch.tensor(q_scale, dtype=torch.float32, device=xq.device)
+    q_tensor = torch.tensor(0.8 * q_scale, dtype=torch.float32, device=xq.device)
     worst = 0.0
-    for dtype in (torch.int32, torch.float32, torch.bfloat16, torch.int8):
-        args = (xq, w_q, s_x, s_w, bias, stride, pad, act, dtype, q_scale)
-        got, ref = conv_s8(*args, tile=tile), conv_s8_plain(*args)
+    for dtype, q, q_dtype in ((torch.int32, None, torch.float32),
+                              (torch.float32, None, torch.float32),
+                              (torch.bfloat16, None, torch.float32),
+                              (torch.int8, q_full, torch.float32),
+                              (torch.int8, q_tensor, torch.bfloat16)):
+        args = (xq, w_q, s_x, s_w, bias, stride, pad, act, dtype, q)
+        got = conv_s8(*args, tile=tile, q_dtype=q_dtype)
+        ref = conv_s8_plain(*args, q_dtype)
         torch.cuda.synchronize()
         diff = (got.double() - ref.double()).abs()
         worst = max(worst, float(diff.max()))
@@ -703,7 +753,8 @@ def conv_s8_compare(xq, w_q, s_x, s_w, bias, stride: int, act: bool, tile=None):
                 how = f"largest {float(ulp.max()):.3g} ulp"
             else:
                 how = f"largest {float(diff.max()):.0f} steps"
-            log(f"[conv_s8 vs plain] {dtype}, tile {tile}: {n_diff} of {got.numel()} elements differ, {how}")
+            log(f"[conv_s8 vs plain] {dtype} (of {q_dtype}), tile {tile}: {n_diff} of "
+                f"{got.numel()} elements differ, {how}")
             raise AssertionError(f"conv_s8 disagrees with its plain version in {dtype}")
     return worst
 
@@ -842,7 +893,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
             f"{view(base).stride()}, in bf16, float32 and int8: identical")
     log(f"[conv_s8 vs plain] {len(cases)} distinct (Ci, Co, k, s, H, W) of the flagship's "
         f"quantized convs at batch 8, on a request's activations, in int32 / float32 / "
-        f"bf16 / int8: identical (max |diff| {max_err})")
+        f"bf16 / int8 of y / int8 of bf16(y): identical (max |diff| {max_err})")
     rng = np.random.default_rng(11)
     edge = []
     for name, ci, co, k, s, b, h, w in [("ragged 13x17, Co 80 against BN", 80, 80, 3, 1, 3, 13, 17),
@@ -1035,7 +1086,8 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
             f"{str(out_dtype).split('.')[-1]} out, tile "
             f"{conv_int8_cuda.conv_tile(out_elems // co, co, torch.cuda.get_device_properties(dev).multi_processor_count)}: "
             f"kernel {k_ms:.4f} ms ({how}), {kmacs / k_ms / 1e9:.2f} TMAC/s, bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / k_ms:.1f}%); plain "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / max(k_ms, 1e-9):.1f}%); "
+        f"plain "
             f"(float64 conv + epilogue) {p_ms:.3f} ms; {extra}  [{card}]")
         entries.append({
             "name": "conv_s8" if k == 3 else "conv_s8 (1x1, int32 out)",
@@ -1063,7 +1115,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
     y = torch.empty_like(x)
     copy_ms = cuda_ms(lambda: y.copy_(x), iters=20)
     del y
-    log(f"[quant_pack_s8 at main-path shapes] x {tuple(x.shape)} bf16 -> (B, H, W, {ci16}) "
+    log(f"[quant_pack_s8 at main-path shapes] x {tuple(x.shape)} {x.dtype} -> (B, H, W, {ci16}) "
         f"int8: kernel {q_ms:.4f} ms ({how}), {q_bytes / q_ms / 1e6:.1f} GB/s, bound "
         f"{q_bound:.4f} ms ({100 * q_bound / q_ms:.1f}%); plain {qp_ms:.3f} ms; for context, "
         f"a plain copy of x (torch.empty_like(x).copy_(x), {2 * x.numel() * x.element_size() / 1e6:.1f} "
@@ -1075,7 +1127,7 @@ def serve_int8(inf_bf16, pre, frames, served_bf16, names, card: str, dev):
         "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
         "replaces": "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas kernel; part "
                     "of conv_s8's redesign)",
-        "shape": f"{tuple(x.shape)} bf16",
+        "shape": f"{tuple(x.shape)} {str(x.dtype).split('.')[-1]}",
         "launches": pack_launches,
         "max_abs_err": pack_err,
         "ms": q_ms,
@@ -1139,9 +1191,12 @@ def val_batch_convs(model, x, task, checked, calls):
 
     before = (ci.conv_s8.launches, ci.quant_pack_s8.launches)
 
-    def hook(mod, args):
+    def hook(mod, args, kwargs):
         x = args[0]
-        key = (x.shape[0], mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3])
+        q_out = kwargs.get("q_out")
+        q_out = mod.act_quant("q_out") if q_out is None else q_out
+        key = (x.shape[0], mod.c1, mod.c2, mod.k[0], mod.s[0], x.shape[2], x.shape[3],
+               q_out is not None)
         calls[key] = calls.get(key, 0) + 1
         if key in checked:
             return
@@ -1151,10 +1206,12 @@ def val_batch_convs(model, x, task, checked, calls):
         pack_err = int((q_kernel.int() - q_plain.int()).abs().max())
         if pack_err:
             raise AssertionError(f"quant_pack_s8 differs from its plain version at {key}")
-        out = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        dtype = mod.compute_like.dtype
+        out = torch.int8 if q_out is not None else dtype
+        q_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
         conv = (q_plain, mod.w_q, mod.s_x, mod.s_w, mod.b, mod.s[0], mod.p[0], bool(mod.act),
-                out)
-        got = ci.conv_s8(*conv)
+                out, q_out, q_dtype)
+        got = ci.conv_s8(*conv[:10], q_dtype=q_dtype)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         want = ci.conv_s8_plain(*conv)
@@ -1167,10 +1224,10 @@ def val_batch_convs(model, x, task, checked, calls):
         if conv_err or not torch.equal(got, want):
             raise AssertionError(f"conv_s8 differs from its plain version at {key}")
         checked[key] = (start.elapsed_time(mid), mid.elapsed_time(end), conv_err, pack_err,
-                        cuda_ms(lambda: ci.conv_s8(*conv), iters=5),
+                        cuda_ms(lambda: ci.conv_s8(*conv[:10], q_dtype=q_dtype), iters=5),
                         cuda_ms(lambda: ci.quant_pack_s8(x, mod.s_x, ci16), iters=5))
 
-    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+    hooks = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
              if isinstance(m, Conv) and m.int8]
     try:
         model(x, tasks=None if task is None else [task])
@@ -1195,9 +1252,9 @@ def conv_totals(checked, calls):
     p_pack = sum(checked[k][1] * n for k, n in calls.items())
     macs = sum(n * b * co * ci * k * k * ((h + 2 * (k // 2) - k) // s + 1)
                * ((w + 2 * (k // 2) - k) // s + 1)
-               for (b, ci, co, k, s, h, w), n in calls.items())
+               for (b, ci, co, k, s, h, w, _), n in calls.items())
     pack_bytes = sum(n * b * h * w * (2 * ci + padded_channels(ci))
-                     for (b, ci, co, k, s, h, w), n in calls.items())
+                     for (b, ci, co, k, s, h, w, _), n in calls.items())
     return (k_conv, k_pack, p_conv, p_pack, 2 * macs / INT8_OPS_PER_S * 1e3,
             pack_bytes / HBM_BYTES_PER_S * 1e3, sum(calls.values()),
             max(c[2] for c in checked.values()), max(c[3] for c in checked.values()))
@@ -2822,6 +2879,7 @@ def headline(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
     from cerberusdet_tpu_torch.utils.profiling import tensor_leaves
 
     kern = {"conv_s8": conv_int8_cuda.conv_s8, "quant_pack_s8": conv_int8_cuda.quant_pack_s8,
+            "quant_s8": conv_int8_cuda.quant_s8,
             "nms": nms_cuda.greedy_nms_cuda, "tal_select": tal_cuda.select_kernel,
             "tal_assign": tal_cuda.assign_kernel, "tal_norm": tal_cuda.norm_kernel}
     name_of = {f: k for k, f in kern.items()}
@@ -3757,6 +3815,483 @@ def data_path(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- phase 11: int8 carried between the blocks
+
+# the int8 routes conv_s8 does not take, on the card against the CPU:
+# (what, Ci, Co, k, stride, groups, B, H, W)
+SUMS_CASES = [
+    ("GhostConv's 5x5 depthwise half, 160 channels at 80x80", 160, 160, 5, 1, 160, 8, 80, 80),
+    ("DWConv c2 = 2 c1, 3x3 s2, 320 -> 640 at 40x40", 320, 640, 3, 2, 320, 8, 40, 40),
+    ("a grouped bottleneck conv, groups 4, 3x3, 256 at 20x20", 256, 256, 3, 1, 4, 8, 20, 20),
+    ("a 5x5 conv, groups 1, 64 -> 32 at 15x20", 64, 32, 5, 1, 1, 2, 15, 20),
+    ("a 5x5 conv, groups 1, 256 -> 256 at 40x40", 256, 256, 5, 1, 1, 2, 40, 40),
+]
+# the int8 max pools: (shape, k); the flagship's SPPF input at batch 8 first
+POOL_CASES = [((8, 320, 20, 20), 5), ((2, 64, 2, 2), 13), ((1, 3, 15, 20), 9),
+              ((4, 160, 40, 40), 9)]
+# device-time categories of a forward, by kernel-name fragment (the first match wins)
+FORWARD_KERNELS = (("conv_s8", ("conv_s8_kernel",)), ("quant_pack_s8", ("quant_pack",)),
+                   ("quant_s8", ("quant_nchw_kernel",)),
+                   ("concat", ("CatArrayBatchedCopy",)), ("max pool", ("max_pool",)),
+                   ("cuDNN / cuBLAS conv", ("fprop", "implicit_gemm", "convolve", "conv2d",
+                                            "nvjet")))
+
+
+def forward_breakdown(prof, n: int):
+    """{category: (ms, launches)} a forward, from the CUDA profiler's key
+    averages over n forwards; the rest under "other"."""
+    out = {name: [0.0, 0] for name, _ in FORWARD_KERNELS}
+    out["other"] = [0.0, 0]
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        name = next((c for c, frags in FORWARD_KERNELS if any(f in e.key for f in frags)),
+                    "other")
+        out[name][0] += e.device_time_total / 1e3 / n
+        out[name][1] += e.count / n
+    return out
+
+
+def propagation(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, batches=(1, 8),
+                bench_batches=(REFERENCE_BATCH, HEADLINE_BATCH), iters: int = 10,
+                sums_cases=SUMS_CASES, pool_cases=POOL_CASES, zoo_imgsz: int = 64):
+    """Phase 11: the int8 serving graph as the JAX package runs it
+    (quant/ptq.py:propagate_act_quant; CerberusDetInference propagates
+    whenever it quantizes). The flagship in bf16 + int8 "all" served at
+    batch 1 and 8 (3 requests each, replayed) beside a copy of the same
+    model with its annotations cleared: every response, and every replay's
+    packed outputs, identical; conv_s8 and quant_pack_s8 once per quantized
+    Conv and request, conv_s8 requantizing once per annotated block whose
+    last Conv is int8 (check_requant) plus the SPPF / C3 Convs that write
+    int8 for their blocks' concats; every annotated block's output (int8)
+    equal to the CPU's quantize_act of the unannotated block's; conv_s8
+    against its plain version at every distinct conv shape and mode of a
+    propagated forward. The headline forward (bench.build, seeded,
+    calibrated in float64) at each batch of `bench_batches` with and
+    without the annotations, each captured and replayed (HonestLoop), the
+    conv-node guard and check_requant on each: ms, img/s, the profiler's
+    conv_s8 / quant_pack_s8 / concat / pool shares and the graph pool. The
+    int8 routes conv_s8 does not take and the int8 pools on the card against
+    the CPU, and the zoo model (every block of the main registry) served on
+    the card in int8 "all", propagated and not, identical. Returns the
+    kernels-line entry of conv_s8's requantizing mode."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberusdet_tpu_torch import bench
+    from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
+    from cerberusdet_tpu_torch.infer.inference import pack_outputs
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn import layers as L
+    from cerberusdet_tpu_torch.nn.module import conv2d_int8, quantize_act
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.ops import nms_cuda
+    from cerberusdet_tpu_torch.quant import (
+        act_quant_annotations,
+        clear_act_quant,
+        propagate_act_quant,
+    )
+    from cerberusdet_tpu_torch.testing import ZOO_CFG
+    from cerberusdet_tpu_torch.utils.profiling import (
+        HonestLoop,
+        check_convs,
+        check_requant,
+        model_convs,
+        requant_convs,
+    )
+
+    on_card = dev.type == "cuda"
+    wrappers = (ci.conv_s8, ci.quant_pack_s8, nms_cuda.greedy_nms_cuda, ci.quant_s8)
+    saved = [w.launches for w in wrappers]
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    t0 = time.perf_counter()
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    distinct_heads(model, seed=1)
+    inf = CerberusDetInference(model=model, names=names, conf_thres=CONF, img_size=imgsz,
+                               dtype=torch.bfloat16, device=dev, int8="all")
+    plain = CerberusDetInference(model=copy.deepcopy(inf.model), names=names, conf_thres=CONF,
+                                 img_size=imgsz, dtype=torch.bfloat16, device=dev)
+    clear_act_quant(plain.model)
+    ann = act_quant_annotations(inf.model)
+    n_q = len(inf.int8_convs)
+    fused_blocks = requant_convs(inf.model)
+    if not ann or act_quant_annotations(plain.model) or len(plain.int8_convs) != n_q:
+        raise AssertionError("propagation: the two models are not the annotated and the "
+                             "unannotated form of one quantized model")
+    log(f"[propagation] {os.path.basename(cfg)} bf16 + int8 all: {n_q} int8 Convs, "
+        f"{sum(k == 'q_out' for _, k in ann)} blocks annotated q_out "
+        f"({len(fused_blocks)} of them end in an int8 Conv on conv_s8), "
+        f"{sum(k == 'q_in' for _, k in ann)} Concat / Upsample q_in; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: the first request of each batch size captures, then 3 + 3 replayed
+    pre = CerberusPreprocessor(img_size=imgsz, device=dev)
+    rng = np.random.default_rng(31)
+    frames = {bs: [list(rng.integers(0, 256, (bs, 480, 640, 3), dtype=np.uint8))
+                   for _ in range(3)] for bs in batches}
+    for bs in batches:
+        for server in (inf, plain):
+            server.predict(*pre.preprocess(frames[bs][0]))
+    for w in wrappers:
+        w.launches = 0
+    served = []
+    for bs in batches:
+        for imgs in frames[bs]:
+            batch, shapes = pre.preprocess(imgs)
+            served.append((batch, shapes, inf.predict(batch, original_shape=shapes)))
+    got = [w.launches for w in wrappers]
+    n_req = len(served)
+    x8 = served[-1][0].permute(0, 3, 1, 2).to(torch.bfloat16)
+    before = [w.launches for w in wrappers]
+    quant_calls = []
+    real_quant = ci.quant_s8
+
+    def recording_quant_s8(x, s_x, out=None):
+        quant_calls.append((x, s_x, out is not None))
+        return real_quant(x, s_x, out)
+
+    requant_convs_seen = []
+
+    def count_requant(mod, args, out):  # a Conv on conv_s8 that wrote int8 requantized
+        if mod.int8 and mod.s8_kernel and out.dtype == torch.int8:
+            requant_convs_seen.append(mod)
+
+    # the kernel counts its launches under its module's name, the recorder's here
+    recording_quant_s8.launches = 0
+    mod_quant = sys.modules["cerberusdet_tpu_torch.nn.module"]
+    ci.quant_s8 = mod_quant.quant_s8 = recording_quant_s8
+    handles = [m.register_forward_hook(count_requant) for m in inf.model.modules()
+               if isinstance(m, L.Conv)]
+    try:
+        inf.model(x8)  # one eager forward: each kernel's launches a forward, quant_s8's inputs
+    finally:
+        ci.quant_s8 = mod_quant.quant_s8 = real_quant
+        for h in handles:
+            h.remove()
+    real_quant.launches += recording_quant_s8.launches
+    per_forward = [w.launches - n for w, n in zip(wrappers, before)]
+    for w, n in zip(wrappers, before):
+        w.launches = n
+    requant_per_forward, quant_per_forward = len(requant_convs_seen), per_forward[3]
+    n_blocks = check_requant(inf.model, inf.model, x8, "propagation")
+    log(f"[propagation] {n_req} requests: conv_s8 {got[0]}, quant_pack_s8 {got[1]} launches "
+        f"(expected {n_q} x {n_req}); of a forward's {per_forward[0]} conv_s8 launches "
+        f"{requant_per_forward} requantize in the epilogue (Conv hooks: the {n_blocks} "
+        f"annotated blocks' last Convs and the Convs that write int8 for their blocks' "
+        f"concats); quant_s8 {got[3]} ({quant_per_forward} a forward: the concats' and "
+        f"upsamples' float inputs); NMS {got[2]}")
+    if on_card and (got[:2] != [n_q * n_req] * 2 or per_forward[0] != n_q
+                    or requant_per_forward < n_blocks or got[2] != len(TASKS) * n_req
+                    or got[3] != quant_per_forward * n_req or quant_per_forward == 0):
+        raise AssertionError(f"propagation: launches {got} on {n_req} requests")
+    main_launches = got
+
+    # quant_s8 against its plain version on every input the forward gave it, and at
+    # edge cases, into a new tensor and into a channel slice at an odd offset
+    quant_err, seen = 0, set()
+
+    def quant_compare(x, s_x, what):
+        ref = ci.quant_s8_plain(x, s_x)
+        buf = torch.zeros((x.shape[0], x.shape[1] + 4, x.shape[2], x.shape[3]),
+                          dtype=torch.int8, device=x.device)
+        for got_q in (ci.quant_s8(x, s_x), ci.quant_s8(x, s_x, buf[:, 3:3 + x.shape[1]])):
+            if not torch.equal(got_q, ref):
+                log(f"[quant_s8 vs plain] {what}: {int((got_q != ref).sum())} of "
+                    f"{ref.numel()} codes differ")
+                raise AssertionError("quant_s8 disagrees with its plain version")
+        if buf[:, :3].any() or buf[:, 3 + x.shape[1]:].any():
+            raise AssertionError(f"quant_s8 wrote outside its channel slice: {what}")
+        return int((ci.quant_s8(x, s_x).int() - ref.int()).abs().max())
+
+    before = [w.launches for w in wrappers]
+    for x, s_x, _ in quant_calls:
+        key = (tuple(x.shape), x.dtype, x.stride())
+        if key not in seen:
+            seen.add(key)
+            quant_err = max(quant_err, quant_compare(x, s_x, f"{key}"))
+    s_e = torch.tensor(0.029, device=dev)
+    gen_e = torch.Generator(device=dev).manual_seed(13)
+    for name, shape, view in PACK_EDGE_CASES:
+        base = torch.randn(shape, generator=gen_e, device=dev) * 2.5
+        for xt in (base.to(torch.bfloat16), base, quantize_act(base, s_e)):
+            quant_err = max(quant_err, quant_compare(view(xt), s_e, name))
+    log(f"[quant_s8 vs plain] the {len(quant_calls)} quantizes of a propagated batch-"
+        f"{x8.shape[0]} forward ({len(seen)} distinct inputs) and the edge cases of "
+        f"quant_pack_s8 (misaligned planes, odd channel slices, channels-last views, HW 1; "
+        f"bf16, float32, int8), each into a new tensor and into a channel slice at offset 3: "
+        f"identical, nothing written outside the slice")
+    big = max(quant_calls, key=lambda c: (c[0].dtype != torch.int8, c[0].numel()))
+    xb, sb_ = big[0], big[1]
+    q_ms, q_how = kernel_ms(lambda: ci.quant_s8(xb, sb_), 20, "quant_nchw") if on_card else (
+        0.0, "the CPU")
+    qp_ms = cuda_ms(lambda: ci.quant_s8_plain(xb, sb_), iters=5)
+    q_bytes = xb.numel() * (xb.element_size() + 1)
+    for w, n in zip(wrappers, before):
+        w.launches = n
+    log(f"[quant_s8 at main-path shapes] x {tuple(xb.shape)} {xb.dtype} -> int8: kernel "
+        f"{q_ms:.4f} ms ({q_how}), bound {q_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({100 * q_bytes / HBM_BYTES_PER_S * 1e3 / max(q_ms, 1e-9):.1f}%); plain (5 PyTorch "
+        f"ops) {qp_ms:.3f} ms  [{card}]")
+    quant_entry = {
+        "name": "quant_s8",
+        "route": "cuda",
+        "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "cerberusdet_tpu/nn/module.py:162 (quantize_act where the propagated "
+                    "graph quantizes outside a conv; XLA fuses it, no Pallas kernel)",
+        "shape": f"{tuple(xb.shape)} {str(xb.dtype).split('.')[-1]}",
+        "launches": main_launches[3],
+        "max_abs_err": quant_err,
+        "ms": q_ms,
+        "plain_ms": qp_ms,
+        "bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,  # torch.quantize_per_tensor divides and clamps to [-128, 127]
+        "ms_source": q_how,
+    }
+    del quant_calls, big, xb
+
+    # the same requests unannotated: identical responses and device outputs
+    args = (CONF, 0.45, 0.8, False, 300)
+    for batch, shapes, out in served:
+        same_results(out, plain.predict(batch, original_shape=shapes), score_rtol=0.0)
+        xb = torch.as_tensor(batch)
+        a = inf.programs[inf.program_key(xb, *args)].run(xb) if on_card else pack_outputs(
+            *inf.predict_device(xb.to(dev), *args))
+        b = plain.programs[plain.program_key(xb, *args)].run(xb) if on_card else pack_outputs(
+            *plain.predict_device(xb.to(dev), *args))
+        if not torch.equal(a, b):
+            raise AssertionError("propagation: a propagated request differs from the same "
+                                 "request unannotated")
+    if on_card:
+        for server in (inf, plain):
+            if len(server.programs) != len(batches) or \
+                    sum(p.replays for p in server.programs.values()) < n_req:
+                raise AssertionError("propagation: the requests did not replay their graphs")
+    n_det = sum(len(r) for _, _, out in served for r in out)
+    log(f"[propagation] batch {' and '.join(map(str, batches))}, {n_req} replayed requests: "
+        f"propagated == unannotated, responses and packed device outputs bit for bit "
+        f"({n_det} detections)")
+
+    # each annotated block's int8 output against the CPU's quantize_act of the unannotated one
+    outs = {"p": {}, "u": {}}
+
+    def keep(tag, uid):
+        def hook(mod, a, out):
+            outs[tag][uid] = out
+        return hook
+
+    hooks = []
+    for uid, _ in ann:
+        hooks.append(inf.model.block(uid).register_forward_hook(keep("p", uid)))
+        hooks.append(plain.model.block(uid).register_forward_hook(keep("u", uid)))
+    before = [w.launches for w in wrappers]
+    inf.model(x8)
+    plain.model(x8)
+    for h in hooks:
+        h.remove()
+    n_bytes = [0, 0]
+    for (uid, name), scale in ann.items():
+        p_out, u_out = outs["p"][uid], outs["u"][uid]
+        ref = quantize_act(u_out.cpu(), torch.tensor(scale, dtype=torch.float32))
+        if p_out.dtype != torch.int8 or not torch.equal(p_out.cpu(), ref):
+            raise AssertionError(f"propagation: block {uid} ({name}) hands on other int8 than "
+                                 f"the CPU's quantize_act of the unannotated block's output")
+        n_bytes[0] += p_out.numel() * p_out.element_size()
+        n_bytes[1] += u_out.numel() * u_out.element_size()
+    log(f"[propagation] the {len(ann)} annotated blocks' outputs of a batch-{x8.shape[0]} "
+        f"forward: int8, each equal to the CPU's quantize_act of the unannotated block's bf16 "
+        f"output; "
+        f"{n_bytes[0] / 2**20:.1f} MiB handed on instead of {n_bytes[1] / 2**20:.1f} MiB")
+
+    # conv_s8 against its plain version at every distinct conv shape and mode of the forward
+    checked, calls = {}, {}
+    val_batch_convs(inf.model, x8, None, checked, calls)
+    for w, n in zip(wrappers, before):
+        w.launches = n
+    req_keys = [k for k in checked if k[-1]]
+    log(f"[conv_s8 vs plain] the propagated forward's {len(checked)} distinct (B, Ci, Co, k, s, "
+        f"H, W, requantizing) conv calls, {len(req_keys)} of them requantizing bf16(y) with "
+        f"the consumer's scale: identical, as quant_pack_s8 on their inputs (int8 or bf16)")
+    key = max(req_keys, key=lambda c: c[0] * c[1] * c[2] * c[3] ** 2 * c[5] * c[6] // c[4] ** 2)
+    b, c_in, c_out, k, st, h, w, _ = key
+    ho, wo = (h + 2 * (k // 2) - k) // st + 1, (w + 2 * (k // 2) - k) // st + 1
+    kmacs = b * ho * wo * c_out * c_in * k * k
+    ci16 = ci.padded_channels(c_in)
+    nbytes = b * h * w * ci16 + c_out * k * k * ci16 + 12 * c_out + b * c_out * ho * wo
+    ops_ms, bytes_ms = 2 * kmacs / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    k_ms, p_ms = checked[key][4], checked[key][0]
+    log(f"[conv_s8 requantizing at main-path shapes] {k}x{k} s{st} {c_in}->{c_out} at {h}x{w}, "
+        f"batch {b}, int8 of bf16(y) out: kernel {k_ms:.4f} ms (CUDA events, mean of 5), bound "
+        f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / max(k_ms, 1e-9):.1f}%); "
+        f"plain "
+        f"{p_ms:.3f} ms  [{card}]")
+    entry = {
+        "name": "conv_s8 (int8 of bf16(y), the propagated graph's requantize)",
+        "route": "cuda",
+        "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65 (q_out, :120-123; here of the "
+                    "bf16-rounded value, cerberusdet_tpu/models/cerberus.py:226-234)",
+        "shape": f"{k}x{k} s{st} {c_in}->{c_out} at {h}x{w}, batch {b}",
+        "launches": requant_per_forward * n_req,  # of conv_s8's, by the Conv hooks
+        "max_abs_err": max(checked[q][2] for q in req_keys),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,  # no PyTorch call computes an int8 convolution and requantizes
+    }
+    del inf, plain, served, outs, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the headline forward with and without the annotations
+    t0 = time.perf_counter()
+    hmodel = bench.build(cfg, dev, True, imgsz)
+    ann_h = act_quant_annotations(hmodel)
+    n_convs, n_int8 = model_convs(hmodel)
+    counted = (ci.quant_pack_s8, ci.conv_s8)
+    log(f"[propagation headline] bench.build: {n_int8} int8 Convs, {len(ann_h)} annotations, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for bs, order in zip(bench_batches, ((True, False), (False, True))):
+        img = bench.make_input(bs, imgsz, dev)
+        for prop in order:
+            if prop:
+                propagate_act_quant(hmodel)
+                if act_quant_annotations(hmodel) != ann_h:
+                    raise AssertionError("propagation: re-annotating gave other annotations")
+            else:
+                clear_act_quant(hmodel)
+            label = f"batch {bs} {'propagated' if prop else 'unannotated'}"
+            fn = bench.forward_fn(hmodel)
+            n_blocks = check_requant(hmodel, fn, img, label)
+            with HonestLoop(fn, img, counted) as loop:
+                nodes = loop.conv_nodes()
+                if nodes is not None:
+                    check_convs(nodes, n_convs, n_int8, label)
+                per_replay = (dict(zip(("quant_pack_s8", "conv_s8"),
+                                       loop.prog.launches)) if loop.prog is not None else {})
+                ms, host_ms = loop.time(iters)
+                acts = [ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]
+                with profile(activities=acts) as prof:
+                    loop.step(2)
+                    if on_card:
+                        torch.cuda.synchronize()
+                parts = forward_breakdown(prof, 2)
+                pool = loop.pool_mib()
+            ms = ms if ms is not None else host_ms
+            total = sum(v[0] for v in parts.values())
+            rows[(bs, prop)] = (ms, parts, pool)
+            share = ", ".join(f"{k} {v[0]:.3f} ms ({100 * v[0] / max(total, 1e-9):.1f}%, "
+                              f"{v[1]:.0f} launches)" for k, v in parts.items())
+            log(f"[propagation headline] {label}: {ms:.3f} ms a forward (CUDA events, best of 3 "
+                f"rounds of {iters} replays), {bs / ms * 1e3:.1f} img/s, host {host_ms:.3f} ms; "
+                f"graph: {nodes['kernels'] if nodes else '-'} kernel nodes, launches a replay "
+                f"{per_replay}, {n_blocks} blocks requantized in conv_s8, pool "
+                f"{pool if pool is None else round(pool, 1)} MiB; device time of a replay "
+                f"{total:.3f} ms: {share}  [{card}]")
+    propagate_act_quant(hmodel)
+    for bs in bench_batches:
+        a, b = rows[(bs, True)][0], rows[(bs, False)][0]
+        log(f"[propagation headline] batch {bs}: propagated {a:.3f} ms, unannotated {b:.3f} ms, "
+            f"propagated / unannotated {a / b:.3f}  [{card}]")
+    del hmodel
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the int8 routes conv_s8 does not take, and the int8 pools, on the card against the CPU
+    if on_card:
+        try:
+            F.max_pool2d(torch.zeros((1, 1, 5, 5), dtype=torch.int8, device=dev), 5, 1, 2)
+            native = "runs (max_pool takes its bf16 route on the card all the same)"
+        except RuntimeError as e:
+            native = f"raises ({str(e).splitlines()[0][:90]})"
+        log(f"[int8 pools] torch's CUDA max_pool2d on int8: {native}")
+    gen = torch.Generator().manual_seed(41)
+    for shape, k in pool_cases:
+        x = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+        x[0, 0] = -127
+        got, ref = L.max_pool(x.to(dev), k).cpu(), L.max_pool(x, k)
+        if got.dtype != torch.int8 or not torch.equal(got, ref):
+            raise AssertionError(f"the int8 max pool on the card differs from the CPU's at "
+                                 f"{shape} k {k}")
+        p_ms = cuda_ms(lambda: L.max_pool(x.to(dev), k), iters=5) if on_card else 0.0
+        log(f"[int8 pools] {shape} k {k}: card (bf16 route) == CPU (int8 pool); "
+            f"{p_ms:.4f} ms on the card (events, with the copy of x)")
+    for what, c_in, c_out, k, st, g, b, h, w in sums_cases:
+        cg = c_in // g
+        xq = torch.randint(-127, 128, (b, c_in, h, w), generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, k, cg, c_out), generator=gen, dtype=torch.int8)
+        p = {"w_q": ci.pack_weight(wq), "s_x": torch.tensor(0.01),
+             "s_w": torch.rand(c_out, generator=gen) * 1e-3 + 1e-4,
+             "b": torch.randn(c_out, generator=gen)}
+        pd = {key: v.to(dev) for key, v in p.items()}
+        sums = ci.conv_sums_s8(xq.to(dev), pd["w_q"], st, k // 2, 1, g).cpu()
+        if not torch.equal(sums, ci.conv_sums_s8(xq, p["w_q"], st, k // 2, 1, g)):
+            raise AssertionError(f"the int8 float64-conv route's sums on the card differ from "
+                                 f"the CPU's: {what}")
+        q = torch.tensor(0.02)
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            kw = dict(act=True, out_dtype=dtype, groups=g)
+            y_card = conv2d_int8(xq.to(dev), pd, st, **kw).cpu().double()
+            y_cpu = conv2d_int8(xq, p, st, **kw).double()
+            q_card = conv2d_int8(xq.to(dev), pd, st, q_out=q.to(dev), **kw).cpu().int()
+            q_cpu = conv2d_int8(xq, p, st, q_out=q, **kw).int()
+            rel = float(((y_card - y_cpu).abs() / y_cpu.abs().clamp(min=1e-30)).max())
+            steps = int((q_card - q_cpu).abs().max())
+            worst[str(dtype).split(".")[-1]] = (rel, steps)
+            if rel > (2 ** -7 if dtype == torch.bfloat16 else 1e-6) or steps > 1:
+                raise AssertionError(f"the int8 float64-conv route on the card is off the "
+                                     f"CPU's: {what} {dtype}: {rel} relative, {steps} steps")
+        xq_d = xq.to(dev)
+        t_ms = cuda_ms(lambda: conv2d_int8(xq_d, pd, st, act=True, out_dtype=torch.bfloat16,
+                                           groups=g), iters=5) if on_card else 0.0
+        log(f"[int8 float64-conv route] {what}: int32 sums card == CPU; the epilogue (float32 "
+            f"| bf16 out: largest relative difference, int8 out: largest step) {worst} (the "
+            f"card's and the CPU's SiLU round apart); {t_ms:.3f} ms on the card in bf16  "
+            f"[{card}]")
+
+    # the zoo model: every block of the main registry, on the card, int8 all
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_path = os.path.join(tmp, "zoo.yaml")
+        with open(zoo_path, "w") as f:
+            yaml.safe_dump(ZOO_CFG, f)
+        zoo = CerberusModel(zoo_path, ["a", "b"], [3, 5], device=dev).init(seed=4)
+        distinct_heads(zoo, seed=5)
+        zoo_names = {"a": ["c0", "c1", "c2"], "b": ["k0", "k1", "k2", "k3", "k4"]}
+        zinf = CerberusDetInference(model=zoo, names=zoo_names, conf_thres=CONF,
+                                    img_size=zoo_imgsz, dtype=torch.bfloat16, device=dev,
+                                    int8="all")
+        zplain = CerberusDetInference(model=copy.deepcopy(zinf.model), names=zoo_names,
+                                      conf_thres=CONF, img_size=zoo_imgsz,
+                                      dtype=torch.bfloat16, device=dev)
+        clear_act_quant(zplain.model)
+        convs = [m for m in zinf.model.modules() if isinstance(m, L.Conv)]
+        n_sums = sum(m.int8 and not m.s8_kernel for m in convs)
+        xs = np.random.default_rng(7).uniform(0, 1, (4, zoo_imgsz, zoo_imgsz, 3))
+        for _ in range(2):  # the capture, then a replay
+            a, b = zinf.predict(xs), zplain.predict(xs)
+            same_results(a, b, score_rtol=0.0)
+        xz = torch.as_tensor(xs, dtype=torch.float32)
+        n_z = check_requant(zinf.model, zinf.model, xz.to(dev).permute(0, 3, 1, 2).to(
+            torch.bfloat16), "zoo")
+        kinds = sorted({type(zinf.model.block(u)).__name__ for u in zinf.model.block_nodes})
+        log(f"[zoo] {len(convs)} Convs ({n_sums} on the int8 float64-conv route) of blocks "
+            f"{kinds}, bf16 + int8 all at {zoo_imgsz} px on the card: propagated == unannotated "
+            f"responses, identical, replayed; {len(act_quant_annotations(zinf.model))} "
+            f"annotations, {n_z} blocks requantized in conv_s8; "
+            f"{sum(map(len, a))} detections")
+    for w, n in zip(wrappers, saved):
+        w.launches = n
+    return [entry, quant_entry]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4144,6 +4679,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(data_path(card, dev))
     log(f"[data] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. int8 carried between the blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    kernels.extend(propagation(card, dev))
+    log(f"[propagation] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -177,6 +177,28 @@ def test_main_prints_the_jax_metric(capsys, bf16):
     assert lines[-2].startswith("[bench] cpu")
     assert out["ms"] is None and out["conv_nodes"] is None  # no device numbers on the CPU
     assert out["int8_convs"] == (0 if bf16 else 87)
+    # yolov8n_2task's 19 annotated blocks each end in an int8 Conv
+    assert out["requant_blocks"] == (0 if bf16 else 19)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_requant_guard():
+    """check_requant passes where every annotated block's last Conv writes
+    its int8 output, and raises where a block hands on float (its last
+    Conv's requantize taken away)."""
+    model = bench.build(SMALL, "cpu", True, 64)
+    x = bench.make_input(1, 64, "cpu")
+    fn = bench.forward_fn(model)
+    convs = profiling.requant_convs(model)
+    assert profiling.check_requant(model, fn, x, "test") == len(convs) == 19
+    uid = sorted(convs)[0]
+    q = model.block(uid)._buffers.pop("q_out")
+    model.block(uid).register_buffer("q_later", q)  # not the block's annotation any more
+    model.block(uid).act_quant = lambda name: q if name == "q_out" else None
+    with pytest.raises(AssertionError, match="did not requantize"):
+        profiling.check_requant(model, fn, x, "test")
+    assert profiling.classify_conv_kernels(["void quant_nchw_kernel<bf16>(...)"])[
+        "unmatched"] == ["void quant_nchw_kernel<bf16>(...)"]
 
 
 @pytest.mark.usefixtures("one_thread")

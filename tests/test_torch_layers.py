@@ -145,6 +145,6 @@ def test_parsed_table_matches_jax(name):
 
 
 def test_unported_layer_raises():
-    cfg = {"backbone": [[-1, 1, "C3", [64]]], "head": [[[0], 1, "Detect", []]]}
+    cfg = {"backbone": [[-1, 1, "BottleneckCSP", [64]]], "head": [[[0], 1, "Detect", []]]}
     with pytest.raises(ValueError, match="not ported"):
         parse_model_cfg(cfg)

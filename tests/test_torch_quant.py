@@ -29,8 +29,10 @@ from cerberusdet_tpu.quant import quantize_params as jax_quantize
 from cerberusdet_tpu.quant import select_all as jax_select_all
 from cerberusdet_tpu.quant.ptq import select_deep as jax_select_deep
 from cerberusdet_tpu_torch.infer import CerberusDetInference
+from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint, save_checkpoint
 from cerberusdet_tpu_torch.manager.weights import export_jax_params, load_jax_params
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+from cerberusdet_tpu_torch.nn.layers import ACT_QUANT
 from cerberusdet_tpu_torch.nn.module import conv2d_int8, quantize_act
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     TILES,
@@ -40,12 +42,17 @@ from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     pack_vectorized,
     pack_weight,
     padded_channels,
+    quant_cat_s8,
     quant_pack_s8,
     quant_pack_s8_plain,
+    quant_s8,
+    quant_s8_plain,
     unpack_weight,
 )
 from cerberusdet_tpu_torch.quant import (
+    act_quant_annotations,
     calibrate_amax,
+    clear_act_quant,
     conv_layers,
     fused_conv_weights,
     quantize_params,
@@ -367,7 +374,7 @@ def test_epilogue_matches_jax(ci, co, k, s):
     qs = float(np.abs(np.asarray(ref)).max() / 127.0)
     xq = quant_pack_s8_plain(_nchw(x), tp["s_x"], padded_channels(ci))
     q = conv_s8_plain(xq, tp["w_q"], tp["s_x"], tp["s_w"], tp["b"], s, k // 2, True,
-                      torch.int8, q_scale=qs)
+                      torch.int8, q_scale=torch.tensor(np.float32(qs)))
     dq = np.abs(_nhwc(q).astype(np.int32)
                 - np.asarray(jax_quantize_act(ref, jnp.float32(qs)), np.int32))
     assert dq.max() <= 1 and (dq > 0).mean() < 1e-3
@@ -419,6 +426,9 @@ def _bad_conv_inputs():
         "k 5": (but(1, torch.zeros((16, 5, 5, 32), dtype=torch.int8)), ValueError),
         "float16 out": (ok + (True, torch.float16), TypeError),
         "int8 out without q_scale": (ok + (True, torch.int8), ValueError),
+        "int8 out with a float q_scale": (ok + (True, torch.int8, 0.5), TypeError),
+        "q_scale float64": (ok + (True, torch.int8, torch.tensor(0.5, dtype=torch.float64)),
+                            TypeError),
         "tile not the kernel's": (ok + (True, torch.float32, None, (32, 32)), ValueError),
     }
 
@@ -593,6 +603,108 @@ def test_kernel_matches_plain_on_card():
             assert torch.equal(conv_s8(*raw, tile=tile), conv_s8_plain(*raw)), (ci, co, tile)
 
 
+def _quant_s8_model(x, out):
+    """quant_s8's index map, in numpy: for each output byte (its flat index
+    in out's storage) the flat index of the element of x's storage it codes,
+    block (x, c, b) by block of 128 threads, each thread a run of V pixels
+    of one plane (as csrc/conv_int8.cu:quant_nchw_kernel)."""
+    b_, c_, h, w = x.shape
+    hw, v = h * w, 16 // x.element_size()
+    sp = x.stride(3) if w > 1 else x.stride(2) if h > 1 else 1
+    src = {}
+    runs = -(-hw // v)
+    for b in range(b_):
+        for c in range(c_):
+            for bx in range(-(-runs // 128)):
+                for t in range(128):
+                    p = (bx * 128 + t) * v
+                    for j in range(min(v, hw - p)):
+                        dst = b * out.stride(0) + c * out.stride(1) + p + j
+                        assert dst not in src, "an output byte written twice"
+                        src[dst] = (x.storage_offset() + b * x.stride(0) + c * x.stride(1)
+                                    + (p + j) * sp)
+    return src
+
+
+@pytest.mark.parametrize("dtype", _PACK_DTYPES)
+@pytest.mark.parametrize("case", range(len(_PACK_CASES)))
+def test_quant_s8_matches_jax_and_its_model(case, dtype):
+    """quant_s8 on the CPU (its plain version) gives JAX's quantize_act codes
+    (int8 copied), into a new tensor and into a channel slice of a larger
+    buffer, writing nothing outside it; the kernel's index map (model) reads
+    each output's own element once, on every layout quant_pack_s8 takes."""
+    x, flat = _pack_input(case, dtype)
+    s_x = torch.tensor(_S_X)
+    ref = x if dtype == torch.int8 else torch.from_numpy(np.array(jax_quantize_act(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                              else jnp.float32), jnp.float32(_S_X))))
+    got = quant_s8(x, s_x)
+    assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert torch.equal(quant_s8_plain(x, s_x), ref)
+    buf = torch.full((x.shape[0], x.shape[1] + 5, x.shape[2], x.shape[3]), 99, dtype=torch.int8)
+    quant_s8(x, s_x, buf[:, 3:3 + x.shape[1]])
+    assert torch.equal(buf[:, 3:3 + x.shape[1]], ref)
+    assert bool((buf[:, :3] == 99).all()) and bool((buf[:, 3 + x.shape[1]:] == 99).all())
+    out = buf[:, 3:3 + x.shape[1]]
+    src = _quant_s8_model(x, out)
+    assert len(src) == x.numel()
+    codes = quant_s8_plain(flat.reshape(-1, 1, 1, 1), s_x).reshape(-1)
+    obuf = buf.reshape(-1).clone()
+    for d, i in src.items():
+        obuf[out.storage_offset() + d] = codes[i]
+    assert torch.equal(obuf.reshape(buf.shape), buf)
+
+
+def test_quant_cat_s8_and_refusals():
+    """quant_cat_s8 is torch.cat of the quantized tensors (int8 ones as they
+    are); quant_s8 refuses what its kernel would refuse, on the CPU too."""
+    rng = np.random.default_rng(3)
+    s_x = torch.tensor(0.04)
+    xs = [torch.from_numpy(rng.normal(0, 3, (2, c, 5, 7)).astype(np.float32)) for c in (3, 16)]
+    xs.append(quantize_act(xs[0], s_x))
+    xs.append(xs[1].to(torch.bfloat16)[:, 2:9])
+    got = quant_cat_s8(xs, s_x)
+    assert torch.equal(got, torch.cat([quantize_act(t, s_x) for t in xs], 1))
+    x = xs[1]
+    before = quant_s8.launches
+    for bad, exc in [((x.double(), s_x), TypeError), ((x[0], s_x), ValueError),
+                     ((x.transpose(2, 3), s_x), ValueError), ((x, s_x.double()), TypeError),
+                     ((x, s_x, torch.zeros(x.shape)), ValueError),
+                     ((x, s_x, torch.zeros((2, 15, 5, 7), dtype=torch.int8)), ValueError),
+                     ((x, s_x, torch.zeros((2, 16, 7, 5), dtype=torch.int8).transpose(2, 3)),
+                      ValueError)]:
+        with pytest.raises(exc):
+            quant_s8(*bad)
+    assert quant_s8.launches == before
+
+
+@pytest.mark.cuda
+def test_quant_s8_and_requant_mode_match_plain_on_card():
+    """quant_s8 and conv_s8's bf16 requantize (the scale read on the card)
+    against their plain versions on the card, on every layout of
+    _PACK_CASES and into channel slices at odd offsets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    s_x = torch.tensor(_S_X, device="cuda")
+    for case in range(len(_PACK_CASES)):
+        for dtype in _PACK_DTYPES:
+            x, _ = _pack_input(case, dtype, "cuda")
+            ref = quant_s8_plain(x, s_x)
+            assert torch.equal(quant_s8(x, s_x), ref), (_PACK_CASES[case][0], dtype)
+            buf = torch.zeros((x.shape[0], x.shape[1] + 4, *x.shape[2:]), dtype=torch.int8,
+                              device="cuda")
+            assert torch.equal(quant_s8(x, s_x, buf[:, 1:1 + x.shape[1]]), ref)
+    rng = np.random.default_rng(1)
+    for ci, co, k, s, hw in EDGE_CASES:
+        p = {key: v.cuda() for key, v in _torch_leaf(_ptq_params(rng, ci, co, k)).items()}
+        x = torch.from_numpy(rng.normal(0, 3, (2, ci, hw, hw + 1)).astype(np.float32)).cuda()
+        xq = quant_pack_s8(x, p["s_x"], padded_channels(ci))
+        q = torch.tensor(0.05, device="cuda")
+        args = (xq, p["w_q"], p["s_x"], p["s_w"], p["b"], s, k // 2, True, torch.int8, q)
+        assert torch.equal(conv_s8(*args, q_dtype=torch.bfloat16),
+                           conv_s8_plain(*args, torch.bfloat16)), (ci, co, k, s)
+
+
 # ------------------------------------------------------- the slice as a whole
 
 
@@ -666,18 +778,15 @@ def test_int8_params_stay_float32_after_cast(jax_fused):
 
 def test_quantized_tree_round_trip(jax_fused):
     """A JAX tree quantized with model= (so carrying __q_out__ / q_in) loads
-    into the port and exports back as the same tree without those leaves."""
+    into the port and exports back as the same tree, annotations included,
+    bit for bit (float32 0-d scales)."""
     model, fused, amax, _ = jax_fused
     ref = jax.tree_util.tree_map(np.asarray,
                                  jax_quantize(fused, amax, select=jax_select_all, model=model))
     assert any("__q_out__" in v for v in ref.values() if isinstance(v, dict))
+    assert any("q_in" in v for v in ref.values() if isinstance(v, dict))
     ours = export_jax_params(_port_model(ref))
-
-    def strip(t):
-        return {k: strip(v) if isinstance(v, dict) else v for k, v in t.items()
-                if k not in ("__q_out__", "q_in")}
-
-    expect = {k: v for k, v in strip(ref).items() if v}
+    expect = {k: v for k, v in ref.items() if v}
     a = jax.tree_util.tree_leaves_with_path(ours)
     b = jax.tree_util.tree_leaves_with_path(expect)
     assert [p for p, _ in a] == [p for p, _ in b]
@@ -764,3 +873,213 @@ def test_int8_inference_options():
     assert all(m.int8 == (m.c1 >= 256) for _, m in conv_layers(deep.model))
     with pytest.raises(ValueError, match="int8"):
         CerberusDetInference(model=model, names=NAMES, device="cpu", int8="yes")
+
+
+# ------------------------------------------- int8 carried between the blocks
+
+
+def test_requant_bf16_mode_is_the_bf16_graph():
+    """conv_s8's int8 output of the bf16-rounded y (q_dtype bfloat16) equals
+    JAX's quantize_act of silu(y) cast to bf16, the value a bf16 serving
+    graph hands to a block's __q_out__; the scale may be a float or a float32
+    tensor, on the plain route and through the CPU wrapper. It differs from
+    mode 3 (the Pallas q_out, y requantized in float32) where y lies a
+    float32 ulp past a half step and its bf16 rounding on the step."""
+    rng = np.random.default_rng(21)
+    p = _ptq_params(rng, 40, 48, 3)
+    tp = _torch_leaf(p)
+    x = rng.normal(0, 1, (2, 9, 10, 40)).astype(np.float32)
+    xq = quant_pack_s8_plain(_nchw(x), tp["s_x"], padded_channels(40))
+    conv = (xq, tp["w_q"], tp["s_x"], tp["s_w"], tp["b"], 1, 1, True)
+    y = conv_s8_plain(*conv, torch.float32)
+    qs = torch.tensor(np.float32(0.7 * float(y.abs().max()) / 127.0))  # some codes clip
+    got = conv_s8_plain(*conv, torch.int8, qs, torch.bfloat16)
+    ref = jax_quantize_act(jnp.asarray(_nhwc(y)).astype(jnp.bfloat16), jnp.float32(qs))
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
+    assert int((got.abs() == 127).sum()) > 0
+    before = conv_s8.launches
+    assert torch.equal(conv_s8(*conv, torch.int8, qs, q_dtype=torch.bfloat16), got)
+    assert conv_s8.launches == before
+    # a half step: acc 0, bias 2.5 + 1 float32 ulp, q_scale 1
+    one = torch.zeros((1, 1, 1, 16), dtype=torch.int8)
+    one[..., 0] = 1
+    w1 = one.clone()
+    half = (torch.zeros_like(one), w1, torch.tensor(1.0), torch.ones(1),
+            torch.from_numpy(np.nextafter(np.float32([2.5]), np.float32(3))), 1, 0, False,
+            torch.int8, torch.tensor(1.0))
+    assert int(conv_s8_plain(*half, torch.float32)) == 3
+    assert int(conv_s8_plain(*half, torch.bfloat16)) == 2
+    y_half = conv_s8_plain(*half[:8], torch.float32)
+    assert int(np.asarray(jax_quantize_act(jnp.asarray(y_half.numpy()).astype(jnp.bfloat16),
+                                           jnp.float32(1.0))).reshape(())) == 2
+    with pytest.raises(TypeError, match="requantizes"):
+        conv_s8(*half, q_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_int8_q_out_is_quantize_of_its_output(dtype, use_kernel):
+    """conv2d_int8(..., q_out=s) is quantize_act of the output in the compute
+    dtype, bit for bit, from float and from int8 activations, on both
+    routes (conv_s8's shape class and the integer route of a 5x5 depthwise
+    conv)."""
+    rng = np.random.default_rng(5)
+    cases = [(_ptq_params(rng, 24, 32, 3), 1, 1), (_ptq_params(rng, 1, 24, 5), 24, 1)]
+    for p, groups, s in cases:
+        ci = p["w_q"].shape[2] * groups
+        tp = _torch_leaf(p)
+        x = torch.from_numpy(rng.normal(0, 1, (2, ci, 7, 8)).astype(np.float32)).to(dtype)
+        q = torch.tensor(np.float32(0.02))
+        kw = dict(act=True, out_dtype=dtype, use_kernel=use_kernel, groups=groups)
+        for xin in (x, quantize_act(x, tp["s_x"])):
+            ref = quantize_act(conv2d_int8(xin, tp, s, **kw), q)
+            got = conv2d_int8(xin, tp, s, q_out=q, **kw)
+            assert got.dtype == torch.int8 and torch.equal(got, ref), (groups, dtype)
+
+
+@pytest.fixture(scope="module")
+def jax_fused128():
+    """(JAX model, fused params as numpy float32, JAX float32 amax, batch) of
+    yolov8n_2task at 128 px."""
+    model = JaxModel(CFG, TASKS, NCS)
+    fused = jax.tree_util.tree_map(np.asarray, model.fuse(model.init(jax.random.PRNGKey(3))))
+    batch = np.random.default_rng(3).uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    amax = jax_calibrate(model, fused, [batch], dtype=jnp.float32)
+    return model, fused, amax, batch
+
+
+def _jax_annotations(tree):
+    return {(uid, k): float(np.asarray(v[k])) for uid, v in tree.items()
+            if isinstance(v, dict) for k in ("__q_out__", "q_in") if k in v}
+
+
+def _annotations(model):
+    """The port's annotations under the JAX tree's names."""
+    return {(uid, ACT_QUANT[k]): v for (uid, k), v in act_quant_annotations(model).items()}
+
+
+@pytest.mark.parametrize("which", ["all", "deep64"])
+def test_propagate_matches_jax(jax_fused128, which):
+    """quantize_params(..., propagate=True) annotates the blocks that JAX's
+    quantize_params(..., model=model) annotates, each with the same float32
+    scale: every int8 Conv in "all", and a selection where some consumers
+    stay float (c_in >= 64) and their producers keep float outputs."""
+    model, fused, amax, _ = jax_fused128
+    jsel, sel = ((jax_select_all, select_all) if which == "all"
+                 else (jax_select_deep(64), select_deep(64)))
+    want = _jax_annotations(jax_quantize(fused, amax, select=jsel, model=model))
+    port = quantize_params(_port_model(fused), amax, select=sel, propagate=True)
+    got = _annotations(port)
+    assert got == want and len(want) > 10
+    assert all(float(np.float32(v)) == v for v in got.values())
+    kinds = {k for _, k in want}
+    assert kinds == {"__q_out__", "q_in"}
+    if which == "deep64":
+        assert len(want) < len(_jax_annotations(
+            jax_quantize(fused, amax, select=jax_select_all, model=model)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_propagated_forward_is_bitwise_unpropagated(jax_fused, dtype):
+    """The annotated model's heads equal the unannotated model's bit for bit
+    (JAX's claim, tests/test_quant.py), in float32 and bf16, while every
+    annotated block whose last Conv is int8 hands on the int8 that Conv
+    wrote (utils/profiling.py:check_requant on the CPU)."""
+    from cerberusdet_tpu_torch.utils.profiling import check_requant
+
+    _, fused, amax, batch = jax_fused
+    plain = quantize_params(_port_model(fused), amax, select=select_all).to(dtype)
+    prop = quantize_params(_port_model(fused), amax, select=select_all,
+                           propagate=True).to(dtype)
+    assert not act_quant_annotations(plain) and act_quant_annotations(prop)
+    x = torch.from_numpy(batch).permute(0, 3, 1, 2).to(dtype)
+    with torch.no_grad():
+        a, b = plain(x), prop(x)
+        n = check_requant(prop, prop, x, "test")
+    assert n > 10
+    for t in TASKS:
+        assert torch.equal(a[t][0], b[t][0])
+        assert all(torch.equal(u, v) for u, v in zip(a[t][1], b[t][1]))
+
+
+def test_propagated_inference_matches_jax(jax_fused):
+    """CerberusDetInference(int8="all") propagates as the JAX package's does:
+    the same annotated blocks, their scales within the calibration's rtol
+    1e-5 (test_calibrate_amax_matches_jax), and the same detections within
+    the limits of test_int8_inference_matches_jax."""
+    model, _, _, batch = jax_fused
+    params = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(4)))
+    rng = np.random.default_rng(4)
+    for t in TASKS:  # distinct box biases: both tasks survive cross-task NMS
+        for i in range(3):
+            last = params[f"head_{t}"][f"box{i}"]["2"]
+            last["b"] = rng.normal(0, 3, last["b"].shape).astype(np.float32)
+    common = dict(names=NAMES, conf_thres=1e-3, img_size=IMG)
+    ref = JaxInference(model=model, params=params, half=False, int8="all", **common)
+    ours = CerberusDetInference(model=CerberusModel(CFG, TASKS, NCS, device="cpu"),
+                                params=params, dtype=torch.float32, device="cpu",
+                                int8="all", **common)
+    want = _jax_annotations(jax.tree_util.tree_map(np.asarray, ref.params))
+    got = _annotations(ours.model)
+    assert want and sorted(got) == sorted(want)
+    for k, v in want.items():  # each package calibrates: amax within rtol 1e-5
+        np.testing.assert_allclose(got[k], v, rtol=1e-5, err_msg=str(k))
+    a = ours.predict(batch)
+    b = ref.predict(batch)
+    assert sum(map(len, a)) > 0 and len(a) == len(b)
+    for ra, rb in zip(a, b):
+        assert len(ra) == len(rb)
+        for x, y in zip(ra, rb):
+            assert (x["task"], x["label"]) == (y["task"], y["label"]), (x, y)
+            assert abs(x["score"] - y["score"]) <= 1e-5, (x, y)
+            assert max(abs(u - v) for u, v in zip(x["box"], y["box"])) <= 1, (x, y)
+
+
+def test_annotations_survive_cast_and_round_trips(jax_fused, tmp_path):
+    """The annotations stay float32 through a bf16 cast and a move, and a
+    propagated model goes to a tree, a .ckpt.npz and back with the same
+    annotations and leaves, bit for bit; loading a tree replaces the
+    model's annotations with the tree's (none for a plain tree)."""
+    _, fused, amax, batch = jax_fused
+    model = quantize_params(_port_model(fused), amax, select=select_all, propagate=True)
+    before = act_quant_annotations(model)
+    model.to(torch.bfloat16).to(device="cpu")
+    for uid in model.block_nodes:
+        for name in ACT_QUANT:
+            t = model.block(uid)._buffers.get(name)
+            assert t is None or (t.dtype == torch.float32 and t.shape == ())
+    assert act_quant_annotations(model) == before
+    tree = export_jax_params(model.float())  # numpy has no bfloat16
+    path = tmp_path / "prop.ckpt.npz"
+    save_checkpoint(path, tree, {"cfg": CFG}, half=False)
+    back = load_jax_params(CerberusModel(CFG, TASKS, NCS, device="cpu"),
+                           load_checkpoint(path)["params"])
+    assert act_quant_annotations(back) == before
+    a = jax.tree_util.tree_leaves_with_path(export_jax_params(back))
+    b = jax.tree_util.tree_leaves_with_path(tree)
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (p, u), (_, v) in zip(a, b):
+        assert u.dtype == v.dtype and u.shape == v.shape, p
+        np.testing.assert_array_equal(u, v, err_msg=str(p))
+    plain = jax.tree_util.tree_map(np.asarray, jax_quantize(fused, amax, select=jax_select_all))
+    assert not act_quant_annotations(load_jax_params(back, plain))
+
+
+def test_quantized_model_refuses_calibration(jax_fused):
+    """Calibrating an annotated or quantized model would skip the Convs
+    whose input is int8 (annotated producers, the pre-concat quantizes of
+    the blocks): both are refused. quantize_params without propagate leaves
+    no annotation behind."""
+    _, fused, amax, batch = jax_fused
+    model = quantize_params(_port_model(fused), amax, select=select_deep(64), propagate=True)
+    assert act_quant_annotations(model)
+    with pytest.raises(ValueError, match="float model"):
+        calibrate_amax(model, [batch])
+    clear_act_quant(model)
+    assert not act_quant_annotations(model)
+    with pytest.raises(ValueError, match="float model"):
+        calibrate_amax(model, [batch])
+    quantize_params(model, amax, select=select_all, propagate=True)
+    assert act_quant_annotations(model)
+    quantize_params(model, amax, select=select_all)
+    assert not act_quant_annotations(model)
