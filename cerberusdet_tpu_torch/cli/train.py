@@ -15,8 +15,11 @@ counterpart. --bf16 computes in bfloat16 over float32 master weights.
 --augment-device runs the mosaic, warps, HSV jitter and flips on the card
 from the packed cache (--cache-images disk, which it implies); --proc-workers
 N decodes and augments (or, with --augment-device, plans) in N spawned
-worker processes. Not ported yet, and refused: --evolve (ROADMAP.md queue 1,
-item 9), --mesh (item 6), --mlflow-url (item 9).
+worker processes. --evolve N runs N generations of hyperparameter evolution
+(evolve/: --evolver yolov5, the genetic evolver, or a Ray Tune searcher)
+in <project>/<evolver>_<name>; --mlflow-url tracks the run in MLflow
+(utils/mlflow_logging.py). Not ported yet, and refused: --mesh (ROADMAP.md
+queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -78,31 +81,29 @@ def parse_opt(argv=None):
     p.add_argument("--warmup-min-iters", type=int, default=1000,
                    help="LR-warmup iteration floor (reference hardcodes 1000, "
                         "averaging.py:57); lower it for small datasets")
-    p.add_argument("--mlflow-url", type=str, default="", help="not ported yet: raises")
+    p.add_argument("--mlflow-url", type=str, default="",
+                   help="MLflow tracking server (a no-op logger without mlflow)")
     p.add_argument("--experiment-name", type=str, default="cerberusdet")
     p.add_argument("--evolve", type=int, nargs="?", const=300, default=0,
-                   help="not ported yet: raises")
+                   help="evolve hyperparameters for N generations")
     p.add_argument("--evolver", type=str, default="yolov5",
                    choices=["yolov5", "random", "ax", "optuna", "bohb", "cfo",
-                            "dragonfly", "nevergrad", "skopt", "zoopt"])
-    p.add_argument("--params-to-evolve", type=str, default=None)
-    p.add_argument("--evolve-per-task", action="store_true")
+                            "dragonfly", "nevergrad", "skopt", "zoopt"],
+                   help="evolution algorithm (train.py:293; the others than yolov5 "
+                        "dispatch to the Ray Tune evolver)")
+    p.add_argument("--params-to-evolve", type=str, default=None,
+                   help="comma-separated hyps to evolve (default: all)")
+    p.add_argument("--evolve-per-task", action="store_true",
+                   help="accepted for parity (train.py:302; the reference parses but never "
+                        "reads it: per-task evolution follows list-valued hyps)")
     p.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
     return p.parse_args(argv)
 
 
 def _refuse_unported(opt_ns) -> None:
-    refused = [
-        (opt_ns.evolve, "--evolve: the hyperparameter evolvers are not ported yet "
-                        "(ROADMAP.md queue 1, item 9)"),
-        (opt_ns.mesh, "--mesh: data-parallel training is not ported yet "
-                      "(ROADMAP.md queue 1, item 6)"),
-        (opt_ns.mlflow_url, "--mlflow-url: MLflow tracking is not ported yet "
-                            "(ROADMAP.md queue 1, item 9)"),
-    ]
-    for flag, why in refused:
-        if flag:
-            raise NotImplementedError(why)
+    if opt_ns.mesh:
+        raise NotImplementedError("--mesh: data-parallel training is not ported yet "
+                                  "(ROADMAP.md queue 1, item 6)")
 
 
 def _batch_size(bs):
@@ -112,10 +113,28 @@ def _batch_size(bs):
     return bs[0] if len(bs) == 1 else bs
 
 
-def main(argv=None):
-    """Run the training; returns the TrainLoop that ran."""
+def evolver(opt, opt_ns, hyp, data_dict, device, seed=None):
+    """The evolver that --evolve asks for (train.py:172-192 of the JAX
+    package): the run named {evolver}_{name}, Yolov5Evolver for yolov5,
+    RayEvolver with the named searcher for the others."""
+    opt.name = f"{opt_ns.evolver}_{opt.name}"
+    params = opt_ns.params_to_evolve.split(",") if opt_ns.params_to_evolve else None
+    kw = dict(generations=opt_ns.evolve, params_to_evolve=params, device=device)
+    if opt_ns.evolver == "yolov5":
+        from cerberusdet_tpu_torch.evolve.yolov5_evolver import Yolov5Evolver
+
+        return Yolov5Evolver(opt, hyp, data_dict, seed=seed, **kw)
+    from cerberusdet_tpu_torch.evolve.ray_evolver import RayEvolver
+
+    return RayEvolver(opt, hyp, data_dict, searcher=opt_ns.evolver, **kw)
+
+
+def options(argv=None):
+    """The command line as (the parsed flags, TrainOptions, hyp, the data
+    config, the device), with --resume's opt.yaml reinstated and the seeds
+    set."""
     from cerberusdet_tpu_torch.manager.run_manager import parse_data_config
-    from cerberusdet_tpu_torch.train.trainer import TrainLoop, TrainOptions
+    from cerberusdet_tpu_torch.train.trainer import TrainOptions
     from cerberusdet_tpu_torch.utils.seeds import init_seeds
 
     opt_ns = parse_opt(argv)
@@ -169,6 +188,19 @@ def main(argv=None):
         mlflow_url=opt_ns.mlflow_url, experiment_name=opt_ns.experiment_name,
         compute_dtype="bfloat16" if opt_ns.bf16 else "float32",
     )
+    return opt_ns, opt, hyp, data_dict, device
+
+
+def main(argv=None):
+    """Run the training; returns the TrainLoop that ran, or with --evolve
+    the evolver."""
+    from cerberusdet_tpu_torch.train.trainer import TrainLoop
+
+    opt_ns, opt, hyp, data_dict, device = options(argv)
+    if opt_ns.evolve:
+        ev = evolver(opt, opt_ns, hyp, data_dict, device)
+        ev.run_evolution()
+        return ev
     loop = TrainLoop(opt, data_dict, hyp, device=device)
     loop.train()
     return loop

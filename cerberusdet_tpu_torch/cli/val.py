@@ -14,8 +14,10 @@ need --cfg (the model yaml; the task ids and class counts come from --data):
 
     python -m cerberusdet_tpu_torch.cli.val --weights w.pt --cfg model.yaml --data data.yaml
 
-Not ported yet: the MLflow upload (--mlflow-url) and the PR-curve and
-confusion-matrix plots (utils, ROADMAP.md queue 1, item 9).
+The run directory (--project / --name) receives the first batches' label
+and prediction mosaics and each task's PR curve and confusion matrix
+(utils/plots.py; the figures where matplotlib is installed); --mlflow-url
+uploads each task's metrics and per-class AP50 (utils/mlflow_logging.py).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ def parse_opt(argv=None):
     p.add_argument("--project", default="runs/val")
     p.add_argument("--name", default="exp")
     p.add_argument("--exist-ok", action="store_true")
-    p.add_argument("--mlflow-url", default="", help="not ported: raises when given")
+    p.add_argument("--mlflow-url", default="",
+                   help="MLflow tracking server for the metrics (a no-op without mlflow)")
     p.add_argument("--experiment-name", default="cerberusdet")
     p.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
     p.add_argument("--int8", default="off", choices=["off", "deep", "all"],
@@ -134,14 +137,11 @@ def quantize_for_eval(model, data_dict, opt, dtype, weights, n_calib_batches: in
 
 def main(argv=None):
     from cerberusdet_tpu_torch.data.loaders import create_dataloader
-    from cerberusdet_tpu_torch.evaluation.val import eval_flags, run_task
+    from cerberusdet_tpu_torch.evaluation.val import eval_flags, run_task, save_val_plots
     from cerberusdet_tpu_torch.manager.run_manager import increment_path, parse_data_config
     from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
 
     opt = parse_opt(argv)
-    if opt.mlflow_url:
-        raise NotImplementedError("--mlflow-url: the MLflow upload is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9)")
     device = resolve_device(opt.device)
     data_dict = parse_data_config(opt.data, check=True)
     model = load_model_for_eval(opt.weights, opt.cfg, device, data_dict)
@@ -184,7 +184,35 @@ def main(argv=None):
             results[task] = out
             mp, mr, map50, mAP = out["results"][:4]
             print(f"{task}: P={mp:.4f} R={mr:.4f} mAP50={map50:.4f} mAP={mAP:.4f}")
+            names = ["item"] if opt.single_cls else list(data_dict["names"][ti])
+            save_val_plots(out, names, save_dir, task)
+    if opt.mlflow_url:
+        log_to_mlflow(results, data_dict, opt)
     return results
+
+
+def log_to_mlflow(results, data_dict, opt) -> None:
+    """The metric upload (reference val.py:384-418): per task P, R, mAP50,
+    mAP and fitness, and each class's AP50, in one run named val_<name>."""
+    from cerberusdet_tpu_torch.utils.mlflow_logging import MLFlowLogger
+
+    logger = MLFlowLogger(opt.experiment_name, f"val_{opt.name}", tracking_uri=opt.mlflow_url)
+    for task, out in results.items():
+        mp, mr, map50, mAP = out["results"][:4]
+        metrics = {
+            f"val/{task}/precision": mp, f"val/{task}/recall": mr,
+            f"val/{task}/mAP_0.5": map50, f"val/{task}/mAP_0.5_0.95": mAP,
+            f"val/{task}/fitness": out["fitness"],
+        }
+        m = out["metrics"]
+        # under --single-cls the metrics are over one merged class
+        names = (["item"] if opt.single_cls
+                 else data_dict["names"][data_dict["task_ids"].index(task)])
+        for i, c in enumerate(m.ap_class_index):
+            metrics[f"val/{task}/ap50_{names[int(c)]}".replace(" ", "_")] = float(
+                m.class_result(i)[2])
+        logger.log_metrics(metrics)
+    logger.finish()
 
 
 if __name__ == "__main__":

@@ -9,15 +9,17 @@ on the host in numpy (evaluation/metrics.py), as there. The forward runs
 eagerly, one call per batch; the NMS launches its CUDA kernel for a model on
 the card (ops/nms.py).
 
-Not yet ported: the merge of statistics across processes (distributed=True,
-with data parallelism, ROADMAP.md queue 1, item 6) and the plots that
-`plots_dir` asks for (utils/plots, queue 1, item 9); the confusion matrix is
-still accumulated when `plots` is set.
+`plots` accumulates the confusion matrix, and `plots_dir` draws the label
+and prediction mosaics of batches 0-2 there (utils/plots.py, as the JAX
+package's val.py:174-181); save_val_plots draws a task's PR curve and
+confusion matrix. Not yet ported: the merge of statistics across processes
+(distributed=True, with data parallelism, ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -34,7 +36,7 @@ from cerberusdet_tpu_torch.nn.layers import Conv
 from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
 from cerberusdet_tpu_torch.ops.nms import non_max_suppression
 
-__all__ = ["scale_boxes_np", "run_task", "run", "eval_flags"]
+__all__ = ["scale_boxes_np", "run_task", "run", "eval_flags", "save_val_plots"]
 
 
 def eval_flags():
@@ -111,7 +113,7 @@ def run_task(
     for m in int8_convs:
         m.use_kernel = use_kernel
     try:
-        for batch in loader:
+        for batch_i, batch in enumerate(loader):
             t0 = time.perf_counter()
             img = torch.from_numpy(batch["img"]).to(device)
             x = (img.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
@@ -128,6 +130,17 @@ def run_task(
             dt += (t1 - t0, t2 - t1, t3 - t2)
             h, w = batch["img"].shape[1:3]
             times.append(((h, w), t1 - t0, t2 - t1, t3 - t2))
+
+            if plots_dir is not None and batch_i < 3:
+                # the first batches' label and prediction mosaics (val.py:73-83)
+                from cerberusdet_tpu_torch.utils.plots import plot_images, plot_val_images
+
+                shown = {**batch, "img": img.permute(0, 3, 1, 2)}
+                plot_images(shown, f"{plots_dir}/val_batch{batch_i}_labels_{task}.jpg",
+                            names=metric_names)
+                plot_val_images(shown, dets, counts,
+                                f"{plots_dir}/val_batch{batch_i}_pred_{task}.jpg",
+                                names=metric_names)
 
             if compute_loss is not None:
                 tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
@@ -208,6 +221,23 @@ def run_task(
             print(f"  {name:>20s} {int(nt[c]):6d}  P={p_c:.3f} R={r_c:.3f} "
                   f"mAP50={ap50_c:.3f} mAP={ap_c:.3f}")
     return out
+
+
+def save_val_plots(out: Dict[str, Any], names: Sequence[str], save_dir, task: str) -> None:
+    """A task's PR curve and confusion matrix from run_task's output (the
+    JAX package's trainer _save_val_plots and val.py:203-218); `names` are
+    the metrics' classes (["item"] under single_cls). The curves' rows are
+    the classes present, in ap_per_class's order."""
+    from cerberusdet_tpu_torch.utils.plots import plot_confusion_matrix, plot_pr_curve
+
+    save_dir = Path(save_dir)
+    m = out["metrics"]
+    if getattr(m, "_results", None):
+        _, _, p, r, f1, ap, classes, p_curve, r_curve, px = m._results
+        plot_pr_curve(px, p_curve, ap, save_dir / f"{task}_PR_curve.png",
+                      [names[int(c)] for c in classes])
+    plot_confusion_matrix(out["confusion"].matrix, names,
+                          save_dir / f"{task}_confusion_matrix.png")
 
 
 def run(

@@ -6,8 +6,14 @@ A numpy-only copy of the npz branch of cerberusdet_tpu/manager/checkpoint.py
 metadata under `__meta__`. save_checkpoint writes float32 leaves of params
 and ema as float16 (half=True) and the optimizer state as it is; the reader
 upcasts float16 to float32. Files move between the two packages both ways.
-strip_checkpoint and intersect_trees are copies of :107-130. The JAX
-package's orbax directories (a path not ending in .npz) are not ported.
+strip_checkpoint and intersect_trees are copies of :107-130.
+
+A path not ending in .npz is an orbax checkpoint directory, as the JAX
+package dispatches (is_orbax_path): load_checkpoint reads one that its
+save_checkpoint_orbax wrote (:141-204) through tensorstore, imported when
+one is read (orbax imports jax; tensorstore does not), and returns the .npz
+contract. The port does not write them: a directory that orbax restores
+carries orbax's own metadata, written only by orbax.
 """
 
 from __future__ import annotations
@@ -50,9 +56,10 @@ def save_checkpoint(path, params: Dict[str, Any], meta: Dict[str, Any],
     """Write `params` (a JAX-layout tree of numpy arrays, e.g.
     manager/weights.py:export_jax_params) with its JSON-serialisable `meta`
     (cfg, task_ids, nc, names, epoch, ...) to the .npz file `path`."""
-    if not str(path).endswith(".npz"):
-        raise ValueError(f"{path}: the port writes .npz checkpoints only (the JAX "
-                         "package's orbax directories are not ported)")
+    if is_orbax_path(path):
+        raise ValueError(f"{path}: the port writes .npz checkpoints only; an orbax "
+                         "directory needs orbax's own metadata, which only orbax (a jax "
+                         "package) writes, and the port reads such directories only")
     arrays: Dict[str, np.ndarray] = {}
 
     def cast(x: np.ndarray) -> np.ndarray:
@@ -74,8 +81,15 @@ def save_checkpoint(path, params: Dict[str, Any], meta: Dict[str, Any],
         np.savez(f, **arrays)
 
 
+def is_orbax_path(path) -> bool:
+    return not str(path).endswith(".npz")
+
+
 def load_checkpoint(path) -> Dict[str, Any]:
-    """Returns {'params', 'ema', 'opt', 'meta'} ('ema'/'opt' may be None)."""
+    """Returns {'params', 'ema', 'opt', 'meta'} ('ema'/'opt' may be None),
+    from a .npz file or an orbax directory."""
+    if is_orbax_path(path):
+        return load_checkpoint_orbax(path)
     groups: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "ema": {}, "opt": {}}
     meta: Dict[str, Any] = {}
     with np.load(path, allow_pickle=False) as data:
@@ -117,3 +131,39 @@ def intersect_trees(dst: Dict[str, Any], src: Dict[str, Any]
             out[k] = s.astype(np.asarray(v).dtype)
             matched += 1
     return unflatten_tree(out), matched, len(dst_flat)
+
+
+def load_checkpoint_orbax(path) -> Dict[str, Any]:
+    """Read an orbax directory that the JAX package's save_checkpoint_orbax
+    wrote (one zarr array per leaf in an OCDBT key-value store; the tree's
+    key paths in its _METADATA; `meta_json` the metadata's JSON bytes) and
+    return the .npz contract, float16 leaves of params and ema upcast to
+    float32. Needs tensorstore."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(f"{path}: an orbax checkpoint directory is read through "
+                          "tensorstore, which is not installed") from e
+    path = Path(path).resolve()
+    with open(path / "_METADATA") as f:
+        layout = json.load(f)
+    kvstore = ({"driver": "ocdbt", "base": f"file://{path}"} if layout.get("use_ocdbt", True)
+               else {"driver": "file", "path": f"{path}/"})
+    driver = "zarr3" if layout.get("use_zarr3") else "zarr"
+    leaves = [[k["key"] for k in entry["key_metadata"]]
+              for entry in layout["tree_metadata"].values()]
+    stores = [ts.open({"driver": driver, "kvstore": kvstore, "path": ".".join(keys)},
+                      open=True, read=True) for keys in leaves]
+    reads = [s.result().read() for s in stores]
+    tree: Dict[str, Any] = {}
+    for keys, r in zip(leaves, reads):
+        v = np.asarray(r.result())
+        if keys[0] in ("params", "ema") and v.dtype == np.float16:
+            v = v.astype(np.float32)
+        d = tree
+        for k in keys[:-1]:
+            d = d.setdefault(k, {})
+        d[keys[-1]] = v
+    meta = json.loads(bytes(np.asarray(tree.pop("meta_json"), np.uint8)).decode())
+    return {"params": tree.get("params"), "ema": tree.get("ema") or None,
+            "opt": unflatten_tree(tree["opt"]) if tree.get("opt") else None, "meta": meta}

@@ -7,8 +7,11 @@ parse_data_config and RunManager (:74-259), which owns the run directory
 (hyp.yaml, opt.yaml, weights/), builds or loads the model, writes the
 `.ckpt.npz` checkpoints in the JAX package's format (last, best and the
 per-task bests) and the per-epoch logs (results.txt in the JAX package's
-lines; TensorBoard where torch.utils.tensorboard imports). The MLflow
-tracking of `mlflow_url` is not ported yet (ROADMAP.md queue 1, item 9).
+lines; TensorBoard where torch.utils.tensorboard imports). With `mlflow_url`
+the run is also tracked in MLflow (utils/mlflow_logging.py, as the JAX
+package's :97-113 and :214-259): the hyps and options at the start, the
+losses, learning rates and val metrics per epoch, and at the end
+results.txt, the plots and the best checkpoint with its signature.
 """
 
 from __future__ import annotations
@@ -83,10 +86,7 @@ class RunManager:
 
     def __init__(self, hyp: Dict[str, Any], data_dict: Dict[str, Any], cfg, save_dir,
                  exist_ok: bool = False, nosave: bool = False, mlflow_url: str = "",
-                 device=None):
-        if mlflow_url:
-            raise NotImplementedError("--mlflow-url: MLflow tracking is not ported yet "
-                                      "(ROADMAP.md queue 1, item 9)")
+                 experiment_name: str = "cerberusdet", device=None):
         self.hyp = dict(hyp)
         self.data = data_dict
         self.cfg = cfg
@@ -102,6 +102,14 @@ class RunManager:
         self.best_fitness = 0.0
         self.best_fitness_per_task = {t: 0.0 for t in self.task_ids}
         self._tb = None
+        # MLflow (models_manager.py:322-397, train.py:263-273): a no-op logger
+        # without mlflow; TensorBoard and results.txt log either way
+        self.mlflow = None
+        if mlflow_url:
+            from cerberusdet_tpu_torch.utils.mlflow_logging import MLFlowLogger
+
+            self.mlflow = MLFlowLogger(experiment_name, self.save_dir.name,
+                                       tracking_uri=mlflow_url)
 
     # ------------------------------------------------------------- setup
     def dump_settings(self, opt: Optional[dict] = None):
@@ -111,6 +119,9 @@ class RunManager:
             with open(self.save_dir / "opt.yaml", "w") as f:
                 yaml.safe_dump({k: (str(v) if isinstance(v, Path) else v)
                                 for k, v in opt.items()}, f, sort_keys=False)
+        if self.mlflow:
+            self.mlflow.log_params({**self.hyp,
+                                    **{f"opt/{k}": v for k, v in (opt or {}).items()}})
 
     def tb_writer(self):
         """A TensorBoard SummaryWriter on the run directory, or None where
@@ -192,13 +203,16 @@ class RunManager:
     # ---------------------------------------------------------- logging
     def train_log(self, task: str, lrs, mloss, epoch: int):
         tb = self.tb_writer()
+        tags = [f"train/{task}/box_loss", f"train/{task}/cls_loss", f"train/{task}/dfl_loss"]
         if tb:
-            tags = [f"train/{task}/box_loss", f"train/{task}/cls_loss",
-                    f"train/{task}/dfl_loss"]
             for tag, v in zip(tags, mloss):
                 tb.add_scalar(tag, float(v), epoch)
             for gi, lr in enumerate(lrs):
                 tb.add_scalar(f"x/{task}/lr{gi}", float(lr), epoch)
+        if self.mlflow:
+            metrics = {t.replace(":", "_"): float(v) for t, v in zip(tags, mloss)}
+            metrics.update({f"x/{task}/lr{gi}": float(lr) for gi, lr in enumerate(lrs)})
+            self.mlflow.log_metrics(metrics, step=epoch)
 
     def val_log(self, task: str, results, epoch: int, fitness_val: float):
         mp, mr, map50, mAP = results[:4]
@@ -214,10 +228,32 @@ class RunManager:
             f.write(f"epoch {epoch} task {task} "
                     f"P {mp:.5f} R {mr:.5f} mAP50 {map50:.5f} mAP {mAP:.5f} "
                     f"fitness {fitness_val:.5f}\n")
+        if self.mlflow:
+            self.mlflow.log_metrics({
+                f"metrics/{task}/precision": float(mp),
+                f"metrics/{task}/recall": float(mr),
+                f"metrics/{task}/mAP_0.5": float(map50),
+                f"metrics/{task}/mAP_0.5_0.95": float(mAP),
+                f"metrics/{task}/fitness": float(fitness_val),
+            }, step=epoch)
 
-    def finalize(self):
-        """End of training: flush and close the TensorBoard writer. (The JAX
-        package's MLflow upload of the artifacts waits with mlflow_url.)"""
+    def finalize(self, imgsz: int = 640):
+        """End of training: flush and close the TensorBoard writer; with
+        MLflow, upload results.txt and the plots and register the best
+        checkpoint (else last) with its I/O signature (train.py:263-273)."""
         if self._tb:
             self._tb.close()
         self._tb = None
+        if not self.mlflow:
+            return
+        self.mlflow.log_artifact(self.results_file)
+        for png in sorted(Path(self.save_dir).glob("*.png")):
+            self.mlflow.log_artifact(png, "plots")
+        best = self.wdir / "best.ckpt.npz"
+        ckpt = best if best.exists() else self.wdir / "last.ckpt.npz"
+        self.mlflow.log_model(ckpt, signature={
+            "inputs": f"(B, 3, {imgsz}, {imgsz}) float32 RGB in [0, 1], NCHW",
+            "outputs": {t: f"(B, N, 4+{nc}) xywh+scores"
+                        for t, nc in zip(self.task_ids, self.nc)},
+        })
+        self.mlflow.finish()

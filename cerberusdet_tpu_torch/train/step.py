@@ -213,6 +213,13 @@ class MultiTaskTrainer:
                                "stepped the state once (n_updates and opt_state.step count "
                                "that step)") from err
 
+    def release(self) -> None:
+        """Free every captured step and the graph pool they share."""
+        for prog in self.programs.values():
+            prog.graph.reset()
+        self.programs.clear()
+        self.pool = None
+
     def drop_programs(self, freeze_shared: bool) -> None:
         """Forget the captured steps of freeze_shared's keys."""
         for key in [k for k in self.programs if k[1] == freeze_shared]:

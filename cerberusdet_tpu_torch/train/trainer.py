@@ -17,15 +17,17 @@ process: the JAX package's broadcast of process 0's decisions is the
 identity here. A run that saves writes the model-graph artifacts once
 (utils/profiling.py:dump_model_graph: the module tree and the cost of the
 eval forward, where the JAX package writes StableHLO text and XLA's cost
-analysis). Not ported yet: the data-parallel mesh (use_mesh, ROADMAP.md
-queue 1, item 6) and the plots (item 9; plots=True says once that it draws
-nothing).
+analysis). With `plots` a run that saves draws what the JAX package draws
+(utils/plots.py): the label statistics at the first epoch, the first 3
+batches of each task, the val mosaics, PR curve and confusion matrix of the
+final epoch's val. Not ported yet: the data-parallel mesh (use_mesh,
+ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import sys
+import gc
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -36,7 +38,7 @@ import torch
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.data.loaders import InfiniteLoader, create_dataloader
 from cerberusdet_tpu_torch.evaluation.metrics import overall_fitness
-from cerberusdet_tpu_torch.evaluation.val import eval_flags, run_task
+from cerberusdet_tpu_torch.evaluation.val import eval_flags, run_task, save_val_plots
 from cerberusdet_tpu_torch.manager.attempt_load import load_single
 from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint, strip_checkpoint
 from cerberusdet_tpu_torch.manager.run_manager import RunManager
@@ -90,7 +92,7 @@ class TrainOptions:
     compute_dtype: str = "float32"         # or "bfloat16" over float32 masters
     loss_weights: Optional[Dict[str, float]] = None
     resume: str = ""                       # path to last.ckpt.npz
-    mlflow_url: str = ""                   # not ported yet (queue 1, item 9)
+    mlflow_url: str = ""                   # MLflow tracking server (utils/mlflow_logging.py)
     experiment_name: str = "cerberusdet"
 
 
@@ -121,7 +123,8 @@ class TrainLoop:
             data_dict["names"] = [n if len(n) == 1 else ["item"] for n in data_dict["names"]]
         self.manager = RunManager(hyp, data_dict, opt.cfg, Path(opt.project) / opt.name,
                                   exist_ok=opt.exist_ok, nosave=opt.nosave,
-                                  mlflow_url=opt.mlflow_url, device=self.device)
+                                  mlflow_url=opt.mlflow_url,
+                                  experiment_name=opt.experiment_name, device=self.device)
         self.manager.dump_settings(dataclasses.asdict(opt))
         self.task_ids = self.manager.task_ids
         self.model, ckpt_meta = self.manager.load_model(opt.weights or None, seed=opt.seed)
@@ -131,7 +134,6 @@ class TrainLoop:
             dump_model_graph(self.model, self.manager.save_dir, imgsz=opt.imgsz)
         self.timings: List[Dict[str, float]] = []
         self.final_val: Dict[str, Dict[str, Any]] = {}
-        self._said_plots = False
 
         bs = opt.batch_size
         self.batch_sizes = list(bs) if isinstance(bs, (list, tuple)) else [bs] * len(self.task_ids)
@@ -214,11 +216,17 @@ class TrainLoop:
         self.manager.best_fitness = meta.get("best_fitness", 0.0)
         self.manager.best_fitness_per_task.update(meta.get("best_fitness_per_task", {}))
 
-    def _say_no_plots(self):
-        if not self._said_plots:
-            self._said_plots = True
-            print("plots: not drawn, the port has no plotting yet (ROADMAP.md queue 1, "
-                  "item 9)", file=sys.stderr)
+    def _plot_batch(self, task: str, i: int, batch: Dict[str, Any]) -> None:
+        """The mosaic of a train batch (trainer.py:264-269 of the JAX
+        package), drawn before the step call: the step's replay copies the
+        batch into its static buffers, and the images of a device-augmented
+        batch exist only on the card, so the images are copied to the host
+        here, outside any capture."""
+        from cerberusdet_tpu_torch.utils.plots import plot_images
+
+        img = torch.as_tensor(batch["img"]).permute(0, 3, 1, 2)
+        plot_images({**batch, "img": img}, self.manager.save_dir / f"train_batch_{task}_{i}.png",
+                    names=self.manager.names[self.task_ids.index(task)])
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> Dict[str, np.ndarray]:
@@ -231,8 +239,13 @@ class TrainLoop:
         momentum_h = float(get_hyperparameter(self.hyp, "momentum"))
         mloss: Dict[str, Optional[torch.Tensor]] = {t: None for t in self.task_ids}
         counts = {t: 0 for t in self.task_ids}
-        if epoch == self.start_epoch and opt.plots and not opt.nosave:
-            self._say_no_plots()
+        plots = epoch == self.start_epoch and opt.plots and not opt.nosave
+        if plots:
+            from cerberusdet_tpu_torch.utils.plots import plot_labels
+
+            for ti, t in enumerate(self.task_ids):
+                plot_labels(self.datasets[t].labels, self.manager.names[ti],
+                            self.manager.save_dir)
         for i in range(self.nb):
             ni = i + self.nb * epoch
             lrs, mom = warmup_lrs(
@@ -250,6 +263,8 @@ class TrainLoop:
             batches = {}
             for t in active:
                 b = next(iters[t])
+                if plots and i < 3:
+                    self._plot_batch(t, i, b)
                 batches[t] = {k: v for k, v in b.items() if k != "meta"}
             t1 = time.perf_counter()
             self.state, items = self.trainer.step(self.state, batches, lrs, mom,
@@ -273,19 +288,21 @@ class TrainLoop:
     def val_epoch(self, epoch: int, plots: bool = False) -> float:
         """Per-task val of the EMA model, per-task best checkpoints; returns
         the mean fitness (base_trainer.py:114-194)."""
-        if plots and not self.opt.nosave:
-            self._say_no_plots()
+        draw = plots and not self.opt.nosave
         results_per_task = {}
         with eval_flags():
             for ti, task in enumerate(self.task_ids):
                 out = run_task(self.state.ema, task, self.val_loaders[task],
                                nc=self.manager.nc[ti], names=self.manager.names[ti],
-                               compute_loss=self.losses[task], plots=plots)
+                               compute_loss=self.losses[task], plots=plots,
+                               plots_dir=self.manager.save_dir if draw else None)
                 results_per_task[task] = out["results"][:4]
                 self.manager.val_log(task, out["results"], epoch, out["fitness"])
                 if out["fitness"] > self.manager.best_fitness_per_task[task]:
                     self.manager.best_fitness_per_task[task] = out["fitness"]
                     self.manager.save_best_task_model(task, self.state, epoch)
+                if draw:
+                    save_val_plots(out, self.manager.names[ti], self.manager.save_dir, task)
         return overall_fitness(results_per_task)
 
     # ------------------------------------------------------------------
@@ -319,7 +336,7 @@ class TrainLoop:
                 p = self.manager.wdir / f"{name}.ckpt.npz"
                 if p.exists():
                     strip_checkpoint(p)
-        self.manager.finalize()
+        self.manager.finalize(self.opt.imgsz)
         print(f"training done in {dt / 3600:.2f}h, best fitness "
               f"{self.manager.best_fitness:.4f}")
         return self.manager.best_fitness
@@ -345,6 +362,23 @@ class TrainLoop:
                           f"mAP50={map50:.4f} mAP={mAP:.4f}")
             del model
         return out
+
+    def close(self) -> None:
+        """Free what the run holds: its captured steps and their graph pool,
+        the loaders' worker processes and resident packs, the model, its
+        state, losses and datasets, so that a process that runs TrainLoops
+        one after another (the evolvers' generations) holds one at a time.
+        The loop cannot train after it."""
+        self.trainer.release()
+        for loader in (*self.train_loaders.values(), *self.val_loaders.values()):
+            close = getattr(loader, "close", None)
+            if close is not None:
+                close()
+        self.train_loaders, self.val_loaders, self.datasets = {}, {}, {}
+        self.trainer = self.state = self.model = self.losses = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     @staticmethod
     def _broadcast_decision(stop: bool, fitness: float):

@@ -101,7 +101,12 @@ Phases, each of which fails the run on anything wrong:
      the loop iteration unsynchronised (run A), the host's wait for data,
      the device-busy share of the unsynchronised loop, host augmentation per
      image, the decoder, val and save times, the step's graph pool, peak
-     memory and main's wall;
+     memory and main's wall. Run A also draws what a JAX train run draws
+     (utils/plots.py): the first 3 train batches a task, the final val's
+     label and prediction mosaics, and where matplotlib is installed the
+     label statistics, PR curves and confusion matrices; each decodes, and
+     the first train mosaic equals the one drawn again from the host copy
+     of its batch, on the CPU and from the card, bit for bit;
   8. drive the serving entry points (cli/detect.py, cli/serve.py): the
      seeded flagship (BatchNorm statistics from 8 source images) as a
      .ckpt.npz and 24 seeded JPEGs at the val cell's five native sizes.
@@ -182,7 +187,26 @@ Phases, each of which fails the run on anything wrong:
      and the graph pool. The int8 max pool (its bf16 route on the card) and
      the integer route of grouped / 5x5 convs against the CPU; the zoo model
      (every block of the main registry) served in int8 on the card,
-     propagated == unannotated.
+     propagated == unannotated;
+ 12. drive ROADMAP item 9's user surface: the genetic evolver through the
+     train CLI's options (2 generations of 1 epoch, bf16, batch 8,8, on 16
+     train / 8 val seeded JPEGs a task, seed 0): evolve.json holds both,
+     generation 2's hyps lie in DEFAULT_META's bounds, differ from
+     generation 1's and equal a host replay of the mutation from its logged
+     results; each generation launches the TAL kernels once per task and
+     step (and per val batch with losses) and NMS once per val batch and
+     task, and its peak memory does not grow by a step pool; the checkpoint
+     Ensemble of two seeded flagships (attempt_load) on a batch of 8
+     letterboxed 480x640 frames, its 16800 candidates a task clamped to the
+     NMS kernel's 16384, detections identical with the plain loop's, one NMS
+     launch a task; tools/bench_c2f_split at batch 32 in bf16 and int8
+     "all": the split equal to the concat route (float32 within 1e-4 at 128
+     px; int8 bit for bit), conv_s8 launches a forward 143 against the
+     split's, both variants timed with the headline's method and the
+     split's own conv-node guard, conv_s8's int32 mode against its plain
+     version and torch._int_mm at the split's largest chunk conv. Logs
+     which optional packages (matplotlib, mlflow, ray, orbax, tensorstore)
+     the machine has.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -1835,6 +1859,95 @@ def batch_digest(batch) -> str:
     return h.hexdigest()
 
 
+def write_train_set(root: str, cfg: str, imgsz: int, dev, n_train: int, n_val: int):
+    """The train entry point's cell under root: n_train / n_val seeded
+    labelled JPEGs a task at VAL_SIZES (6 / 4 random labels an image), its
+    data.yaml, and the seeded cfg (re-drawn box biases, BatchNorm statistics
+    from 8 train images) as start.ckpt.npz. Returns (data yaml, weights)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_val_set
+
+    names = [[f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)]
+    train_dirs, val_dirs = [], []
+    for i, (t, nc) in enumerate(zip(TASKS, NCS)):
+        train_dirs.append(write_val_set(os.path.join(root, t, "train"), n_train, VAL_SIZES,
+                                        seed=40 + i, n_labels=6, nc=nc))
+        val_dirs.append(write_val_set(os.path.join(root, t, "val"), n_val, VAL_SIZES,
+                                      seed=50 + i, n_labels=4, nc=nc))
+    data_yaml = os.path.join(root, "data.yaml")
+    with open(data_yaml, "w") as f:
+        yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": names, "train": train_dirs,
+                        "val": val_dirs}, f)
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    distinct_heads(model, seed=1)
+    calib, _ = create_dataloader(train_dirs[0], imgsz, 8, task="bn", cache_dir=root)
+    x = torch.from_numpy(np.stack([calib[i][0] for i in range(min(8, len(calib)))])).to(dev)
+    calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
+    weights = os.path.join(root, "start.ckpt.npz")
+    save_checkpoint(weights, export_jax_params(model), {
+        "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": names}, half=False)
+    return data_yaml, weights
+
+
+def check_plots(save_dir, drawn, dev, card: str, n_train_batches: int,
+                n_val_batches: int) -> None:
+    """The plots a train run that saves draws (utils/plots.py, as the JAX
+    package's trainer): the first 3 train batches a task, the final val's
+    label and prediction mosaics of batches 0-2, and where matplotlib is
+    installed the label statistics and each task's confusion matrix (and PR
+    curve where the metrics have one). Each decodes. The first train mosaic
+    drawn again from the host copy of its batch (drawn["first"]), on the CPU
+    and from a copy of the images on `dev`, equals the run's file bit for
+    bit. Logs what matplotlib's absence skipped."""
+    import importlib.util
+    from pathlib import Path
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.utils import plots
+
+    save_dir = Path(save_dir)
+    want = [f"train_batch_{t}_{i}.png" for t in TASKS for i in range(min(3, n_train_batches))]
+    want += [f"val_batch{i}_{kind}_{t}.jpg" for t in TASKS for i in range(min(3, n_val_batches))
+             for kind in ("labels", "pred")]
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if have_mpl:
+        want += ["labels.png"] + [f"{t}_confusion_matrix.png" for t in TASKS]
+        want += [f"{t}_PR_curve.png" for t in TASKS if (save_dir / f"{t}_PR_curve.png").exists()]
+    sizes = {}
+    for name in want:
+        im = cv2.imread(str(save_dir / name), cv2.IMREAD_UNCHANGED)
+        if im is None or not im.size:
+            raise AssertionError(f"plots: {name} is missing or does not decode")
+        sizes[name] = im.shape
+    task, i, batch = drawn["first"]
+    ref = cv2.imread(str(save_dir / f"train_batch_{task}_{i}.png"), cv2.IMREAD_UNCHANGED)
+    names = [f"{task}_{c}" for c in range(NCS[TASKS.index(task)])]
+    for where in (torch.device("cpu"), dev):
+        out = save_dir / f"redrawn_{where.type}.png"
+        img = torch.from_numpy(batch["img"]).to(where).permute(0, 3, 1, 2)
+        plots.plot_images({**batch, "img": img}, out, names=names)
+        if not np.array_equal(cv2.imread(str(out), cv2.IMREAD_UNCHANGED), ref):
+            raise AssertionError(f"plots: train_batch_{task}_{i}.png differs from the mosaic "
+                                 f"drawn again from its batch's host copy on {where}")
+        out.unlink()
+    log(f"[plots] run A wrote {len(want)} plots, each decoding ({sizes[want[0]]} the first "
+        f"train mosaic), the train mosaics in {drawn['seconds']:.2f} s of the loop; "
+        f"train_batch_{task}_{i}.png equals the mosaic drawn again from the host copy of its "
+        f"batch on the CPU and from its images on {dev.type}, bit for bit; matplotlib "
+        f"{'found' if have_mpl else 'not installed'}, figures skipped: "
+        f"{sorted(plots.SKIPPED) or 'none'}  [{card}]")
+
+
 def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
               n_train: int = TRAIN_CLI_TRAIN, n_val: int = TRAIN_CLI_VAL,
               batch: int = TRAIN_CLI_BATCH, workers=None):
@@ -1862,18 +1975,11 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
     from cerberusdet_tpu_torch import native
     from cerberusdet_tpu_torch.cli import train as cli_train
     from cerberusdet_tpu_torch.cli import val as cli_val
-    from cerberusdet_tpu_torch.data.loaders import create_dataloader
     from cerberusdet_tpu_torch.manager import run_manager
-    from cerberusdet_tpu_torch.manager.checkpoint import (
-        flatten_tree,
-        load_checkpoint,
-        save_checkpoint,
-    )
+    from cerberusdet_tpu_torch.manager.checkpoint import flatten_tree, load_checkpoint
     from cerberusdet_tpu_torch.manager.weights import export_jax_params
-    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
     from cerberusdet_tpu_torch.ops import nms as nms_mod
     from cerberusdet_tpu_torch.ops import nms_cuda, tal_cuda
-    from cerberusdet_tpu_torch.testing import calibrate_bn, write_val_set
     from cerberusdet_tpu_torch.train import loss as loss_mod
     from cerberusdet_tpu_torch.train import trainer as trainer_mod
     from cerberusdet_tpu_torch.train.step import MultiTaskTrainer
@@ -1899,25 +2005,7 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
     try:
         # ---- the data and the starting checkpoint
         t0 = time.perf_counter()
-        train_dirs, val_dirs = [], []
-        for i, (t, nc) in enumerate(zip(TASKS, NCS)):
-            train_dirs.append(write_val_set(os.path.join(root, t, "train"), n_train, VAL_SIZES,
-                                            seed=40 + i, n_labels=6, nc=nc))
-            val_dirs.append(write_val_set(os.path.join(root, t, "val"), n_val, VAL_SIZES,
-                                          seed=50 + i, n_labels=4, nc=nc))
-        data_yaml = os.path.join(root, "data.yaml")
-        with open(data_yaml, "w") as f:
-            yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": names, "train": train_dirs,
-                            "val": val_dirs}, f)
-        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
-        distinct_heads(model, seed=1)
-        calib, _ = create_dataloader(train_dirs[0], imgsz, 8, task="bn", cache_dir=root)
-        x = torch.from_numpy(np.stack([calib[i][0] for i in range(8)])).to(dev)
-        calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
-        weights = os.path.join(root, "start.ckpt.npz")
-        save_checkpoint(weights, export_jax_params(model), {
-            "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": names}, half=False)
-        del model, x, calib
+        data_yaml, weights = write_train_set(root, cfg, imgsz, dev, n_train, n_val)
         log(f"[train cli] {n_train} train and {n_val} val JPEGs a task at native sizes "
             f"{VAL_SIZES}, 6 / 4 random labels an image; the seeded "
             f"{os.path.basename(cfg)} (BatchNorm statistics from 8 train images) as "
@@ -2077,6 +2165,19 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
 
         patch(trainer_mod.TrainLoop, "_final_val_on_ckpts", final_val)
 
+        drawn = {"first": None, "seconds": 0.0}  # the train mosaics of the loop
+        real_plot = trainer_mod.TrainLoop._plot_batch
+
+        def plot_batch(self, task, i, b):
+            if drawn["first"] is None:  # the host copy of the first plotted batch
+                drawn["first"] = (task, i, {k: torch.as_tensor(b[k]).cpu().numpy().copy()
+                                            for k in ("img", "bboxes", "cls", "mask")})
+            t = time.perf_counter()
+            real_plot(self, task, i, b)
+            drawn["seconds"] += time.perf_counter() - t
+
+        patch(trainer_mod.TrainLoop, "_plot_batch", plot_batch)
+
         project = os.path.join(root, "runs")
         common = ["--data", data_yaml, "--device", str(dev)]
         fresh = common + ["--cfg", cfg, "--hyp", PAPER_HYP, "--imgsz", str(imgsz),
@@ -2139,6 +2240,8 @@ def train_cli(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         log(f"[train cli] JPEG decode by {decoder.name!r} (what run A's first decode built: "
             f"{sorted(p.name for p in native.BUILD_DIR.glob('libcerberus_io_*.so'))})  [{card}]")
         last = loop_a.manager.wdir / "last.ckpt.npz"
+        check_plots(loop_a.manager.save_dir, drawn, dev, card, n_train_batches=nb_a,
+                    n_val_batches=-(-n_val // batch))
 
         # ---- run R: A resumed, its opt.yaml's epochs raised to 3
         opt_yaml = loop_a.manager.save_dir / "opt.yaml"
@@ -4292,6 +4395,438 @@ def propagation(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, batches=(
     return [entry, quant_entry]
 
 
+# phase 12's cells: the evolver's generations over the train entry point's
+# seeded set cut to 16 train / 8 val JPEGs a task and 1 epoch a generation
+# (the time limit); the Ensemble's batch of 480x640 frames; bench_c2f_split's
+# batch, with 10 replays a timed round
+EVOLVE_TRAIN, EVOLVE_VAL, EVOLVE_GENERATIONS = 16, 8, 2
+ENSEMBLE_BATCH, C2F_BATCH, C2F_ITERS = 8, 32, 10
+OPTIONAL_PACKAGES = ("matplotlib", "mlflow", "ray", "orbax", "tensorstore")
+GIB = 2 ** 30
+
+
+def evolve_run(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+               n_train: int = EVOLVE_TRAIN, n_val: int = EVOLVE_VAL,
+               batch: int = TRAIN_CLI_BATCH, generations: int = EVOLVE_GENERATIONS,
+               workers=None):
+    """The genetic evolver through cli/train.py's options (--evolve, 1 epoch
+    a generation, --bf16, batch 8,8, the paper's hyps, the seeded flagship as
+    --weights) with seed 0: cli_train.evolver's Yolov5Evolver, whose
+    generations each train a TrainLoop (the captured step) with noval, then
+    validate it per task, and close it. Gates: evolve.json holds the
+    generations; the second generation's hyps lie inside DEFAULT_META's
+    bounds, differ from the first's, and equal the mutation a fresh evolver
+    with seed 0 replays on the host from the first's logged results; in each
+    generation the TAL kernels launch once per task and step (and per val
+    batch and task with losses), the NMS kernel once per val batch and task;
+    a generation's peak memory does not grow by a step pool (2 GiB slack)
+    and the memory held after each generation's close does not grow (1 GiB).
+    Returns the TAL kernels' entries at the first generation's first batch."""
+    import types
+
+    import torch
+
+    from cerberusdet_tpu_torch.cli import train as cli_train
+    from cerberusdet_tpu_torch.evaluation import val as val_mod
+    from cerberusdet_tpu_torch.evolve.base_evolver import DEFAULT_META
+    from cerberusdet_tpu_torch.evolve.yolov5_evolver import Yolov5Evolver
+    from cerberusdet_tpu_torch.ops import nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.train import trainer as trainer_mod
+    from cerberusdet_tpu_torch.train.step import MultiTaskTrainer
+
+    on_card = dev.type == "cuda"
+    kern = {"nms": nms_cuda.greedy_nms_cuda, "tal_select": tal_cuda.select_kernel,
+            "tal_assign": tal_cuda.assign_kernel, "tal_norm": tal_cuda.norm_kernel}
+    saved_counts = {k: f.launches for k, f in kern.items()}
+    patches = []
+
+    def patch(obj, name, new):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    root = tempfile.mkdtemp(prefix="cerberus_evolve_")
+    try:
+        t0 = time.perf_counter()
+        data_yaml, weights = write_train_set(root, cfg, imgsz, dev, n_train, n_val)
+        argv = ["--data", data_yaml, "--device", str(dev), "--cfg", cfg, "--hyp", PAPER_HYP,
+                "--imgsz", str(imgsz), "--batch-size", f"{batch},{batch}", "--bf16",
+                "--warmup-min-iters", "4", "--weights", weights, "--epochs", "1",
+                "--project", os.path.join(root, "runs"), "--name", "E", "--seed", "0",
+                "--evolve", str(generations)] + (["--workers", str(workers)] if workers else [])
+        opt_ns, opt, hyp, data, device = cli_train.options(argv)
+        ev = cli_train.evolver(opt, opt_ns, hyp, data, device, seed=0)
+        log(f"[evolve] {n_train} train / {n_val} val JPEGs a task, the seeded "
+            f"{os.path.basename(cfg)} as --weights, {type(ev).__name__} seed 0 in "
+            f"{opt.project}/{opt.name}; set up in {time.perf_counter() - t0:.2f} s")
+
+        probe = {"tasks_stepped": 0, "vals": []}
+        real_step = MultiTaskTrainer.step
+
+        def step(self, state, batches, *a, **kw):
+            probe["tasks_stepped"] += len(batches)
+            return real_step(self, state, batches, *a, **kw)
+
+        patch(MultiTaskTrainer, "step", step)
+
+        def counting(real):
+            def run_task(model, task, loader, *a, **kw):
+                probe["vals"].append((len(loader), kw.get("compute_loss") is not None))
+                return real(model, task, loader, *a, **kw)
+            return run_task
+
+        patch(trainer_mod, "run_task", counting(trainer_mod.run_task))  # the loop's val
+        patch(val_mod, "run_task", counting(val_mod.run_task))  # train_once's val
+        captured = {}
+        real_assign = loss_mod.task_aligned_assign
+
+        def assign(*a, **kw):
+            if "tal" not in captured:
+                captured["tal"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+            return real_assign(*a, **kw)
+
+        patch(loss_mod, "task_aligned_assign", assign)
+
+        gens = []
+        real_once = ev.train_once
+
+        def train_once(h):
+            for f in kern.values():
+                f.launches = 0
+            probe.update(tasks_stepped=0, vals=[])
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = real_once(h)
+            if on_card:
+                torch.cuda.synchronize()
+            gens.append({
+                "s": time.perf_counter() - t, "counts": {k: f.launches for k, f in kern.items()},
+                "tasks_stepped": probe["tasks_stepped"], "vals": list(probe["vals"]),
+                "peak": torch.cuda.max_memory_allocated() / GIB if on_card else float("nan"),
+                "held": torch.cuda.memory_allocated() / GIB if on_card else float("nan"),
+                "reserved": torch.cuda.memory_reserved() / GIB if on_card else float("nan")})
+            return out
+
+        ev.train_once = train_once
+        t0 = time.perf_counter()
+        ev.run_evolution()
+        wall = time.perf_counter() - t0
+
+        for g, r in enumerate(gens):
+            val_batches = sum(v[0] for v in r["vals"])
+            loss_batches = sum(v[0] for v in r["vals"] if v[1])
+            expect = {"nms": val_batches, **{k: r["tasks_stepped"] + loss_batches
+                                             for k in TAL_KERNELS}}
+            log(f"[evolve] generation {g + 1}: {r['s']:.1f} s; {r['tasks_stepped']} task steps, "
+                f"{len(r['vals'])} task vals over {val_batches} batches ({loss_batches} with "
+                f"losses); launches {r['counts']}, expected {expect}; peak memory "
+                f"{r['peak']:.2f} GiB, after its close {r['held']:.2f} GiB allocated, "
+                f"{r['reserved']:.2f} GiB reserved  [{card}]")
+            if on_card and (r["counts"] != expect or not all(r["counts"].values())):
+                raise AssertionError(f"evolve generation {g + 1}: kernel launches "
+                                     f"{r['counts']} != {expect}")
+        if len(gens) != generations:
+            raise AssertionError(f"evolve: {len(gens)} generations ran, not {generations}")
+        if on_card and (max(r["peak"] for r in gens) > gens[0]["peak"] + 2
+                        or max(r["held"] for r in gens) > gens[0]["held"] + 1):
+            raise AssertionError("evolve: a generation kept the memory of an earlier one "
+                                 f"(peaks {[r['peak'] for r in gens]} GiB, held after close "
+                                 f"{[r['held'] for r in gens]} GiB)")
+
+        muts = ev.file_logger.read_mutations()
+        if [m["step"] for m in muts] != list(range(generations)):
+            raise AssertionError(f"evolve.json holds steps {[m['step'] for m in muts]}")
+        first, second = muts[0]["hyps"], muts[1]["hyps"]
+        out_of_bounds = [k for k, (_, lo, hi, _) in DEFAULT_META.items() if k in second and any(
+            not lo <= v <= hi for v in (second[k] if isinstance(second[k], list)
+                                        else [second[k]]))]
+        if out_of_bounds or first == second:
+            raise AssertionError(f"evolve: generation 2's hyps out of bounds at "
+                                 f"{out_of_bounds} or equal to generation 1's")
+        replay = Yolov5Evolver(types.SimpleNamespace(project=os.path.join(root, "replay"),
+                                                     name="r", epochs=1), hyp, data,
+                               generations=generations, seed=0)
+        start = replay.bound_hyp_values(copy.deepcopy(hyp))
+        replay.file_logger.append_mutation_to_file(first, muts[0]["results_per_task"], 1, 0)
+        if start != first or replay.get_next_hyp(start) != second:
+            raise AssertionError("evolve: the host's replay of the mutation from generation "
+                                 "1's logged results differs from generation 2's hyps")
+        changed = sorted(k for k in first if first[k] != second[k])
+        log(f"[evolve] {generations} generations in {wall:.1f} s: evolve.json has them, "
+            f"generation 2 mutated {len(changed)} hyps ({', '.join(changed[:6])}, ...) inside "
+            f"DEFAULT_META's bounds, and a fresh Yolov5Evolver(seed=0) replaying the mutation "
+            f"from generation 1's logged results on the host gives generation 2's hyps exactly; "
+            f"fitness {[round(sum(0.1 * r[2] + 0.9 * r[3] for r in m['results_per_task'].values()) / len(TASKS), 5) for m in muts]}"
+            f"  [{card}]")
+        args, nc = captured["tal"]
+        total = {k: sum(r["counts"][k] for r in gens) for k in TAL_KERNELS}
+        return tal_entries(args, nc, total, "evolver: a generation's augmented batch", card,
+                           {k: {"launches_by_generation": [r["counts"][k] for r in gens]}
+                            for k in TAL_KERNELS})
+    finally:
+        for obj, name, orig in reversed(patches):
+            setattr(obj, name, orig)
+        for k, f in kern.items():
+            f.launches = saved_counts[k]
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ensemble_run(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+                 batch: int = ENSEMBLE_BATCH):
+    """The checkpoint Ensemble: two seeded flagship checkpoints (seeds 0 and
+    1, box biases re-drawn, BatchNorm statistics from the batch) through
+    manager/attempt_load.py:attempt_load([a, b]) on `dev`, a batch of seeded
+    480x640 frames letterboxed by the preprocessor through the Ensemble's
+    eval forward (each task's candidates the two members' concatenated:
+    16800 at 640 px) and per-task NMS (ops/nms.py, the kernel route on the
+    card, which takes the 16384 best-scoring). Gates: the detections equal
+    the plain NMS loop's on the card with max_nms 16384, bit for bit; the NMS
+    kernel launches once per task; its input holds at most 16384 candidates.
+    Returns the NMS kernel's entry at this traffic."""
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.evaluation.val import eval_flags
+    from cerberusdet_tpu_torch.infer import CerberusPreprocessor
+    from cerberusdet_tpu_torch.manager.attempt_load import Ensemble, attempt_load
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import nms as nms_mod
+    from cerberusdet_tpu_torch.ops import nms_cuda
+    from cerberusdet_tpu_torch.ops.nms import non_max_suppression
+    from cerberusdet_tpu_torch.testing import calibrate_bn
+
+    nms = nms_cuda.greedy_nms_cuda
+    saved = nms.launches
+    real_nms = nms_mod.greedy_nms_cuda
+    root = tempfile.mkdtemp(prefix="cerberus_ensemble_")
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(8)
+        frames = list(rng.integers(0, 256, (batch, 480, 640, 3), dtype=np.uint8))
+        bt, _ = CerberusPreprocessor(img_size=imgsz, device=dev).preprocess(frames)
+        x = torch.as_tensor(bt).to(dev).permute(0, 3, 1, 2).float()
+        names = [[f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)]
+        paths = []
+        for seed in (0, 1):
+            m = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed)
+            distinct_heads(m, seed=seed + 1)
+            calibrate_bn(m, x)
+            paths.append(os.path.join(root, f"member{seed}.ckpt.npz"))
+            save_checkpoint(paths[-1], export_jax_params(m), {
+                "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": names}, half=False)
+            del m
+        ens, meta = attempt_load(paths, device=dev)
+        if not isinstance(ens, Ensemble) or len(ens.members) != 2:
+            raise AssertionError("attempt_load of two weights did not return an Ensemble")
+        ens.eval()
+        log(f"[ensemble] 2 seeded {os.path.basename(cfg)} checkpoints loaded by "
+            f"attempt_load, fused, float32, in {time.perf_counter() - t0:.1f} s")
+
+        inputs = {}
+
+        def counting_nms(boxes, scores, iou_thres, max_det):
+            inputs.setdefault("first", (boxes.clone(), scores.clone(), iou_thres, max_det))
+            inputs.setdefault("k", []).append(scores.shape[1])
+            return real_nms(boxes, scores, iou_thres, max_det)
+
+        nms_mod.greedy_nms_cuda = counting_nms
+        nms.launches = 0
+        with torch.no_grad(), eval_flags():
+            t = time.perf_counter()
+            preds = ens(x)
+            out = {t_: non_max_suppression(preds[t_], nc=nc, conf_thres=CONF, iou_thres=0.45,
+                                           max_det=300) for t_, nc in zip(TASKS, NCS)}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = nms.launches
+            plain = {t_: non_max_suppression(preds[t_], nc=nc, conf_thres=CONF, iou_thres=0.45,
+                                             max_det=300, max_nms=nms_cuda.MAX_K,
+                                             use_kernel=False) for t_, nc in zip(TASKS, NCS)}
+        nms_mod.greedy_nms_cuda = real_nms
+        n_cand = {t_: preds[t_].shape[1] for t_ in TASKS}
+        for t_ in TASKS:
+            (d, c), (dp, cp) = out[t_], plain[t_]
+            if not (torch.equal(d, dp) and torch.equal(c, cp)):
+                raise AssertionError(f"ensemble {t_}: the kernel's detections differ from the "
+                                     f"plain NMS loop's")
+            if int(c.sum()) == 0:
+                raise AssertionError(f"ensemble {t_}: no detections")
+        on_card = dev.type == "cuda"
+        if on_card and (launches != len(TASKS) or max(inputs["k"]) > nms_cuda.MAX_K):
+            raise AssertionError(f"ensemble: {launches} NMS launches for {len(TASKS)} tasks, "
+                                 f"K {inputs['k']}")
+        log(f"[ensemble] a batch of {batch} 480x640 frames (letterboxed to {tuple(x.shape[2:])}): "
+            f"{n_cand} candidates a task (2 members concatenated), the NMS kernel's K "
+            f"{inputs.get('k')} (max_nms clamped to {nms_cuda.MAX_K}); {launches} NMS launches; "
+            f"forward + NMS {1e3 * wall:.1f} ms (host clock); detections "
+            f"{[int(out[t_][1].sum()) for t_ in TASKS]} equal to the plain loop's on the card "
+            f"with max_nms {nms_cuda.MAX_K}, bit for bit  [{card}]")
+        if "first" not in inputs:  # the CPU takes the plain loop: no kernel input
+            return []
+        boxes, scores, iou, max_det = inputs["first"]
+        return [nms_kernel_entry(boxes, scores, iou, max_det,
+                                 "Ensemble traffic: 2 members, 16800 candidates clamped",
+                                 launches, card)]
+    finally:
+        nms_mod.greedy_nms_cuda = real_nms
+        nms.launches = saved
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def c2f_split_run(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
+                  batch: int = C2F_BATCH, iters: int = C2F_ITERS, check_imgsz: int = 128):
+    """tools/bench_c2f_split.py's measurement on the flagship at `batch`,
+    bf16 and int8 "all" (propagated): the split against the concat route
+    (float32 within 1e-4 at check_imgsz; int8 bit for bit), then each
+    variant timed with the headline's method and the split's own conv-node
+    guard. In int8 the split's eager forward launches conv_s8 once per conv
+    the concat forward has plus 1 + n per C2f (int32 mode a chunk), and its
+    timed loop launches conv_s8; conv_s8 in int32 mode equals its plain
+    version at the split's largest chunk conv (every mode), and
+    torch._int_mm's sums there. Returns conv_s8's entry in the split."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.tools import bench_c2f_split as tool
+
+    on_card = dev.type == "cuda"
+    counters = (ci.conv_s8, ci.quant_pack_s8, ci.quant_s8)
+    saved = [c.launches for c in counters]
+    results = {}
+    try:
+        for int8 in (False, True):
+            tag = "_int8" if int8 else ""
+            t0 = time.perf_counter()
+            model = tool.build(cfg, NCS, dev, int8, imgsz)
+            err = tool.check_equal(model, int8, check_imgsz)
+            img = tool.make_input(batch, imgsz, dev)
+            n_convs, n_int8 = tool.split_convs(model)
+            base = tool.model_convs(model)
+            log(f"[c2f split] {'int8 all, propagated' if int8 else 'bf16'}: the split equals "
+                f"the concat route at {check_imgsz} px "
+                f"{'bit for bit' if int8 else f'in float32 within {err:.3g} of each tensor (limit 1e-4)'}"
+                f" (every C2f output and the predictions); "
+                f"convs a forward {base[0]} -> {n_convs}, on conv_s8 {base[1]} -> {n_int8}; "
+                f"built in {time.perf_counter() - t0:.1f} s")
+            if int8:
+                n_concat = tool.conv_s8_launches(model, img)
+                calls = []
+                real = tool.conv_s8
+
+                def recording(*a, **kw):
+                    calls.append(a)
+                    return real(*a, **kw)
+
+                tool.conv_s8 = recording
+                try:
+                    with tool.split_c2f(model):
+                        n_split = tool.conv_s8_launches(model, img)
+                finally:
+                    tool.conv_s8 = real
+                log(f"[c2f split] conv_s8 launches of one eager forward: concat {n_concat}, "
+                    f"split {n_split} ({len(calls)} of them int32-mode chunk convs)")
+                if on_card and (n_concat, n_split) != (base[1], n_int8):
+                    raise AssertionError(f"c2f split: conv_s8 launches {n_concat} / {n_split}, "
+                                         f"not {base[1]} / {n_int8}")
+            for name, run in ((f"baseline_concat{tag}", tool.time_forward),
+                              (f"c2f_sumsplit{tag}", tool.time_split)):
+                for c in counters:
+                    c.launches = 0
+                r = run(model, img, iters)
+                counts = [c.launches for c in counters]
+                ms = r["ms"] if r["ms"] is not None else r["host_ms"]
+                results[name] = {"ms_per_batch": ms, "img_per_s": batch / ms * 1e3,
+                                 "pool_mib": r["pool_mib"], "launches": counts}
+                log(f"[c2f split] {name}: {ms:.3f} ms a batch of {batch}, "
+                    f"{batch / ms * 1e3:.1f} img/s (device, best of 3 rounds of {iters} "
+                    f"replays), graph pool {r['pool_mib']} MiB, conv nodes {r['conv_nodes']}, "
+                    f"launches (conv_s8, quant_pack_s8, quant_s8) {counts}  [{card}]")
+                if on_card and int8 and not counts[0]:
+                    raise AssertionError(f"c2f split: {name} launched no conv_s8")
+            if not int8:
+                del model
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+        split_launches = results["c2f_sumsplit_int8"]["launches"][0]
+        print(json.dumps({k: {"ms_per_batch": round(v["ms_per_batch"], 2),
+                              "img_per_s": round(v["img_per_s"], 1)}
+                          for k, v in results.items()}), flush=True)
+
+        # conv_s8 in int32 mode at the split's largest chunk conv
+        xq, w, s_x, s_w, b = max(calls, key=lambda a: a[0].numel() * a[1].shape[0])[:5]
+        max_err = conv_s8_compare(xq, w, s_x, s_w, b, 1, False) if on_card else 0.0
+        call = (xq, w, s_x, s_w, b, 1, 0, False, torch.int32)
+        k_ms, how = kernel_ms(lambda: ci.conv_s8(*call), 10, "conv_s8_kernel")
+        p_ms = cuda_ms(lambda: ci.conv_s8_plain(*call), iters=3, warmup=1)
+        bsz, h, wd, ci16 = xq.shape
+        co = w.shape[0]
+        macs = bsz * h * wd * co * ci16
+        lib_ms = None
+        if on_card:
+            a2, b2 = xq.reshape(-1, ci16), w.reshape(co, -1).t()
+            if not torch.equal(torch._int_mm(a2, b2).reshape(bsz, h, wd, co).permute(0, 3, 1, 2),
+                               ci.conv_s8(*call)):
+                raise AssertionError("torch._int_mm disagrees with conv_s8's int32 sums")
+            lib_ms = cuda_ms(lambda: torch._int_mm(a2, b2), iters=10)
+        ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+        bytes_ms = (xq.numel() + w.numel() + 8 * co + 4 * bsz * h * wd * co) / HBM_BYTES_PER_S * 1e3
+        log(f"[conv_s8 at the split's shapes] 1x1 {ci16}->{co} at {h}x{wd}, batch {bsz}, int32 "
+            f"out: kernel {k_ms:.4f} ms ({how}), bound {max(ops_ms, bytes_ms):.4f} ms, plain "
+            f"{p_ms:.3f} ms, torch._int_mm {lib_ms} ms; identical in every mode  [{card}]")
+        return [{
+            "name": f"conv_s8 (c2f split: int32 mode a chunk, 1x1 {ci16}->{co} at {h}x{wd}, "
+                    f"batch {bsz})",
+            "route": "cuda",
+            "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
+            "launches": split_launches,
+            "launches_per_forward": {"concat": base[1], "split": n_int8},
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lib_ms,
+        }]
+    finally:
+        for c, n in zip(counters, saved):
+            c.launches = n
+
+
+def user_surface(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, evolve_kw=None,
+                 ensemble_kw=None, c2f_kw=None):
+    """Phase 12: ROADMAP item 9's user surface on the card (the plots are
+    checked in phase 7's run A): the evolver, the Ensemble and
+    bench_c2f_split, each timed. Logs which optional packages the machine
+    has (matplotlib draws the figures; mlflow, ray and tensorstore back
+    --mlflow-url, the Ray evolver and the orbax reader). Returns the
+    kernels-line entries."""
+    import importlib.util
+
+    import torch
+
+    found = {p: importlib.util.find_spec(p) is not None for p in OPTIONAL_PACKAGES}
+    log(f"[user surface] optional packages: {found}")
+    entries = []
+    for name, fn, kw in (("evolve", evolve_run, evolve_kw), ("ensemble", ensemble_run,
+                                                             ensemble_kw),
+                         ("c2f split", c2f_split_run, c2f_kw)):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        torch.set_grad_enabled(name == "evolve")
+        t0 = time.perf_counter()
+        entries.extend(fn(card, dev, cfg=cfg, imgsz=imgsz, **(kw or {})))
+        log(f"[user surface] {name} in {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4687,6 +5222,11 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(propagation(card, dev))
     log(f"[propagation] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. the user surface: the evolvers, the Ensemble, bench_c2f_split
+    t0 = time.perf_counter()
+    kernels.extend(user_surface(card, dev))
+    log(f"[user surface] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

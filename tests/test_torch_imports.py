@@ -1,5 +1,6 @@
 """The port stands alone: no module of cerberusdet_tpu_torch, nor
-chip_smoke.py, imports jax or the JAX package (cerberusdet_tpu)."""
+chip_smoke.py, imports jax, orbax (which imports jax) or the JAX package
+(cerberusdet_tpu)."""
 
 import os
 import pkgutil
@@ -12,8 +13,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "cerberusdet_tpu_torch")
 IMPORT_RE = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|cerberusdet_tpu)(?!\w)"
-    r"|import_module\(\s*['\"](?:jax|cerberusdet_tpu)(?!\w)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|cerberusdet_tpu|orbax)(?!\w)"
+    r"|import_module\(\s*['\"](?:jax|cerberusdet_tpu|orbax)(?!\w)", re.M)
 
 
 def _port_modules():
@@ -62,11 +63,17 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.tools.profile_step",
             "cerberusdet_tpu_torch.tools.summarize_trace",
             "cerberusdet_tpu_torch.tools.make_synthetic_data",
-            "cerberusdet_tpu_torch.tools.strip_weights"} <= set(mods)
+            "cerberusdet_tpu_torch.tools.strip_weights",
+            "cerberusdet_tpu_torch.utils.plots", "cerberusdet_tpu_torch.utils.mlflow_logging",
+            "cerberusdet_tpu_torch.evolve", "cerberusdet_tpu_torch.evolve.loggers",
+            "cerberusdet_tpu_torch.evolve.base_evolver",
+            "cerberusdet_tpu_torch.evolve.yolov5_evolver",
+            "cerberusdet_tpu_torch.evolve.ray_evolver",
+            "cerberusdet_tpu_torch.tools.bench_c2f_split"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'cerberusdet_tpu' or m.startswith('cerberusdet_tpu.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'cerberusdet_tpu', 'orbax'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

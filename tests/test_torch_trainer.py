@@ -307,9 +307,10 @@ def test_refusals(case):
     root, data, _, _ = case
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         _port_loop(_options(port_trainer, root, "mesh", use_mesh=True), data)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        RunManager(HYP, data, CFG, root / "runs" / "mlflow", mlflow_url="http://localhost:1",
-                   device="cpu")
+    # --mlflow-url is ported: without mlflow installed the run gets a no-op logger
+    man = RunManager(HYP, data, CFG, root / "runs" / "mlflow", mlflow_url="http://localhost:1",
+                     device="cpu")
+    assert man.mlflow is not None and not man.mlflow.active
     with pytest.raises(ValueError, match="architecture metadata"):  # .pt needs cfg, tasks, nc
         load_single("w.pt", device="cpu")
     if not torch.cuda.is_available():
@@ -391,13 +392,38 @@ def test_cli_resume_auto_picks_newest_by_mtime(case, tmp_path, monkeypatch):
     (["--proc-workers", "2"], "item 2"), (["--cache-images", "disk"], "item 2"),
     (["--mlflow-url", "http://localhost:1"], "item 9")])
 def test_cli_refuses_what_is_not_ported(case, tmp_path, flag, item, monkeypatch):
+    class Stop(Exception):
+        pass
+
+    seen = {}
+    if item == "item 9":
+        # ported (tests/test_torch_integrations.py, tests/test_torch_evolve_cli.py):
+        # --evolve reaches the evolver, --mlflow-url the run's MLflow logger
+        from cerberusdet_tpu_torch.evolve import yolov5_evolver
+        from cerberusdet_tpu_torch.utils import mlflow_logging
+
+        def evolver(opt, hyp, data, generations, params_to_evolve, device, seed):
+            seen.update(name=opt.name, generations=generations, device=device)
+            raise Stop
+
+        def logger(experiment, run, tracking_uri):
+            seen.update(experiment=experiment, run=run, uri=tracking_uri)
+            raise Stop
+
+        monkeypatch.setattr(yolov5_evolver, "Yolov5Evolver", evolver)
+        monkeypatch.setattr(mlflow_logging, "MLFlowLogger", logger)
+        with pytest.raises(Stop):
+            cli.main(_cli_args(case, tmp_path, *flag))
+        if flag[0] == "--evolve":
+            assert seen == {"name": "yolov5_exp", "generations": 2,
+                            "device": torch.device("cpu")}
+        else:
+            assert seen == {"experiment": "cerberusdet", "run": "exp",
+                            "uri": "http://localhost:1"}
+        return
     if item in ("item 2", "item 8"):
         # ported (tests/test_torch_loaders.py trains with them): the flags
         # reach TrainLoop's options as the JAX CLI passes them
-        class Stop(Exception):
-            pass
-
-        seen = {}
 
         def loop(opt, *a, **kw):
             seen.update(cache=opt.cache_images, procs=opt.proc_workers,

@@ -376,12 +376,30 @@ def test_cli_main_equals_run_task(cli_case):
         assert got[task]["seen"] == 8 and got[task]["results"][2] > 0
 
 
-def test_cli_speed_and_refusals(cli_case):
+def test_cli_speed_and_refusals(cli_case, monkeypatch):
     weights, _, common = cli_case
     out = cli.main(common + ["--task", "speed", "--batch-size", "2"])
     assert set(out) == {"ms_per_image", "images_per_sec"} and out["images_per_sec"] > 0
-    with pytest.raises(NotImplementedError, match="MLflow"):
-        cli.main(common + ["--mlflow-url", "http://localhost:5000"])
+    # --mlflow-url is ported: the metrics go to MLflow (a recording stub here),
+    # and the run directory receives the mosaics and the per-task figures
+    from test_integrations_stub import RecordingMlflow
+
+    from cerberusdet_tpu_torch.utils import mlflow_logging
+
+    stub = RecordingMlflow()
+    monkeypatch.setattr(mlflow_logging, "mlflow", stub)
+    monkeypatch.setattr(mlflow_logging, "MLFLOW_AVAILABLE", True)
+    got = cli.main(common + ["--mlflow-url", "http://localhost:5000", "--name", "mlflow"])
+    logged = {}
+    for _, (m,), _ in stub.named("log_metrics"):
+        logged.update(m)
+    for task in TASKS:
+        assert logged[f"val/{task}/mAP_0.5"] == got[task]["results"][2]
+    run = os.path.join(common[common.index("--project") + 1], "mlflow")
+    for task in TASKS:
+        for name in (f"val_batch0_labels_{task}.jpg", f"val_batch0_pred_{task}.jpg",
+                     f"{task}_confusion_matrix.png"):
+            assert cv2.imread(os.path.join(run, name)) is not None, name
     with pytest.raises(SystemExit, match="--cfg required"):  # .pt weights need the model yaml
         cli.load_model_for_eval(weights.replace(".ckpt.npz", ".pt"), "", "cpu")
     if not torch.cuda.is_available():  # without --device the entry point asks for the card
