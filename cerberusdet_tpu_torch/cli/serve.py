@@ -11,8 +11,11 @@ Counterpart of the JAX package's serve.py, with its flags and defaults,
 except that --platform gives way to --device (the card, "cuda", by default;
 "cpu" runs on the CPU) and --compile-cache goes (the port compiles no
 program ahead; each key's CUDA graph is captured at its first request).
---mesh, data-parallel serving over several cards, is not ported yet
-(ROADMAP.md queue 1, item 6). The service warms up before it accepts
+--mesh serves data-parallel over every visible card (the JAX package's
+mesh, parallel/mesh.py:make_mesh; with --device cpu, over the CPU): the
+model is replicated on each, and each served batch of --max-batch rows,
+which must divide by the number of cards, is split over the replicas
+(infer/inference.py). The service warms up before it accepts
 traffic: the batch of --max-batch that every served batch is padded to is
 captured at construction, and one dummy request passes the engine.
 """
@@ -40,7 +43,9 @@ def parse_opt(argv=None):
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="batch-fill wait after the first request arrives")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel serving over several cards: not ported, raises")
+                   help="data-parallel serving over every visible card: the model "
+                        "replicates, each served batch splits over the cards "
+                        "(max-batch must divide by the card count)")
     p.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
     return p.parse_args(argv)
 
@@ -50,21 +55,28 @@ def build(opt):
     and warmed up at --max-batch, the batching engine running, and the HTTP
     server bound but not yet serving."""
     import numpy as np
+    import torch
 
     from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
     from cerberusdet_tpu_torch.serve import BatchingEngine, make_server
 
+    mesh = None
     if opt.mesh:
-        raise NotImplementedError("--mesh: data-parallel serving over several cards is not "
-                                  "ported yet (ROADMAP.md queue 1, item 6)")
+        from cerberusdet_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(None if torch.device(opt.device).type == "cuda" else [opt.device])
+        if opt.max_batch % len(mesh):
+            raise SystemExit(f"--max-batch {opt.max_batch} must divide by the "
+                             f"{len(mesh)}-device mesh")
+        print(f"serving over a {len(mesh)}-device data mesh ({mesh[0].type})", flush=True)
     inference = CerberusDetInference(
         weights=opt.weights, conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,
         iou_thres_between_tasks=opt.iou_thres_between_tasks,
         img_size=opt.imgsz, half=opt.bf16, max_det=opt.max_det, int8=opt.int8,
-        device=opt.device,
+        device=None if mesh else opt.device, mesh=mesh,
         # every served batch pads to max_batch: capture that shape, not batch 1
         warmup_batch=opt.max_batch)
-    pre = CerberusPreprocessor(img_size=opt.imgsz, stride=32, device=opt.device)
+    pre = CerberusPreprocessor(img_size=opt.imgsz, stride=32, device=inference.device)
     engine = BatchingEngine(inference, pre, max_batch=opt.max_batch,
                             max_wait_ms=opt.max_wait_ms)
     tasks = list(inference.names)

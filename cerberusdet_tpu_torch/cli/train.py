@@ -18,8 +18,14 @@ N decodes and augments (or, with --augment-device, plans) in N spawned
 worker processes. --evolve N runs N generations of hyperparameter evolution
 (evolve/: --evolver yolov5, the genetic evolver, or a Ray Tune searcher)
 in <project>/<evolver>_<name>; --mlflow-url tracks the run in MLflow
-(utils/mlflow_logging.py). Not ported yet, and refused: --mesh (ROADMAP.md
-queue 1, item 6).
+(utils/mlflow_logging.py). --mesh trains data-parallel, one process per card
+(train/trainer.py, parallel/mesh.py): the batch size is each process's, as
+each JAX host's is, and the step is the one over all processes' rows:
+
+    torchrun --nproc-per-node 4 -m cerberusdet_tpu_torch.cli.train --mesh \
+        --data data.yaml --cfg configs/models/yolov8x_2task.yaml --batch-size 8,8 --bf16
+
+Started without torchrun, --mesh forms a group of one on the card.
 """
 
 from __future__ import annotations
@@ -72,10 +78,12 @@ def parse_opt(argv=None):
     p.add_argument("--proc-workers", type=int, default=0,
                    help="decode / augment in N worker processes instead of threads")
     p.add_argument("--sync-bn", action="store_true",
-                   help="accepted for parity: one process has one set of BatchNorm statistics")
+                   help="accepted for parity: under --mesh the BatchNorm statistics are "
+                        "those of the global batch by construction (nn/module.py)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute over float32 master weights")
-    p.add_argument("--mesh", action="store_true", help="not ported yet: raises")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the processes torchrun starts, one per card")
     p.add_argument("--resume", nargs="?", const="auto", default="")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--warmup-min-iters", type=int, default=1000,
@@ -98,12 +106,6 @@ def parse_opt(argv=None):
                         "reads it: per-task evolution follows list-valued hyps)")
     p.add_argument("--device", default="cuda", help="'cuda' (the card) or 'cpu'")
     return p.parse_args(argv)
-
-
-def _refuse_unported(opt_ns) -> None:
-    if opt_ns.mesh:
-        raise NotImplementedError("--mesh: data-parallel training is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6)")
 
 
 def _batch_size(bs):
@@ -165,7 +167,6 @@ def options(argv=None):
             opt_ns.project = str(run_dir.parent)
             opt_ns.name = run_dir.name
             opt_ns.exist_ok = True
-    _refuse_unported(opt_ns)
     init_seeds(opt_ns.seed)
     with open(opt_ns.hyp) as f:
         hyp = yaml.safe_load(f)

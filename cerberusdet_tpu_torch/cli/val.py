@@ -18,6 +18,14 @@ The run directory (--project / --name) receives the first batches' label
 and prediction mosaics and each task's PR curve and confusion matrix
 (utils/plots.py; the figures where matplotlib is installed); --mlflow-url
 uploads each task's metrics and per-class AP50 (utils/mlflow_logging.py).
+
+Under torchrun (or in a process that has joined a process group of several
+ranks) each rank validates its shard of every set and the statistics are
+merged, so that every rank prints the whole set's metrics (the JAX
+package's multi-process val); rank 0 alone writes the run directory:
+
+    torchrun --nproc-per-node 2 -m cerberusdet_tpu_torch.cli.val --weights w.ckpt.npz \
+        --data data.yaml
 """
 
 from __future__ import annotations
@@ -30,6 +38,12 @@ from pathlib import Path
 import torch
 
 from cerberusdet_tpu_torch import resolve_device
+from cerberusdet_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    group_rank,
+    init_distributed,
+    rank_device,
+)
 
 
 def parse_opt(argv=None):
@@ -142,11 +156,16 @@ def main(argv=None):
     from cerberusdet_tpu_torch.quant.ptq import fused_conv_weights
 
     opt = parse_opt(argv)
-    device = resolve_device(opt.device)
+    group = _process_group(opt)
+    device = rank_device(opt.device) if group is not None else resolve_device(opt.device)
+    is_main = group_rank(group) == 0
     data_dict = parse_data_config(opt.data, check=True)
     model = load_model_for_eval(opt.weights, opt.cfg, device, data_dict)
-    save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    save_dir = None
+    if is_main:
+        save_dir = increment_path(Path(opt.project) / opt.name, opt.exist_ok)
+        save_dir.mkdir(parents=True, exist_ok=True)
+    save_dir = broadcast_object(save_dir, group)
 
     dtype = torch.bfloat16 if opt.bf16 else torch.float32
     fused = fused_conv_weights(model) if opt.int8 != "off" else None
@@ -179,16 +198,35 @@ def main(argv=None):
             out = run_task(
                 model, task, loader, nc=data_dict["nc"][ti], names=data_dict["names"][ti],
                 conf_thres=opt.conf_thres, iou_thres=opt.iou_thres, max_det=opt.max_det,
-                verbose=True, single_cls=opt.single_cls,
-                use_multi_labels=opt.use_multi_labels, plots=True, plots_dir=save_dir)
+                verbose=is_main, single_cls=opt.single_cls,
+                use_multi_labels=opt.use_multi_labels, plots=True,
+                plots_dir=save_dir if is_main else None,
+                # each rank's loader holds its shard; every rank gets the whole set's metrics
+                distributed=group is not None)
             results[task] = out
             mp, mr, map50, mAP = out["results"][:4]
             print(f"{task}: P={mp:.4f} R={mr:.4f} mAP50={map50:.4f} mAP={mAP:.4f}")
             names = ["item"] if opt.single_cls else list(data_dict["names"][ti])
-            save_val_plots(out, names, save_dir, task)
-    if opt.mlflow_url:
+            if is_main:
+                save_val_plots(out, names, save_dir, task)
+    if opt.mlflow_url and is_main:
         log_to_mlflow(results, data_dict, opt)
     return results
+
+
+def _process_group(opt):
+    """The process group of several ranks that this val runs in, or None:
+    the group the process has joined, or the one torchrun's environment
+    describes (WORLD_SIZE > 1), which it joins on its card (`--device`)."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD if dist.get_world_size() > 1 else None
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        return init_distributed(device=opt.device)
+    return None
 
 
 def log_to_mlflow(results, data_dict, opt) -> None:

@@ -36,7 +36,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from cerberusdet_tpu_torch.data.dataset import DetectionDataset
-from cerberusdet_tpu_torch.data.samplers import BalancedSampler, ShuffleSampler
+from cerberusdet_tpu_torch.data.samplers import BalancedSampler, HostShardSampler, ShuffleSampler
 
 # The worker process's dataset, set by its initializer. Items stay
 # deterministic across processes: the (seed, epoch, index) of each draw goes
@@ -453,11 +453,11 @@ def create_dataloader(
     from `hyp` and `seed`, shuffles per epoch (or samples class-balanced,
     balanced_sampler with class_choice) and drops the last partial batch; an
     eval loader keeps the dataset's order. host_sharded splits the set over
-    processes in a run of several: that comes with multi-GPU data
-    parallelism (ROADMAP.md queue 1, item 6) and raises there until then; in
-    one process it changes nothing. augment_device (training loaders only;
-    an eval loader ignores it) augments on `device` from the packed cache,
-    which it turns on."""
+    the ranks of the process group when there are several
+    (data/samplers.py:HostShardSampler: each rank every k-th index, or every
+    k-th batch of a rect loader); in one process it changes nothing.
+    augment_device (training loaders only; an eval loader ignores it)
+    augments on `device` from the packed cache, which it turns on."""
     if augment_device:
         if not augment:
             augment_device = False  # the device pipeline is the training side's
@@ -465,12 +465,6 @@ def create_dataloader(
             raise ValueError("augment_device is incompatible with rect batching")
         else:
             cache_images = "disk"  # the pack is the tiles' source
-    if host_sharded:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError("host_sharded loading over several processes comes "
-                                      "with data parallelism (ROADMAP.md queue 1, item 6)")
     dataset = DetectionDataset(
         path, imgsz=imgsz, augment=augment, hyp=hyp, rect=rect, stride=stride,
         pad=pad, batch_size=batch_size, use_xml=use_xml, classnames=classnames,
@@ -482,6 +476,12 @@ def create_dataloader(
         sampler = BalancedSampler(dataset.labels, class_choice, seed=seed)
     else:
         sampler = ShuffleSampler(len(dataset), shuffle=shuffle and augment, seed=seed)
+    if host_sharded:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            # a rect batch keeps its one letterbox shape: shard whole batches
+            sampler = HostShardSampler(sampler, block=batch_size if rect else 1)
     loader = DataLoader(dataset, batch_size, sampler, max_labels=max_labels,
                         drop_last=augment, num_threads=num_threads, num_workers=num_workers,
                         device_augment=augment_device, device=device)

@@ -1,17 +1,16 @@
-"""Index samplers: shuffled and class-balanced.
+"""Index samplers: shuffled, class-balanced, and split over processes.
 
-Copies of ShuffleSampler and BalancedSampler from
-cerberusdet_tpu/data/samplers.py:17-81 (the reference's BalancedBatchSampler,
+Copies of ShuffleSampler, BalancedSampler and HostShardSampler from
+cerberusdet_tpu/data/samplers.py:17-104 (the reference's BalancedBatchSampler,
 cerberusdet/data/samplers.py:9-95, with its least_sampled / random / cycle
-modes), with the same draws for the same seed and epoch. The JAX package's
-HostShardSampler, which splits the indices over processes, comes with the
-port's multi-GPU data parallelism (ROADMAP.md queue 1, item 6).
+modes, and its DistributedSamplerWrapper, :137-184), with the same draws for
+the same seed and epoch.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -80,3 +79,41 @@ class BalancedSampler:
                 for c in self.image_classes[idx]:
                     counts[c] += 1
             yield idx
+
+
+class HostShardSampler:
+    """Wrap any sampler: each process keeps every k-th index (its slice of
+    the process group; rank and world size from torch.distributed unless
+    given). As in the JAX package, __len__ is ceil(n / k) on every process,
+    so that every rank counts the same batches an epoch, while the ranks at
+    or past n % k yield one index fewer.
+
+    block > 1 shards runs of `block` consecutive indices instead (a rect
+    loader's batches, whose images share one letterbox shape: every k-th
+    batch), with __len__ ceil(n / block / k) * block on every process. The
+    JAX package has no such mode: its host-sharded rect loader puts images
+    of two batches' shapes in one batch."""
+
+    def __init__(self, base, num_hosts: Optional[int] = None, host_id: Optional[int] = None,
+                 block: int = 1):
+        import torch.distributed as dist
+
+        joined = dist.is_available() and dist.is_initialized()
+        self.base = base
+        self.num_hosts = num_hosts if num_hosts is not None else (
+            dist.get_world_size() if joined else 1)
+        self.host_id = host_id if host_id is not None else (dist.get_rank() if joined else 0)
+        self.block = max(int(block), 1)
+
+    def set_epoch(self, epoch: int):
+        if hasattr(self.base, "set_epoch"):
+            self.base.set_epoch(epoch)
+
+    def __len__(self):
+        blocks = -(-len(self.base) // self.block)
+        return -(-blocks // self.num_hosts) * self.block
+
+    def __iter__(self) -> Iterator[int]:
+        for i, idx in enumerate(self.base):
+            if (i // self.block) % self.num_hosts == self.host_id:
+                yield idx

@@ -12,8 +12,10 @@ the card (ops/nms.py).
 `plots` accumulates the confusion matrix, and `plots_dir` draws the label
 and prediction mosaics of batches 0-2 there (utils/plots.py, as the JAX
 package's val.py:174-181); save_val_plots draws a task's PR curve and
-confusion matrix. Not yet ported: the merge of statistics across processes
-(distributed=True, with data parallelism, ROADMAP.md queue 1, item 6).
+confusion matrix. `distributed` (a process group's ranks, each validating
+its host shard: parallel/mesh.py) merges the statistics of every rank
+before the metrics, as the JAX package's val does across processes, so that
+every rank reports the whole set's.
 """
 
 from __future__ import annotations
@@ -91,10 +93,14 @@ def run_task(
     and the plain int8 convs instead of their kernels (a comparison hook,
     as in infer/inference.py; with max_nms=MAX_K the plain loop sees the
     kernel's 16384 candidates). return_dets adds `dets`: {image path: (n, 6) float32 [x1, y1, x2, y2, conf, cls] in the
-    image's native pixels}."""
-    if distributed:
-        raise NotImplementedError("distributed val merges statistics across processes; it "
-                                  "comes with data parallelism (ROADMAP.md queue 1, item 6)")
+    image's native pixels}.
+
+    distributed=True (the JAX package's multi-process val): each rank of
+    the process group evaluates its own loader (host sharded), then the raw
+    (tp, conf, pred_cls, target_cls) statistics, the confusion matrix and
+    the seen, speed and loss sums of every rank are gathered, so that every
+    rank returns the whole set's metrics. `times` and `dets` stay the
+    rank's own."""
     ref = next(model.parameters())
     device, dtype = ref.device, ref.dtype
     metric_nc = 1 if single_cls else nc
@@ -193,6 +199,11 @@ def run_task(
             m.use_kernel = None
         model.train(was_training)
 
+    if distributed:
+        import torch.distributed as dist
+
+        seen, dt, loss_accum, n_batches = merge_stats(metrics, confusion, seen, dt, loss_accum,
+                                                      n_batches, dist.group.WORLD)
     metrics.process()
     mp, mr, map50, mAP = metrics.mean_results()
     losses = loss_accum / max(n_batches, 1)
@@ -221,6 +232,40 @@ def run_task(
             print(f"  {name:>20s} {int(nt[c]):6d}  P={p_c:.3f} R={r_c:.3f} "
                   f"mAP50={ap50_c:.3f} mAP={ap_c:.3f}")
     return out
+
+
+def merge_stats(metrics, confusion, seen: int, dt, loss_accum, n_batches: int, group):
+    """Every rank's val statistics on every rank (the JAX package's
+    _merge_stats_across_processes): the raw (tp, conf, pred_cls, target_cls)
+    arrays, ragged over the ranks, gathered padded and trimmed
+    (parallel/mesh.py:all_gather_rows) into metrics.stats in rank order (a
+    concatenation, which AP does not see the order of); the confusion
+    matrices and the seen, time, loss and batch counts summed. Returns
+    (seen, dt, loss_accum, n_batches)."""
+    import torch.distributed as dist
+
+    from cerberusdet_tpu_torch.parallel.mesh import all_gather_rows, collective_device
+
+    if dist.get_world_size(group) == 1:
+        return seen, dt, loss_accum, n_batches
+    if metrics.stats:
+        tp, conf, pred_cls, target_cls = [np.concatenate(x, 0) for x in zip(*metrics.stats)]
+    else:
+        tp = np.zeros((0, len(IOUV)), bool)
+        conf = pred_cls = target_cls = np.zeros((0,), np.float32)
+    parts = [all_gather_rows(np.asarray(a, dtype), group)
+             for a, dtype in ((tp, bool), (conf, np.float32), (pred_cls, np.float32),
+                              (target_cls, np.float32))]
+    metrics.stats = list(zip(*parts))
+    dev = collective_device(group)
+    cm = torch.from_numpy(np.asarray(confusion.matrix, np.float64)).to(dev)
+    dist.all_reduce(cm, group=group)
+    confusion.matrix = cm.cpu().numpy()
+    sums = torch.tensor([float(seen), *dt, *loss_accum, float(n_batches)], dtype=torch.float64,
+                        device=dev)
+    dist.all_reduce(sums, group=group)
+    v = sums.cpu().numpy()
+    return int(v[0]), v[1:4], v[4:7], int(v[7])
 
 
 def save_val_plots(out: Dict[str, Any], names: Sequence[str], save_dir, task: str) -> None:

@@ -7,6 +7,9 @@ image. Everything up to the formatting runs on the device; `predict` syncs
 once, to copy the fixed-shape result to the host. On the card that device
 part is one CUDA graph per key, captured at the key's first request and
 replayed after (infer/graphs.py), as the JAX package jits `_predict_impl`.
+Over a mesh of devices (parallel/mesh.py:make_mesh) each device holds a
+replica of the model and runs its own rows of the batch, each replica its
+own captured program, as GSPMD partitions the JAX package's program.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from cerberusdet_tpu_torch.ops.boxes import scale_boxes_np
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import conv_s8, quant_pack_s8, quant_s8
 from cerberusdet_tpu_torch.ops.nms import cross_task_suppress, non_max_suppression
 from cerberusdet_tpu_torch.ops.nms_cuda import greedy_nms_cuda
+from cerberusdet_tpu_torch.parallel.mesh import replicate
 from cerberusdet_tpu_torch.quant import (
     calibrate_amax,
     conv_layers,
@@ -94,6 +98,16 @@ class CerberusDetInference:
     (quant/ptq.py:propagate_act_quant, which the JAX package runs by passing
     model=). A params tree that is already quantized needs no int8 argument,
     and its annotations, if any, come with it.
+
+    mesh: a list of devices (parallel/mesh.py:make_mesh; a device may
+    repeat) to serve over, as the JAX package's mesh= does: the model is
+    built, fused and quantized once on the mesh's first device (`device`,
+    which must be that one when given) and replicated onto every device
+    (`replicas`), and `predict` splits each batch by rows over the
+    replicas, runs each replica's program on its rows (its own CUDA graph
+    per key on the card: the NMS kernel on that replica's candidates, the
+    int8 kernels on its activations), and concatenates the results in row
+    order. The batch must divide by the mesh's size.
     """
 
     def __init__(self, model: Optional[CerberusModel] = None, params=None,
@@ -103,7 +117,12 @@ class CerberusDetInference:
                  iou_thres_between_tasks: float = 0.8, img_size: int = 640,
                  half: bool = True, max_det: int = 300,
                  dtype: Optional[torch.dtype] = None, device=None, int8: str = "off",
-                 calib_batches=None, warmup_batch: Optional[int] = None):
+                 calib_batches=None, warmup_batch: Optional[int] = None, mesh=None):
+        if mesh is not None:
+            mesh = [torch.device(d) for d in mesh]
+            if device is not None and resolve_device(device) != mesh[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+            device = mesh[0]
         self.device = resolve_device(device)
         if dtype is None:
             dtype = torch.bfloat16 if half else torch.float32
@@ -147,9 +166,12 @@ class CerberusDetInference:
                             weights=fused, propagate=True)
             del fused
         self.int8 = int8
-        self.int8_convs = [m for _, m in conv_layers(self.model) if m.int8]
+        self.mesh = mesh
+        self.replicas = replicate(self.model, mesh) if mesh is not None else [self.model]
+        self._int8_convs = [[m for _, m in conv_layers(r) if m.int8] for r in self.replicas]
+        self.int8_convs = self._int8_convs[0]
         self.programs: Dict[tuple, CapturedProgram] = {}
-        self._pool = None
+        self._pools: Dict[torch.device, object] = {}
         self._lock = threading.Lock()
         self.names = dict(names)
         self.conf_thres = conf_thres
@@ -163,26 +185,38 @@ class CerberusDetInference:
         if warmup_batch is not None:
             self.predict(np.zeros((warmup_batch, img_size, img_size, 3), np.float32))
 
+    @property
+    def _pool(self):
+        """The graph memory pool of the programs on `device` (None before
+        the first capture)."""
+        return self._pools.get(self.device)
+
     def program_key(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,
-                    iou_bt: float, agnostic: bool, max_det: int) -> tuple:
-        """The key of `predict`'s captured program for this request."""
-        return (tuple(batch.shape), batch.dtype, self.dtype, self.int8, float(conf_thres),
-                float(iou_thres), float(iou_bt), bool(agnostic), int(max_det))
+                    iou_bt: float, agnostic: bool, max_det: int,
+                    replica: Optional[int] = None) -> tuple:
+        """The key of `predict`'s captured program for this request; over a
+        mesh, `batch` is a replica's rows and the key ends with the
+        replica's index."""
+        key = (tuple(batch.shape), batch.dtype, self.dtype, self.int8, float(conf_thres),
+               float(iou_thres), float(iou_bt), bool(agnostic), int(max_det))
+        return key if self.mesh is None else key + (int(replica or 0),)
 
     @torch.no_grad()
     def predict_device(self, batch: torch.Tensor, conf_thres: float, iou_thres: float,
                        iou_bt: float, agnostic: bool, max_det: int,
-                       use_kernel: Optional[bool] = None):
+                       use_kernel: Optional[bool] = None, replica: int = 0):
         """The device part: batch (B, H, W, 3) on the device -> merged
         (B, T*max_det, 6), task_idx (B, T*max_det), keep (B, T*max_det).
-        use_kernel as in `predict`."""
+        use_kernel as in `predict`; replica: the mesh replica that runs it
+        (its device holds the batch)."""
         x = batch.permute(0, 3, 1, 2).to(self.dtype)
-        for m in self.int8_convs:
+        int8_convs = self._int8_convs[replica]
+        for m in int8_convs:
             m.use_kernel = use_kernel
         try:
-            out = self.model(x)
+            out = self.replicas[replica](x)
         finally:
-            for m in self.int8_convs:
+            for m in int8_convs:
                 m.use_kernel = None
         dets_all, task_idx_all = [], []
         for ti, task in enumerate(self.task_order):
@@ -214,7 +248,9 @@ class CerberusDetInference:
         {box, score, label, label_name, task} dicts, by descending score.
         use_kernel=False runs the plain NMS loop and the plain int8 convs
         instead of their kernels, eagerly (a test hook; see ops/nms.py and
-        nn/module.py:conv2d_int8)."""
+        nn/module.py:conv2d_int8). Over a mesh the batch's rows are split
+        evenly over the replicas (the row count must divide by the mesh's
+        size)."""
         conf_thres = self.conf_thres if conf_thres is None else conf_thres
         iou_thres = self.iou_thres if iou_thres is None else iou_thres
         iou_bt = (self.iou_thres_between_tasks if iou_thres_between_tasks is None
@@ -223,23 +259,23 @@ class CerberusDetInference:
         batch = torch.as_tensor(batch)
         args = (float(conf_thres), float(iou_thres), float(iou_bt), bool(agnostic_nms),
                 int(max_det))
+        n = len(self.replicas)
+        if batch.shape[0] % n:
+            raise ValueError(f"a batch of {batch.shape[0]} does not divide over the "
+                             f"{n}-device mesh")
+        parts = batch.chunk(n) if n > 1 else (batch,)
+        devices = self.mesh or [self.device]
         if self.device.type == "cuda" and use_kernel is not False:
-            key = self.program_key(batch, *args)
             with self._lock:
-                prog = self.programs.get(key)
-                if prog is None:
-                    if self._pool is None:
-                        self._pool = torch.cuda.graph_pool_handle()
-                    prog = CapturedProgram(
-                        lambda x: pack_outputs(*self.predict_device(x, *args)), batch,
-                        self.device, self._pool, SERVING_KERNELS)
-                    self.programs[key] = prog
-                host = prog.run(batch).cpu()
+                outs = [self._program(i, part, args).run(part) for i, part in enumerate(parts)]
+                hosts = [o.cpu() for o in outs]  # every replica's replay queued first
         else:
-            host = pack_outputs(*self.predict_device(batch.to(self.device), *args,
-                                                     use_kernel)).cpu()
-        merged, task_idx, keep = unpack_outputs(host.numpy(), batch.shape[0],
-                                                len(self.task_order) * int(max_det))
+            hosts = [pack_outputs(*self.predict_device(part.to(devices[i]), *args, use_kernel,
+                                                       replica=i)).cpu()
+                     for i, part in enumerate(parts)]
+        m = len(self.task_order) * int(max_det)
+        merged, task_idx, keep = (np.concatenate(x) for x in zip(*[
+            unpack_outputs(h.numpy(), part.shape[0], m) for h, part in zip(hosts, parts)]))
 
         net_shape = tuple(batch.shape[1:3])
         results: List[List[Dict]] = []
@@ -264,6 +300,22 @@ class CerberusDetInference:
                 })
             results.append(image_results)
         return results
+
+
+    def _program(self, replica: int, part: torch.Tensor, args: tuple) -> CapturedProgram:
+        """The captured program of `replica` for rows `part` and the static
+        arguments `args`, captured at its key's first request."""
+        key = self.program_key(part, *args, replica=replica)
+        prog = self.programs.get(key)
+        if prog is None:
+            dev = (self.mesh or [self.device])[replica]
+            if dev not in self._pools:
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+            prog = CapturedProgram(
+                lambda x: pack_outputs(*self.predict_device(x, *args, replica=replica)), part,
+                dev, self._pools[dev], SERVING_KERNELS)
+            self.programs[key] = prog
+        return prog
 
 
 def pack_outputs(merged: torch.Tensor, task_idx: torch.Tensor,

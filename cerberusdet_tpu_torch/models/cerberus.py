@@ -214,15 +214,16 @@ class CerberusModel(nn.Module):
 
     # --------------------------------------------------------------- forward
     def forward(self, x, tasks: Optional[Sequence[str]] = None, img_mask=None,
-                freeze_bn_uids: Sequence[str] = ()):
+                freeze_bn_uids: Sequence[str] = (), group=None):
         """x: (B, 3, H, W) in the compute dtype. Returns {task: (preds, feats)}
         in eval mode, {task: feats} in training mode. In training, the
         BatchNorms of blocks in `freeze_bn_uids` use their running
         statistics, and `img_mask` (B,) weights the batch statistics of the
-        others. A block annotated with `q_out` (quant/ptq.py:
-        propagate_act_quant) hands its output on quantized to int8 with that
-        scale, as the JAX package's forward does: the block quantizes it
-        itself (nn/layers.py), in its last Conv."""
+        others, taken over the ranks of `group` when it is given (data
+        parallelism, nn/module.py:BatchNorm). A block annotated with `q_out`
+        (quant/ptq.py:propagate_act_quant) hands its output on quantized to
+        int8 with that scale, as the JAX package's forward does: the block
+        quantizes it itself (nn/layers.py), in its last Conv."""
         frozen = frozenset(freeze_bn_uids)
         outputs = {"__input__": x}
         results = {}
@@ -230,6 +231,7 @@ class CerberusModel(nn.Module):
             for bn in self._batch_norms(step.uid):
                 bn.frozen = step.uid in frozen
                 bn.img_mask = img_mask
+                bn.group = group
             if step.task is not None:
                 xs = [outputs[u] for u in step.in_uids]
                 results[step.task] = self.block(step.uid)(xs)

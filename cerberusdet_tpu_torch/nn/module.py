@@ -25,6 +25,7 @@ from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     quant_s8_plain,
     s8_kernel_takes,
 )
+from cerberusdet_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -77,7 +78,14 @@ class BatchNorm(nn.Module):
     collects them and folds them after the optimizer, task by task; folding
     during each task's forward is the same, because a training forward never
     reads the running statistics of a block that is not frozen.
-    CerberusModel.forward sets `frozen` and `img_mask` for each block it runs.
+    CerberusModel.forward sets `frozen`, `img_mask` and `group` for each block
+    it runs. With `group` (a torch.distributed process group: data
+    parallelism, parallel/mesh.py) the statistics are those of the global
+    batch over its ranks, as JAX's BatchNorm takes them over a mesh: the
+    weighted sums (and the valid-row count with img_mask), then the centred
+    squares, each summed over the ranks by a differentiable all-reduce, so
+    that each rank's gradient through the global mean and variance carries
+    every rank's loss.
     """
 
     def __init__(self, c: int, eps: float = BN_EPS):
@@ -89,6 +97,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.frozen = False
         self.img_mask = None
+        self.group = None
 
     def reset(self) -> None:
         with torch.no_grad():
@@ -104,19 +113,29 @@ class BatchNorm(nn.Module):
         return inv, self.bias - mean * inv
 
     def batch_stats(self, x):
-        """(mean, biased var, unbiased var) over N, H, W, in float32."""
+        """(mean, biased var, unbiased var) over N, H, W, in float32: the
+        (weighted) sums, then the centred squares, each summed over the
+        ranks of `group` when it is set."""
         xf = x.float()
-        dims = (0, 2, 3)
-        if self.img_mask is None:
-            mean = xf.mean(dims)
-            var = (xf - mean[:, None, None]).square().mean(dims)
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            return mean, var, var * (n / max(n - 1, 1))
-        w = self.img_mask.float().reshape(-1, 1, 1, 1)
-        n = self.img_mask.float().sum().clamp(min=1.0) * (x.shape[2] * x.shape[3])
-        mean = (xf * w).sum(dims) / n
-        var = ((xf - mean[:, None, None]).square() * w).sum(dims) / n
-        return mean, var, var * (n / (n - 1.0).clamp(min=1.0))
+        hw = x.shape[2] * x.shape[3]
+        w = None if self.img_mask is None else self.img_mask.float().reshape(-1, 1, 1, 1)
+
+        def total(t):  # over N, H, W, weighted by img_mask, and over the ranks
+            s = (t if w is None else t * w).sum((0, 2, 3))
+            return s if self.group is None else all_reduce_sum(s, self.group)
+
+        if w is None:
+            n = x.shape[0] * hw * group_size(self.group)
+            bessel = n / max(n - 1, 1)
+        else:
+            rows = self.img_mask.float().sum()
+            if self.group is not None:
+                rows = all_reduce_sum(rows, self.group)
+            n = rows.clamp(min=1.0) * hw
+            bessel = n / (n - 1.0).clamp(min=1.0)
+        mean = total(xf) / n
+        var = total((xf - mean[:, None, None]).square()) / n
+        return mean, var, var * bessel
 
     def forward(self, x):
         if self.training and not self.frozen:

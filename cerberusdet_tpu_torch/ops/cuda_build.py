@@ -8,6 +8,7 @@ Every pointer and the stream go to the C functions as c_void_p.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -36,12 +37,22 @@ def _nvcc() -> str:
 def build(source: Path, verbose: bool = False) -> Path:
     """Compile `source` into build/ (once per source text and flag set) and
     return the library's path. verbose prints ptxas's register and shared
-    memory report."""
+    memory report. Processes that start at once (the ranks of a process
+    group) build it once: the first takes a file lock beside the library
+    and the others wait for it, then load what it wrote."""
     key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"libcerberus_{source.stem}_{key[:12]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():  # built by the process that held the lock before
+            return lib
+        return _compile(source, lib, verbose)
+
+
+def _compile(source: Path, lib: Path, verbose: bool) -> Path:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(source)]

@@ -13,11 +13,13 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cerberusdet_tpu_torch.ops.anchors import bbox2dist, dfl_expectation, dist2bbox, make_anchors
 from cerberusdet_tpu_torch.ops.boxes import bbox_iou, xywh2xyxy
 from cerberusdet_tpu_torch.ops.tal_cuda import task_aligned_assign
+from cerberusdet_tpu_torch.parallel.mesh import group_size
 
 
 class LossItems(NamedTuple):
@@ -106,25 +108,38 @@ class DetectionLoss:
                 (d["anchor_points"] * d["stride_tensor"]).contiguous(),
                 d["gt_labels"], d["gt_bboxes"], d["mask_gt"])
 
-    def __call__(self, feats: List[torch.Tensor], batch: Dict[str, torch.Tensor]):
+    def __call__(self, feats: List[torch.Tensor], batch: Dict[str, torch.Tensor], group=None):
         """feats: per-level (B, no, H, W) Detect training outputs; batch:
         {'cls' (B, M), 'bboxes' (B, M, 4), 'mask' (B, M), 'prob', optional
         'img_mask' (B,)} on feats' device. Returns (the optimisation loss,
-        LossItems of detached scalars)."""
+        LossItems of detached scalars).
+
+        group: a torch.distributed process group whose ranks hold the other
+        rows of the global batch (data parallelism, parallel/mesh.py). The
+        loss is then this rank's share of the global batch's loss, as JAX's
+        loss over a mesh: the target-score sum and the row count (valid rows
+        with img_mask, B without) are the global ones, so that the ranks'
+        gradients summed are the global loss's, and the items are the global
+        batch's on every rank."""
         b = feats[0].shape[0]
         d = self.decode(feats, batch)
         assign = task_aligned_assign(*self.assign_args(d), topk=self.topk,
                                      num_classes=self.nc, alpha=self.alpha,
                                      beta=self.beta, use_kernel=self.use_kernel)
         target_scores = assign.target_scores
-        tss = target_scores.sum().clamp(min=1.0)
 
-        # per-image validity: padded rows contribute no loss
+        # per-image validity: padded rows contribute no loss. The target-score
+        # sum and the valid-row count are the global batch's over `group`.
         img_mask = batch.get("img_mask")
-        n_eff = b
-        if img_mask is not None:
+        if img_mask is None:
+            sums = target_scores.sum()[None]
+        else:
             img_mask = img_mask.float()
-            n_eff = img_mask.sum().clamp(min=1.0)
+            sums = torch.stack([target_scores.sum(), img_mask.sum()])
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        tss = sums[0].clamp(min=1.0)
+        n_eff = b * group_size(group) if img_mask is None else sums[1].clamp(min=1.0)
 
         pred_scores = d["pred_scores"]
         bce = sigmoid_bce(pred_scores, target_scores)
@@ -149,6 +164,10 @@ class DetectionLoss:
         dfl_l = loss_dfl * self.weights["dfl"]
         total = box + cls + dfl_l
         items = LossItems(*[v.detach() for v in (box, cls, dfl_l, total)])
+        if group is not None:
+            summed = torch.stack(items)
+            dist.all_reduce(summed, group=group)
+            items = LossItems(*summed.unbind())
         # the reference's optimisation loss is 2 * (box + cls + dfl) * B (its
         # loss vector's last entry already holds the sum); n_eff replaces B
         # when the batch carries padded rows. `items` stay un-doubled.

@@ -5,6 +5,7 @@ averaging.py:97-223). One step, over the active tasks in model task order:
 
     for t: loss_t = w_t * DetectionLoss_t(model(batch_t, tasks=[t]))
            backward(loss_t)                   # gradients summed in .grad
+    grads  = sum over the ranks of grads      # with a process group only
     grads *= 1 / serving count (per block, over the active tasks)
     grads  = clip_by_global_norm(grads, 10)
     params = optimizer(params, grads)         # 3 groups, active blocks only
@@ -30,6 +31,16 @@ static buffers and replay, and return while the card runs the step. The graph up
 tensors at the addresses it captured: a parameter, BN buffer, optimizer
 buffer or EMA tensor replaced since (not updated in place) makes the next
 replay raise with its name.
+
+With a process group (`group`, data parallelism: parallel/mesh.py) each
+rank steps its replica of the state on its own rows, and the step is the
+one step over the global batch that the JAX step takes over a mesh: the
+loss normalises by the global target-score sum and row count, BatchNorm
+takes the global statistics, and after every task's backward one
+all-reduce sums the flat gradients of the active blocks over the ranks
+(summed, not averaged: the losses are already shares of the global loss).
+An NCCL group's collectives are captured with the step; a Gloo group's run
+on the host, so `step` refuses to capture them and `raw_step` runs them.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
@@ -112,15 +124,31 @@ def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def _sum_over_ranks(grads: List[torch.Tensor], group) -> None:
+    """Sum the gradients over the ranks of `group`, in place: one all-reduce
+    of their concatenation, every active parameter's gradient in it (zeros
+    where this rank's backward gave none), so that every rank reduces the
+    same buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in
+                                 zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 class MultiTaskTrainer:
     """Steps a TrainState of `model` with per-task DetectionLosses. Runs on
-    the card unless device="cpu"; the model must already be there."""
+    the card unless device="cpu"; the model must already be there. group: a
+    process group over which each rank steps its own rows of the global
+    batch (see the module's docstring); every rank must hold the same state
+    (parallel/mesh.py:replicate) and step the same tasks."""
 
     def __init__(self, model: CerberusModel, losses: Dict[str, DetectionLoss],
                  task_weights: Optional[Dict[str, float]] = None,
                  sgd: SGDConfig = SGDConfig(), compute_dtype=torch.float32,
-                 max_grad_norm: float = 10.0, ema_decay0: float = 0.9999, device=None):
+                 max_grad_norm: float = 10.0, ema_decay0: float = 0.9999, device=None,
+                 group=None):
         self.device = resolve_device(device)
+        self.group = group
         dev = next(model.parameters()).device
         if dev.type != self.device.type or (self.device.index is not None
                                             and dev != self.device):
@@ -168,6 +196,11 @@ class MultiTaskTrainer:
         the key's capture (see the module's docstring)."""
         if self.device.type != "cuda":
             return self.raw_step(state, batches, lrs, momentum, freeze_shared)
+        if self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise RuntimeError(f"a {dist.get_backend(self.group)} group's collectives run on "
+                               "the host, which a CUDA graph cannot capture: step a Gloo "
+                               "group on the card with raw_step (eager), or join an NCCL "
+                               "group to capture the step")
         if state.model is not self.model:
             raise ValueError("the state belongs to another model")
         tasks = sorted(batches, key=self.model.task_ids.index)
@@ -278,8 +311,8 @@ class MultiTaskTrainer:
                 img = img.float() / 255.0
             x = img.permute(0, 3, 1, 2).to(self.compute_dtype)
             feats = model(x, tasks=[t], img_mask=batch.get("img_mask"),
-                          freeze_bn_uids=shared)[t]
-            loss_t, items[t] = self.losses[t](feats, batch)
+                          freeze_bn_uids=shared, group=self.group)[t]
+            loss_t, items[t] = self.losses[t](feats, batch, group=self.group)
             if mark:
                 mark("forward_loss")
             (self.task_weights[t] * loss_t).backward()
@@ -299,6 +332,8 @@ class MultiTaskTrainer:
                     p.grad = torch.zeros_like(p)
                 params[name], grads[name] = p, p.grad
                 by_scale.setdefault(scales[uid], []).append(p.grad)
+            if self.group is not None:
+                _sum_over_ranks(list(grads.values()), self.group)
             for s, gs in by_scale.items():
                 if s != 1.0:
                     torch._foreach_mul_(gs, s)

@@ -12,16 +12,22 @@ from its last.ckpt.npz with the same weights, EMA, momentum and update count,
 in either direction between the two packages.
 
 The losses of a step stay on the card and are summed there: the host reads
-them once an epoch, so that it does not wait for every step. The run is one
-process: the JAX package's broadcast of process 0's decisions is the
-identity here. A run that saves writes the model-graph artifacts once
+them once an epoch, so that it does not wait for every step. With use_mesh
+(--mesh) the run is data-parallel over the ranks of a process group
+(parallel/mesh.py; torchrun starts one process per card, and a process
+started alone forms a group of one): each rank loads its own shard of every
+train set (data/samplers.py:HostShardSampler) and steps a replica of the
+state on it, the one step over the global batch that the JAX package takes
+over its mesh (train/step.py). Rank 0 alone validates, writes checkpoints,
+logs, plots and the model graph, as the JAX package's process 0 does, and
+broadcasts its stop decision and fitness, so that every rank leaves the
+epoch loop together. A run that saves writes the model-graph artifacts once
 (utils/profiling.py:dump_model_graph: the module tree and the cost of the
 eval forward, where the JAX package writes StableHLO text and XLA's cost
 analysis). With `plots` a run that saves draws what the JAX package draws
 (utils/plots.py): the label statistics at the first epoch, the first 3
 batches of each task, the val mosaics, PR curve and confusion matrix of the
-final epoch's val. Not ported yet: the data-parallel mesh (use_mesh,
-ROADMAP.md queue 1, item 6).
+final epoch's val.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.data.loaders import InfiniteLoader, create_dataloader
@@ -43,6 +50,15 @@ from cerberusdet_tpu_torch.manager.attempt_load import load_single
 from cerberusdet_tpu_torch.manager.checkpoint import load_checkpoint, strip_checkpoint
 from cerberusdet_tpu_torch.manager.run_manager import RunManager
 from cerberusdet_tpu_torch.manager.weights import load_jax_momentum, load_jax_params
+from cerberusdet_tpu_torch.parallel.mesh import (
+    broadcast_decision,
+    broadcast_object,
+    group_rank,
+    group_size,
+    init_distributed,
+    rank_device,
+    replicate,
+)
 from cerberusdet_tpu_torch.train.loss import DetectionLoss, scale_loss_gains
 from cerberusdet_tpu_torch.train.optim import SGDConfig
 from cerberusdet_tpu_torch.train.schedules import EarlyStopping, lr_lambda, warmup_lrs
@@ -85,7 +101,8 @@ class TrainOptions:
     workers: Optional[int] = None          # loader decode threads (--workers)
     proc_workers: int = 0                  # decode / augment worker processes
     warmup_min_iters: int = 1000           # reference warmup floor (averaging.py:57)
-    use_mesh: bool = False                 # data parallelism: not ported yet
+    use_mesh: bool = False                 # data-parallel over the process group (--mesh);
+                                           # in TrainOptions so resume restores it
     max_labels: int = 300
     plots: bool = True
     seed: int = 0
@@ -106,30 +123,52 @@ class TrainLoop:
     the address check, the launch) and returns before the card has
     finished, so "step_s" is that enqueue, and the host assembles the next
     batches while the card runs the step; the first call of a key also runs
-    the step eagerly and captures it. On the CPU it is the whole step."""
+    the step eagerly and captures it. On the CPU it is the whole step.
+
+    opt.use_mesh trains data-parallel over the process group, which it
+    joins (parallel/mesh.py:init_distributed) unless the process has joined
+    one already; `device` then defaults to the card of the process's
+    LOCAL_RANK."""
 
     def __init__(self, opt: TrainOptions, data_dict: Dict[str, Any], hyp: Dict[str, Any],
                  device=None):
-        if opt.use_mesh:
-            raise NotImplementedError("use_mesh: data-parallel training is not ported yet "
-                                      "(ROADMAP.md queue 1, item 6)")
         self.opt = opt
         self.hyp = hyp
-        self.device = resolve_device(device)
+        self.group = None
+        if opt.use_mesh:
+            self.group = init_distributed(device=device)
+        self.device = rank_device(device) if self.group is not None else resolve_device(device)
+        self.is_main = group_rank(self.group) == 0
+        if self.group is not None and self.is_main:
+            n, cards = group_size(self.group), (torch.cuda.device_count()
+                                                if self.device.type == "cuda" else 0)
+            print(f"data-parallel over {n} rank{'s' * (n > 1)} "
+                  f"({dist.get_backend(self.group)}, this rank on {self.device})", flush=True)
+            if n < cards:
+                print(f"--mesh: a group of {n} while {cards} cards are visible; start one "
+                      f"process per card with torchrun --nproc-per-node {cards}", flush=True)
         if opt.single_cls:
             # the model is built with one class per task (models_manager.py:84-87)
             data_dict = dict(data_dict)
             data_dict["nc"] = [1] * len(data_dict["nc"])
             data_dict["names"] = [n if len(n) == 1 else ["item"] for n in data_dict["names"]]
-        self.manager = RunManager(hyp, data_dict, opt.cfg, Path(opt.project) / opt.name,
-                                  exist_ok=opt.exist_ok, nosave=opt.nosave,
-                                  mlflow_url=opt.mlflow_url,
+        # rank 0 names the run directory; the other ranks take that name and
+        # write nothing in it
+        save_dir = Path(opt.project) / opt.name
+        if not self.is_main:
+            save_dir = Path(broadcast_object(None, self.group))
+        self.manager = RunManager(hyp, data_dict, opt.cfg, save_dir,
+                                  exist_ok=opt.exist_ok or not self.is_main,
+                                  nosave=opt.nosave or not self.is_main,
+                                  mlflow_url=opt.mlflow_url if self.is_main else "",
                                   experiment_name=opt.experiment_name, device=self.device)
-        self.manager.dump_settings(dataclasses.asdict(opt))
+        if self.is_main:
+            broadcast_object(str(self.manager.save_dir), self.group)
+            self.manager.dump_settings(dataclasses.asdict(opt))
         self.task_ids = self.manager.task_ids
         self.model, ckpt_meta = self.manager.load_model(opt.weights or None, seed=opt.seed)
         self.start_epoch = 0
-        if not opt.nosave:
+        if not opt.nosave and self.is_main:
             # the reference's TensorBoard add_graph (models_manager.py:412-418)
             dump_model_graph(self.model, self.manager.save_dir, imgsz=opt.imgsz)
         self.timings: List[Dict[str, float]] = []
@@ -157,8 +196,11 @@ class TrainLoop:
                 stride=gs, augment=False, shuffle=False, use_xml=opt.labels_from_xml,
                 classnames=data_dict["names"][ti], max_labels=opt.max_labels,
                 task=f"{task}_val", single_cls=opt.single_cls, num_threads=opt.workers,
-                # a run without per-epoch vals validates once: no cache to fill
-                cache_images=opt.cache_images if not opt.noval else "", host_sharded=False)
+                # a run without per-epoch vals validates once, and only rank 0
+                # validates: no cache to fill elsewhere
+                cache_images=opt.cache_images if not opt.noval and self.is_main else "",
+                # rank 0 validates the whole set (the reference's rank-0 val)
+                host_sharded=False)
             self.val_loaders[task] = vloader
 
         # losses with scaled gains (models_manager.fill_tasks_parameters)
@@ -176,7 +218,8 @@ class TrainLoop:
         wd = float(get_hyperparameter(hyp, "weight_decay"))
         sgd_cfg = SGDConfig(weight_decay=wd, name=opt.optimizer)
         self.trainer = MultiTaskTrainer(self.model, self.losses, task_weights=opt.loss_weights,
-                                        sgd=sgd_cfg, compute_dtype=cdtype, device=self.device)
+                                        sgd=sgd_cfg, compute_dtype=cdtype, device=self.device,
+                                        group=self.group)
         self.state = init_train_state(self.model, sgd_cfg)
 
         self.lr0 = float(get_hyperparameter(hyp, "lr0"))
@@ -196,6 +239,9 @@ class TrainLoop:
             self._resume(opt.resume)
         elif ckpt_meta:
             self.manager.best_fitness = ckpt_meta.get("best_fitness", 0.0)
+        if self.group is not None:
+            # after _resume, which makes a new state: every rank steps rank 0's
+            replicate(self.state, self.group)
 
     # ------------------------------------------------------------------
     def _resume(self, path: str):
@@ -239,7 +285,7 @@ class TrainLoop:
         momentum_h = float(get_hyperparameter(self.hyp, "momentum"))
         mloss: Dict[str, Optional[torch.Tensor]] = {t: None for t in self.task_ids}
         counts = {t: 0 for t in self.task_ids}
-        plots = epoch == self.start_epoch and opt.plots and not opt.nosave
+        plots = epoch == self.start_epoch and opt.plots and not opt.nosave and self.is_main
         if plots:
             from cerberusdet_tpu_torch.utils.plots import plot_labels
 
@@ -281,7 +327,8 @@ class TrainLoop:
                / max(counts[t], 1) for t in self.task_ids}
         losses_str = "  ".join(f"{t}: box {out[t][0]:.3f} cls {out[t][1]:.3f} "
                                f"dfl {out[t][2]:.3f}" for t in self.task_ids)
-        print(f"epoch {epoch + 1}/{self.opt.epochs}  {losses_str}")
+        if self.is_main:
+            print(f"epoch {epoch + 1}/{self.opt.epochs}  {losses_str}")
         return out
 
     # ------------------------------------------------------------------
@@ -307,26 +354,34 @@ class TrainLoop:
 
     # ------------------------------------------------------------------
     def train(self) -> float:
-        """The whole run; returns the best fitness."""
+        """The whole run; returns the best fitness (on ranks other than 0,
+        the last fitness rank 0 broadcast)."""
         t0 = time.time()
         fi = 0.0
         for epoch in range(self.start_epoch, self.opt.epochs):
             mloss = self.train_epoch(epoch)
-            for t in self.task_ids:
-                self.manager.train_log(t, getattr(self, "_last_lrs", [0, 0, 0]), mloss[t], epoch)
-            if not self.opt.noval:
-                final = epoch == self.opt.epochs - 1
-                fi = self.val_epoch(epoch, plots=final and self.opt.plots)
-            is_best = fi >= self.manager.best_fitness
-            if is_best:
-                self.manager.best_fitness = fi
-            self.manager.save_model(self.state, epoch, is_best)
-            stop, fi = self._broadcast_decision(self.stopper(epoch, fi), fi)
+            stop = False
+            if self.is_main:
+                for t in self.task_ids:
+                    self.manager.train_log(t, getattr(self, "_last_lrs", [0, 0, 0]), mloss[t],
+                                           epoch)
+                if not self.opt.noval:
+                    final = epoch == self.opt.epochs - 1
+                    fi = self.val_epoch(epoch, plots=final and self.opt.plots)
+                is_best = fi >= self.manager.best_fitness
+                if is_best:
+                    self.manager.best_fitness = fi
+                self.manager.save_model(self.state, epoch, is_best)
+                stop = self.stopper(epoch, fi)
+            stop, fi = self._broadcast_decision(stop, fi)
             if stop:
                 break
-        if self.opt.noval:  # a run without per-epoch vals validates once at the end
+        if self.opt.noval and self.is_main:  # a run without per-epoch vals validates once
             fi = self.val_epoch(self.opt.epochs - 1)
             self.manager.best_fitness = max(self.manager.best_fitness, fi)
+        _, fi = self._broadcast_decision(False, fi)
+        if not self.is_main:
+            return fi
         dt = time.time() - t0
         if not self.opt.nosave and not self.opt.noval:
             self.final_val = self._final_val_on_ckpts()
@@ -380,8 +435,7 @@ class TrainLoop:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    @staticmethod
-    def _broadcast_decision(stop: bool, fitness: float):
-        """Process 0's (stop, fitness) for every process: the identity in the
-        port's single-process runs."""
-        return stop, fitness
+    def _broadcast_decision(self, stop: bool, fitness: float):
+        """Rank 0's (stop, fitness) on every rank (the identity in one
+        process): every rank leaves the epoch loop together."""
+        return broadcast_decision(stop, fitness, self.group)

@@ -84,7 +84,7 @@ Phases, each of which fails the run on anything wrong:
      by hand (eval_graphs, below);
   7. train the flagship through the train entry point (cli/train.py:main):
      the seeded model (BatchNorm statistics from 8 train images) as
-     --weights, 48 train and 16 val seeded labelled JPEGs a task, the
+     --weights, 24 train and 8 val seeded labelled JPEGs a task, the
      paper's hyps (mosaic 1.0, mixup 0.285), --bf16, per-task batch 8: run A
      for 2 epochs with the native JPEG decoder deleted before it (its first
      decode builds it), run R resuming A with its opt.yaml's epochs raised
@@ -155,7 +155,7 @@ Phases, each of which fails the run on anything wrong:
      losses within 1e-5 and the kernels' route launches each TAL kernel once
      per task and step;
  10. drive the training data path's routes at full width over
-     tools/bench_train_e2e's seeded set (128 noise JPEGs of 640 px a task,
+     tools/bench_train_e2e's seeded set (32 noise JPEGs of 640 px a task,
      the packed disk cache): each warp route of the augmentation on the card
      on a batch of 8 (matmul for the default hyps, affine3 for the paper's,
      gather at perspective 0.0005) equal to the CPU's augmentation of the
@@ -206,7 +206,40 @@ Phases, each of which fails the run on anything wrong:
      split's own conv-node guard, conv_s8's int32 mode against its plain
      version and torch._int_mm at the split's largest chunk conv. Logs
      which optional packages (matplotlib, mlflow, ray, orbax, tensorstore)
-     the machine has.
+     the machine has;
+ 13. data parallelism (parallel/mesh.py and its callers), on the one card:
+     (a) the seeded flagship served over make_mesh([cuda:0, cuda:0]), two
+     replicas, a batch of 8 seeded 480x640 frames split 4 + 4, in bf16 and
+     int8 "all" (propagated), against one replica of the same weights: int8
+     identical, bf16 matched (matched_detections, >= DP_SERVE_MATCH, the
+     matched scores within DP_SERVE_SCORE and boxes within DP_SERVE_BOX
+     px); NMS once per task and replica, conv_s8
+     and quant_pack_s8 once per quantized Conv and replica, a program per
+     replica; both int8 kernels against their plain versions at a replica's
+     conv shapes; a request's ms against one replica's; then cli.serve
+     --mesh (the visible cards) answering 8 requests as cli.serve does;
+     (b) phase 4's captured step in an NCCL group of one: the all-reduces
+     recorded into the capture counted (4 a BatchNorm the task forwards
+     run, 2 a task's loss, 1 the gradients; NCCL reduces a group of one in
+     place, with no kernel), 3 replays == 3 raw_steps bit for bit under
+     deterministic algorithms, the first step and every state tensor after
+     4 steps == the group-less step's bit for bit, TAL once per task and
+     step, a replay's ms against the group-less replay's; (c) NCCL's
+     refusal of two ranks on one card
+     printed, then two Gloo ranks in processes of their own on cuda:0, the
+     global per-task batch of 8 split 4 + 4, float32 (TF32 off), 2 eager
+     raw_steps: the ranks' states identical (sha1 of every tensor), each
+     step against one process's step over the 8 rows from the same state
+     (losses within DP_LOSS_RTOL, each state tensor within DP_STATE_FRAC of
+     that step's change or twice its gap in one process's step over the
+     rows reversed; a batch-8 eval forward against 4 + 4 and the
+     free-running drift printed), TAL once per task,
+     step and rank, the captured step's refusal of a Gloo group; (d) the
+     same two ranks run cli.val's main on phase 6's val set cut to 32 images
+     a task (batch 8, rect: whole batches a rank): every rank reports the
+     one-process val's metrics over the same statistics in rank order
+     exactly, and over its own order within DP_VAL_TIE_TOL (tied
+     confidences); NMS once per batch and task of a rank's shard.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -1842,8 +1875,10 @@ def validate(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
         nms.launches, conv_s8.launches, quant_pack_s8.launches = saved
 
 # the train entry point's cell: JPEGs a task, cut from VOC's 16551 train and
-# 4952 test images to fit the script's time limit
-TRAIN_CLI_TRAIN, TRAIN_CLI_VAL, TRAIN_CLI_BATCH = 48, 16, 8
+# 4952 test images to fit the script's time limit (48 and 16 until phase 13
+# came: 3 steps an epoch are the fewest that leave run B 2 warm-up steps and a
+# profiled window of 3 in its last epoch)
+TRAIN_CLI_TRAIN, TRAIN_CLI_VAL, TRAIN_CLI_BATCH = 24, 8, 8
 PROFILED_STEPS = 3
 PAPER_HYP = os.path.join(ROOT, "configs", "hyps", "hyp.cerber-voc_obj365.yaml")
 
@@ -3575,9 +3610,11 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     return entries
 
 
-# the data phase: bench_train_e2e's set (128 seeded noise JPEGs of 640 px a
-# task) and batch (8 a task), bench_loader's run (256 images, batch 32)
-DATA_IMAGES, DATA_BATCH, LOADER_IMAGES, LOADER_BATCH = 128, 8, 256, 32
+# the data phase: bench_train_e2e's set cut to 32 seeded noise JPEGs of 640 px
+# a task (128 until phase 13 came: the script's time limit; 4 steps an epoch
+# still hold the profiled window of 3 after a warm-up step) and batch (8 a
+# task), bench_loader's run (64 images, batch 32; 256 before)
+DATA_IMAGES, DATA_BATCH, LOADER_IMAGES, LOADER_BATCH = 32, 8, 64, 32
 DEFAULT_HYP = os.path.join(ROOT, "configs", "hyps", "hyp.cerber-default.yaml")
 AUG_MAX_DIFF, AUG_MAX_SHARE = 2, 0.01  # tests/test_torch_device_augment.py's bound
 
@@ -4827,6 +4864,833 @@ def user_surface(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, evolve_k
     return entries
 
 
+# phase 13: the data-parallel cell: a batch of 8 served over two replicas on
+# the one card, the step's global per-task batch of 8 over an NCCL group of
+# one and over two Gloo ranks (4 rows each), and the val set of phase 6 cut
+# to 32 images a task, validated by two ranks at batch 8 (two rect batches
+# each)
+DP_BATCH, DP_STEPS, DP_VAL_IMAGES, DP_VAL_BATCH = 8, 3, 32, 8
+# an NCCL group of one computes the group-less step's arithmetic (its
+# all-reduces of one rank copy), so its steps equal the group-less steps bit for
+# bit. Two Gloo ranks (float32) take their BatchNorm and weight-gradient sums
+# over 4 rows and then over the ranks, where one process sums the 8 rows. Each
+# of their steps, from the same state, is held against one process's step: the
+# losses within DP_LOSS_RTOL (about 10x the largest gap measured on an H100,
+# PERF.md), each state tensor within DP_STATE_FRAC of its change that step (or
+# 2 float32 ulps), or within twice its gap in one process's step over the rows
+# reversed: the same sums in another order, which measures the step's rounding
+# (past the first step, a rounding of the assigner's discrete choices moves
+# single tensors by up to 0.2 of their change on an H100, the reversed rows as
+# far as the ranks). Run freely from step to step, the two drift apart (the
+# seeded net amplifies the first step's rounding); that drift is printed
+DP_STATE_FRAC, DP_LOSS_RTOL = 0.1, 1e-3
+# bf16 serving over the mesh's replicas against one replica: the share of one
+# replica's detections matched (batch-4 kernels may round otherwise than
+# batch-8 ones), and the matched detections' largest score and box differences
+DP_SERVE_MATCH, DP_SERVE_SCORE, DP_SERVE_BOX = 0.99, 1e-3, 1.0
+# the ranks' merged val statistics are the one process's, concatenated in rank
+# order: AP then equals the one process's over the same order exactly, and over
+# its own order within this (average precision ranks detections by confidence,
+# and a tie between two of them keeps whichever order it is given)
+DP_VAL_TIE_TOL = 1e-2
+
+
+def state_copy(state):
+    """CPU copies of every tensor of a TrainState (parameters, BatchNorm
+    statistics, optimizer buffers, EMA), by train/step.py:state_tensors'
+    names."""
+    from cerberusdet_tpu_torch.train.step import state_tensors
+
+    return {n: t.detach().cpu().clone() for n, t in state_tensors(state)}
+
+
+def close_states(ours, ref, init, frac: float, what: str = "", rounding=None) -> float:
+    """close_updates for float32 states: with `what`, raise unless each
+    tensor of `ours` is within frac of its largest change ref - init, or
+    within 2 float32 ulps of its largest value (a tensor that barely moves
+    differs by rounding alone), or, given `rounding` (the same step's state
+    from the same sums in another order), within twice that state's
+    difference from ref. Returns (the worst share of its change, the floor /
+    frac counted as change, that a tensor differs by; that tensor's name)."""
+    worst, name = 0.0, ""
+    for k, r in ref.items():
+        r = r.double()
+        change = float((r - init[k].double()).abs().max())
+        diff = float((ours[k].cpu().double() - r).abs().max())
+        floor = 2 * 2.0 ** -23 * float(r.abs().max()) if r.numel() else 0.0
+        allowed = frac * change + floor
+        if rounding is not None:
+            allowed = max(allowed, 2 * float((rounding[k].double() - r).abs().max()))
+        if what and diff > allowed:
+            raise AssertionError(f"{what}: {k} differs by {diff}, {diff / max(change, 1e-30):.3g}"
+                                 f" of its change")
+        share = diff / (change + floor / frac) if diff else 0.0
+        if share > worst:
+            worst, name = share, k
+    return worst, name
+
+
+def dp_val_set(root: str, cfg: str, imgsz: int, dev, n_images: int, batch: int):
+    """Phase 6's val cell cut to n_images a task (its first images: the same
+    seeds), labelled with the seeded model's own bf16 detections at conf >=
+    LABEL_CONF; the seeded model (BatchNorm statistics from 8 of the images)
+    as seeded.ckpt.npz. Returns (data yaml, checkpoint, {task: image dir})."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.cli import val as cli
+    from cerberusdet_tpu_torch.data.loaders import create_dataloader
+    from cerberusdet_tpu_torch.evaluation.val import run_task
+    from cerberusdet_tpu_torch.manager.checkpoint import save_checkpoint
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.testing import calibrate_bn, write_labels, write_val_set
+
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    dirs = {t: write_val_set(os.path.join(root, t), n_images, VAL_SIZES, seed=20 + i)
+            for i, t in enumerate(TASKS)}
+    data_yaml = os.path.join(root, "data.yaml")
+    with open(data_yaml, "w") as f:
+        yaml.safe_dump({"task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS],
+                        "train": [dirs[t] for t in TASKS], "val": [dirs[t] for t in TASKS]}, f)
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    distinct_heads(model, seed=1)
+    calib, _ = create_dataloader(dirs[TASKS[0]], imgsz, 8, task="bn", cache_dir=root)
+    x = torch.from_numpy(np.stack([calib[i][0] for i in range(8)])).to(dev)
+    calibrate_bn(model, x.permute(0, 3, 1, 2).float() / 255.0)
+    ckpt = os.path.join(root, "seeded.ckpt.npz")
+    save_checkpoint(ckpt, export_jax_params(model), {
+        "cfg": cfg, "task_ids": TASKS, "nc": NCS, "names": [names[t] for t in TASKS]},
+        half=False)
+    del model, x, calib
+    bf16 = cli.load_model_for_eval(ckpt, "", dev).to(torch.bfloat16)
+    for ti, t in enumerate(TASKS):
+        _, loader = create_dataloader(dirs[t], imgsz, batch, rect=True, pad=0.5,
+                                      classnames=names[t], task=f"{t}_val")
+        dets = run_task(bf16, t, loader, NCS[ti], return_dets=True)["dets"]
+        if not write_labels({p: d[d[:, 4] >= LABEL_CONF] for p, d in dets.items()}):
+            raise AssertionError(f"{t}: the seeded model detects nothing at conf >= "
+                                 f"{LABEL_CONF}")
+        lab = os.path.join(root, t, "labels", "val")
+        for f in os.listdir(lab):  # the labels changed: drop the label cache
+            if f.endswith(".cache.npy"):
+                os.remove(os.path.join(lab, f))
+    return data_yaml, ckpt, dirs
+
+
+def det_diffs(a, b):
+    """(largest |score difference|, largest box coordinate difference) over
+    the detections of result lists `a` and `b` that match (same image, task
+    and label, the best IoU)."""
+    score, box = 0.0, 0
+    for ra, rb in zip(a, b):
+        for x in ra:
+            best, pick = -1.0, None
+            for y in rb:
+                if (x["task"], x["label"]) != (y["task"], y["label"]):
+                    continue
+                ix = max(0, min(x["box"][2], y["box"][2]) - max(x["box"][0], y["box"][0]))
+                iy = max(0, min(x["box"][3], y["box"][3]) - max(x["box"][1], y["box"][1]))
+                area = [(d["box"][2] - d["box"][0]) * (d["box"][3] - d["box"][1])
+                        for d in (x, y)]
+                iou = ix * iy / max(area[0] + area[1] - ix * iy, 1e-9)
+                if iou > best:
+                    best, pick = iou, y
+            if pick is not None and best >= 0.5:
+                score = max(score, abs(x["score"] - pick["score"]))
+                box = max(box, max(abs(u - v) for u, v in zip(x["box"], pick["box"])))
+    return score, box
+
+
+def dp_serving(card: str, dev, ckpt: str, imgsz: int, batch: int, requests: int):
+    """(a) CerberusDetInference over a mesh of two replicas on the one card
+    against one replica of the same weights, bf16 and int8 "all"; then
+    cli.serve --mesh against cli.serve. Returns the kernels-line entries."""
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.cli import serve as serve_cli
+    from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.ops import nms_cuda
+    from cerberusdet_tpu_torch.parallel import make_mesh
+
+    nms = nms_cuda.greedy_nms_cuda
+    rng = np.random.default_rng(13)
+    frames = [list(rng.integers(0, 256, (batch, 480, 640, 3), dtype=np.uint8))
+              for _ in range(requests)]
+    pre = CerberusPreprocessor(img_size=imgsz, device=dev)
+    served = [pre.preprocess(f) for f in frames]
+    mesh = make_mesh([dev, dev])
+    nc_by_task = dict(zip(TASKS, NCS))
+    entries, saved = [], (nms.launches, ci.conv_s8.launches, ci.quant_pack_s8.launches)
+    for label, int8 in (("bf16", "off"), ("int8", "all")):
+        one = CerberusDetInference(weights=ckpt, conf_thres=CONF, img_size=imgsz,
+                                   dtype=torch.bfloat16, device=dev, int8=int8)
+        # the mesh replicates the same weights: a copy of the one-replica model,
+        # fused (and quantized) once
+        two = CerberusDetInference(model=copy.deepcopy(one.model), names=one.names,
+                                   conf_thres=CONF, img_size=imgsz, dtype=torch.bfloat16,
+                                   mesh=mesh)
+        n_q = [len(c) for c in two._int8_convs]
+        ref = [one.predict(b, original_shape=s) for b, s in served]
+        two.predict(*served[0])  # the first request of the key captures each replica's
+        nms.launches = ci.conv_s8.launches = ci.quant_pack_s8.launches = 0
+        out = [two.predict(b, original_shape=s) for b, s in served]
+        launches = (nms.launches, ci.conv_s8.launches, ci.quant_pack_s8.launches)
+        want = (len(TASKS) * len(mesh) * requests, sum(n_q) * requests, sum(n_q) * requests)
+        if launches != want or (dev.type == "cuda" and len(two.programs) != len(mesh)):
+            raise AssertionError(f"mesh {label}: launches (nms, conv_s8, quant_pack_s8) "
+                                 f"{launches}, expected {want}; {len(two.programs)} programs")
+        n_ref = sum(len(r) for o in ref for r in o)
+        if not all(any(d["task"] == t for o in ref for r in o for d in r) for t in TASKS):
+            raise AssertionError(f"mesh {label}: one replica detects nothing in a task")
+        if int8 != "off":
+            if out != ref:
+                raise AssertionError("int8 over the mesh differs from one replica")
+            verdict = "identical with one replica"
+        else:
+            matched = sum(matched_detections(a, b) for a, b in zip(out, ref))
+            score, box = det_diffs(sum(out, []), sum(ref, []))
+            if matched < DP_SERVE_MATCH * n_ref or score > DP_SERVE_SCORE or box > DP_SERVE_BOX:
+                raise AssertionError(f"bf16 over the mesh: {matched} of {n_ref} detections "
+                                     f"match one replica's (limit {DP_SERVE_MATCH}), scores up "
+                                     f"to {score} apart (limit {DP_SERVE_SCORE}), boxes {box} px "
+                                     f"(limit {DP_SERVE_BOX})")
+            verdict = (f"{matched} of {n_ref} detections match one replica's (IoU >= 0.5, "
+                       f"same task and label; limit {DP_SERVE_MATCH}); largest score "
+                       f"difference {score:.3g}, box {box} px (limits {DP_SERVE_SCORE}, "
+                       f"{DP_SERVE_BOX})")
+        t_one, t_two = [], []
+        for _ in range(5):
+            for inf, times in ((one, t_one), (two, t_two)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                inf.predict(served[0][0])
+                times.append(1e3 * (time.perf_counter() - t))
+        log(f"[mesh serving {label}] a batch of {batch} over 2 replicas on one card "
+            f"({sum(n_q)} int8 convs, {n_q[0]} a replica): {requests} requests {verdict}; "
+            f"launches NMS {launches[0]}, conv_s8 {launches[1]}, quant_pack_s8 {launches[2]} "
+            f"(one a task, a quantized Conv, and a replica); a replayed request "
+            f"{float(np.median(t_two)):.2f} ms over the 2 replicas against "
+            f"{float(np.median(t_one)):.2f} ms on one (host clock, median of 5)  [{card}]")
+        half = served[0][0][:batch // 2]
+        if int8 == "off":
+            entries.append(nms_entry(two, half, nc_by_task, CONF,
+                                     f"mesh serving: a replica's {batch // 2} rows of a bf16 "
+                                     f"batch of {batch}", launches[0], card))
+        else:
+            checked, calls = {}, {}
+            x = torch.as_tensor(half).to(dev).permute(0, 3, 1, 2).to(torch.bfloat16)
+            val_batch_convs(two.replicas[1], x, None, checked, calls)
+            (k_conv, k_pack, p_conv, p_pack, b_conv, b_pack, n_calls, conv_err,
+             pack_err) = conv_totals(checked, calls)
+            log(f"[mesh serving int8] replica 1's forward of {batch // 2} rows: conv_s8 and "
+                f"quant_pack_s8 identical with their plain versions at its {len(checked)} "
+                f"shapes; {n_calls} launches each: conv_s8 {k_conv:.3f} ms (plain "
+                f"{p_conv:.3f}, bound {b_conv:.4f}), quant_pack_s8 {k_pack:.3f} ms (plain "
+                f"{p_pack:.3f}, bound {b_pack:.4f})  [{card}]")
+            common = {"route": "cuda", "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu"}
+            entries += [{
+                "name": f"conv_s8 (mesh serving: a replica's forward of {batch // 2} rows, all "
+                        f"{n_calls} launches summed)", **common,
+                "replaces": "cerberusdet_tpu/ops/conv_int8_pallas.py:65",
+                "launches": launches[1], "max_abs_err": conv_err, "ms": k_conv,
+                "plain_ms": p_conv, "bound_ms": b_conv, "bound_by": "operations",
+                "library_ms": None}, {
+                "name": f"quant_pack_s8 (mesh serving: a replica's forward of {batch // 2} "
+                        f"rows, all {n_calls} launches summed)", **common,
+                "replaces": "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas "
+                            "kernel; part of conv_s8's redesign)",
+                "launches": launches[2], "max_abs_err": pack_err, "ms": k_pack,
+                "plain_ms": p_pack, "bound_ms": b_pack, "bound_by": "bytes",
+                "library_ms": None}]
+        del one, two
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # cli.serve --mesh (the visible cards: one here) against cli.serve
+    bodies = [cv2.imencode(".jpg", np.ascontiguousarray(f[::-1]))[1].tobytes()
+              for f in frames[0]]
+    answers = {}
+    for label, extra in (("--mesh", ["--mesh"]), ("", [])):
+        opt = serve_cli.parse_opt(["--weights", ckpt, "--imgsz", str(imgsz), "--bf16",
+                                   "--conf-thres", str(CONF), "--max-batch", str(batch),
+                                   "--host", "127.0.0.1", "--port", "0", "--device", str(dev)]
+                                  + extra)
+        inference, engine, server = serve_cli.build(opt)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        try:
+            got = []
+            for data in bodies:
+                req = urllib.request.Request(url, data=data, method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    got.append((r.status, json.loads(r.read())))
+            answers[label] = (got, len(inference.replicas), len(inference.programs))
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+            thread.join(timeout=30)
+        del inference
+    (mesh_got, n_rep, n_prog), (plain_got, _, _) = answers["--mesh"], answers[""]
+    n_det = sum(len(b["detections"]) for _, b in plain_got)
+    if mesh_got != plain_got or any(s != 200 for s, _ in mesh_got) or not n_det:
+        raise AssertionError("cli.serve --mesh answered otherwise than cli.serve")
+    log(f"[mesh serving] cli.serve --mesh over the {n_rep} visible card(s), one program a "
+        f"replica ({n_prog}): {len(bodies)} requests answered as cli.serve answers them "
+        f"({n_det} detections)")
+    nms.launches, ci.conv_s8.launches, ci.quant_pack_s8.launches = saved
+    return entries
+
+
+def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int,
+                 steps: int):
+    """(b) The captured train step in an NCCL group of one (phase 4's cell):
+    the graph's NCCL nodes, `steps` replays == raw_steps bit for bit, the
+    first step and the state after all steps == the group-less step's bit
+    for bit, the replay's time against the group-less replay's. Returns the
+    TAL kernels' kernels-line entries."""
+    import torch
+    import torch.distributed as dist
+
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import tal_cuda
+    from cerberusdet_tpu_torch.parallel import init_distributed
+    from cerberusdet_tpu_torch.testing import train_batches
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.train.loss import DetectionLoss
+    from cerberusdet_tpu_torch.train.schedules import warmup_lrs
+    from cerberusdet_tpu_torch.train.step import MultiTaskTrainer, init_train_state
+    from cerberusdet_tpu_torch.utils.profiling import graph_kernel_names
+
+    group = init_distributed(device=dev)
+    if dist.get_backend(group) != "nccl" or dist.get_world_size(group) != 1:
+        raise AssertionError(f"expected an NCCL group of one, got {dist.get_backend(group)} "
+                             f"of {dist.get_world_size(group)}")
+    tal = {"tal_select": tal_cuda.select_kernel, "tal_assign": tal_cuda.assign_kernel,
+           "tal_norm": tal_cuda.norm_kernel}
+    saved = {k: f.launches for k, f in tal.items()}
+    first = {}
+    real_assign = loss_mod.task_aligned_assign
+    real_all_reduce = dist.all_reduce
+    captured = [0]
+
+    def assign(*a, **kw):  # the first inputs the grouped step gives the TAL kernels
+        if "args" not in first:
+            first["args"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+        return real_assign(*a, **kw)
+
+    def all_reduce(*a, **kw):  # the collectives recorded into a graph
+        captured[0] += torch.cuda.is_current_stream_capturing()
+        return real_all_reduce(*a, **kw)
+
+    try:
+        batches = {t: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for t, b in train_batches(TASKS, NCS, batch, imgsz, n_labels, TRAIN_REAL,
+                                             seed=0).items()}
+        runs = {}
+        torch.backends.cudnn.deterministic = True
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            for label, grp in (("nccl", group), ("none", None)):
+                model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+                losses = {t: DetectionLoss(nc=nc, strides=model.strides)
+                          for t, nc in zip(TASKS, NCS)}
+                trainer = MultiTaskTrainer(model, losses, compute_dtype=torch.bfloat16,
+                                           device=dev, group=grp)
+                state = init_train_state(model)
+                for f in tal.values():
+                    f.launches = 0
+                loss_mod.task_aligned_assign = assign
+                dist.all_reduce, captured[0] = all_reduce, 0
+                try:
+                    _, it = trainer.step(state, batches, *warmup_lrs(0, 100, 0.0, 0.01, 1.0))
+                finally:
+                    loss_mod.task_aligned_assign = real_assign
+                    dist.all_reduce = real_all_reduce
+                snap = snapshot(state)
+                first_step = ({t: [float(v) for v in x] for t, x in it.items()},
+                              state_copy(state))
+                items = []
+                for i in range(1, steps + 1):
+                    _, it = trainer.step(state, batches, *warmup_lrs(i, 100, 0.0, 0.01, 1.0))
+                    items.append({t: [float(v) for v in x] for t, x in it.items()})
+                torch.cuda.synchronize()
+                counts = {k: f.launches for k, f in tal.items()}
+                replayed = state_copy(state)
+                prog = trainer.programs[trainer.step_key(batches)]
+                replay_ms = [cuda_ms(prog.graph.replay, iters=3, warmup=1) for _ in range(3)]
+                nodes = graph_kernel_names(prog.graph)
+                if label == "nccl":
+                    restore(state, snap)
+                    for i in range(1, steps + 1):
+                        trainer.raw_step(state, batches, *warmup_lrs(i, 100, 0.0, 0.01, 1.0))
+                    if any(not torch.equal(replayed[k], v)
+                           for k, v in state_copy(state).items()):
+                        raise AssertionError(f"NCCL group of one: {steps} replays differ from "
+                                             f"{steps} raw_steps")
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        prog.graph.replay()
+                        torch.cuda.synchronize()
+                    traced = sum(e.count for e in prof.key_averages() if "nccl" in e.key.lower())
+                    n_bn = sum(len(model._batch_norms(s.uid)) for t in TASKS
+                               for s in model.plan([t]))
+                    runs[label] = (items, replayed, counts, replay_ms, nodes, first_step,
+                                   traced, n_bn, captured[0])
+                else:
+                    runs[label] = (items, replayed, counts, replay_ms, nodes, first_step)
+                del trainer, state, model, snap, prog
+                gc.collect()
+                torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        items_g, state_g, counts, ms_g, nodes_g, first_g, traced, n_bn, n_coll = runs["nccl"]
+        items_p, state_p, _, ms_p, nodes_p, first_p = runs["none"]
+        nccl_nodes = [n for n in nodes_g if "nccl" in n.lower()]
+        # 4 a BatchNorm a task forward runs (its sums and its centred squares,
+        # forward and backward), 2 a task's loss (its normalisers, its items), 1
+        # the gradients
+        want_collectives = 4 * n_bn + 2 * len(TASKS) + 1
+        if n_coll != want_collectives:
+            raise AssertionError(f"the capture recorded {n_coll} NCCL all-reduces, not "
+                                 f"{want_collectives}")
+        if any(v != len(TASKS) * (steps + 1) for v in counts.values()):
+            raise AssertionError(f"TAL launches {counts}: not once per task and step")
+        # a group of one: the group-less step's arithmetic, bit for bit
+        if first_g[0] != first_p[0] or items_g != items_p:
+            raise AssertionError(f"NCCL group of one: losses {first_g[0]}, {items_g} against "
+                                 f"the group-less step's {first_p[0]}, {items_p}")
+        for what, a, b in (("the first step", first_g[1], first_p[1]),
+                           (f"after {steps + 1} steps", state_g, state_p)):
+            differ = [k for k in b if not torch.equal(a[k], b[k])]
+            if differ:
+                raise AssertionError(f"NCCL group of one, {what}: {len(differ)} of {len(b)} "
+                                     f"tensors differ from the group-less step's: {differ[:3]}")
+        log(f"[nccl step] an NCCL group of one ({dist.Backend.NCCL} "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}), {os.path.basename(cfg)} bf16, "
+            f"per-task batch {batch}: the capture recorded {n_coll} NCCL all-reduces (4 a "
+            f"BatchNorm of the {n_bn} that the task forwards run, 2 a task's loss, 1 the "
+            f"gradients); NCCL kernel nodes in the graph {len(nccl_nodes)} of {len(nodes_g)} "
+            f"kernel nodes, {traced} in the profiler's trace of a replay (a group of one "
+            f"reduces in place: no kernel); {steps} replays == "
+            f"{steps} raw_steps bit for bit; TAL launches {counts}; the first step and the "
+            f"{len(state_g)} state tensors after {steps + 1} steps identical with the "
+            f"group-less step's, losses too ({items_g[-1]}); a replay "
+            f"{min(ms_g):.2f} ms against {min(ms_p):.2f} ms "
+            f"group-less ({len(nodes_g)} vs {len(nodes_p)} kernel nodes; CUDA events, best "
+            f"of 3 x 3 replays)  [{card}]")
+        args, nc = first["args"]
+        return tal_entries(args, nc, {k: v for k, v in counts.items()},
+                           "NCCL group of one, captured", card)
+    finally:
+        loss_mod.task_aligned_assign = real_assign
+        for k, f in tal.items():
+            f.launches = saved[k]
+        dist.destroy_process_group()
+
+
+def dp_rank(rank: int, world: int, init: str, job_path: str, out_path: str) -> None:
+    """One of the Gloo ranks of (c) and (d), in a process of its own on
+    cuda:0: `steps` eager float32 steps of its rows of the global batch, the
+    captured step's refusal, then cli.val's main on its shard. Pickles what
+    the parent checks."""
+    import hashlib
+    import pickle
+
+    import torch
+
+    from cerberusdet_tpu_torch.cli import val as cli_val
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.parallel import init_distributed, replicate, shard_task_batches
+    from cerberusdet_tpu_torch.testing import train_batches
+    from cerberusdet_tpu_torch.train.loss import DetectionLoss
+    from cerberusdet_tpu_torch.train.schedules import warmup_lrs
+    from cerberusdet_tpu_torch.train.step import (
+        MultiTaskTrainer,
+        init_train_state,
+        state_tensors,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = torch.device(job["device"])  # cuda:0 (the CPU where the phase is rehearsed)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    group = init_distributed(backend="gloo", device=dev, init_method=f"file://{init}",
+                             rank=rank, world_size=world)
+    tal = (tal_cuda.select_kernel, tal_cuda.assign_kernel, tal_cuda.norm_kernel)
+    model = CerberusModel(job["cfg"], TASKS, NCS, device=dev).init(seed=0)
+    losses = {t: DetectionLoss(nc=nc, strides=model.strides) for t, nc in zip(TASKS, NCS)}
+    trainer = MultiTaskTrainer(model, losses, device=dev, group=group)
+    state = replicate(init_train_state(model), group)
+    batches = shard_task_batches(train_batches(TASKS, NCS, job["batch"], job["imgsz"],
+                                               job["n_labels"], TRAIN_REAL, seed=0),
+                                 world, index=rank)
+    for f in tal:
+        f.launches = 0
+    items, times = [], []
+    for i in range(job["steps"]):
+        sync()
+        t = time.perf_counter()
+        _, it = trainer.raw_step(state, batches, *warmup_lrs(i, 100, 0.0, 0.01, 1.0))
+        sync()
+        times.append(time.perf_counter() - t)
+        items.append({t: [float(v) for v in x] for t, x in it.items()})
+        if rank == 0:  # every step's state, for the parent's one-process steps
+            torch.save((state_copy(state), state.n_updates), f"{job['state_path']}.{i + 1}")
+    out = {"items": items, "step_s": times, "tal": [f.launches for f in tal],
+           "hashes": [(n, hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest())
+                      for n, t in state_tensors(state)]}
+    try:
+        trainer.step(state, batches, *warmup_lrs(job["steps"], 100, 0.0, 0.01, 1.0))
+    except RuntimeError as err:  # the refusal this phase checks for
+        out["refusal"] = str(err)
+    del trainer, state, model
+    nms = nms_cuda.greedy_nms_cuda
+    nms.launches = 0
+    t = time.perf_counter()
+    res = cli_val.main(job["val_argv"])
+    out["val"] = {k: (list(v["results"][:4]), v["seen"], len(v["times"])) for k, v in
+                  res.items()}
+    out["val_s"], out["val_nms"] = time.perf_counter() - t, nms.launches
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_nccl_two_ranks(rank: int, init: str, out_path: str) -> None:
+    """Two NCCL ranks on cuda:0: NCCL refuses them; pickles what it said."""
+    import pickle
+
+    from cerberusdet_tpu_torch.parallel import init_distributed
+
+    try:
+        init_distributed(backend="nccl", device="cuda:0", init_method=f"file://{init}",
+                         rank=rank, world_size=2)
+        said = None
+    except Exception as err:  # noqa: BLE001 (NCCL's error, recorded for the parent)
+        said = f"{type(err).__name__}: {err}"
+    with open(out_path, "wb") as f:
+        pickle.dump(said, f)
+
+
+def start_ranks(fn: str, args_of, world: int):
+    """Start chip_smoke.fn(*args_of(rank)) in `world` processes from the
+    repository root; wait_ranks collects them."""
+    import subprocess
+
+    procs = []
+    for rank in range(world):
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                f"chip_smoke.{fn}(*{args_of(rank)!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    return fn, procs
+
+
+def wait_ranks(started, timeout: float):
+    """Wait for start_ranks's processes, kill what outlives `timeout` and
+    raise if any failed. Returns each process's output."""
+    fn, procs = started
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"{fn} rank {rank} failed ({p.returncode}):\n{out[-4000:]}")
+    return logs
+
+
+def dp_ranks(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int,
+             root: str, data_yaml: str, ckpt: str, val_batch: int, steps: int = 2):
+    """(c) and (d): NCCL refuses two ranks on one card; two Gloo ranks on
+    cuda:0 step float32 eagerly and equal each other bit for bit, and each of
+    their steps equals one process's step over the 8 rows from the same
+    state within DP_STATE_FRAC; the captured step refuses Gloo; each rank
+    validates its shard through cli.val and reports the one-process val's
+    metrics. Returns the TAL kernels' kernels-line entries."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.cli import val as cli_val
+    from cerberusdet_tpu_torch.evaluation.metrics import DetMetrics
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.ops import nms_cuda
+    from cerberusdet_tpu_torch.testing import train_batches
+    from cerberusdet_tpu_torch.train import loss as loss_mod
+    from cerberusdet_tpu_torch.train.loss import DetectionLoss
+    from cerberusdet_tpu_torch.train.schedules import warmup_lrs
+    from cerberusdet_tpu_torch.train.step import (
+        MultiTaskTrainer,
+        init_train_state,
+        state_tensors,
+    )
+
+    val_argv = ["--weights", ckpt, "--data", data_yaml, "--device", str(dev), "--imgsz",
+                str(imgsz), "--batch-size", str(val_batch), "--project",
+                os.path.join(root, "runs"), "--exist-ok", "--workers", "4"]
+    on_card = dev.type == "cuda"
+    if on_card:  # NCCL's answer to two ranks on one card, while this process works
+        said = [os.path.join(root, f"nccl{rank}.pkl") for rank in range(2)]
+        refusal = start_ranks("dp_nccl_two_ranks",
+                              lambda r: (r, os.path.join(root, "nccl.init"), said[r]), 2)
+    try:
+        # the one-process val first: its loaders write the label caches the ranks read
+        nms = nms_cuda.greedy_nms_cuda
+        saved_nms = nms.launches
+        t = time.perf_counter()
+        one_val = cli_val.main(val_argv)
+        one_val_s = time.perf_counter() - t
+        # the same statistics in the ranks' order (rank 0's batches, then rank 1's):
+        # AP sorts by confidence, and tied confidences keep their order
+        in_rank_order = {}
+        for k, v in one_val.items():
+            stats = v["metrics"].stats  # one entry an image, in the loader's order
+            m = DetMetrics(v["metrics"].nc, v["metrics"].names)
+            m.stats = [x for r in range(2) for i, x in enumerate(stats)
+                       if (i // val_batch) % 2 == r]
+            m.process()
+            in_rank_order[k] = list(m.mean_results())
+        one_val = {k: (list(v["results"][:4]), v["seen"], len(v["times"])) for k, v in
+                   one_val.items()}
+        nms.launches = saved_nms
+
+        # one process over the 8 rows: the reference of the ranks' steps
+        first = {}
+        real_assign = loss_mod.task_aligned_assign
+
+        def assign(*a, **kw):
+            if "args" not in first:
+                first["args"] = ([v.detach().clone() for v in a[:6]], kw["num_classes"])
+            return real_assign(*a, **kw)
+
+        model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+        trainer = MultiTaskTrainer(model, {t: DetectionLoss(nc=nc, strides=model.strides)
+                                           for t, nc in zip(TASKS, NCS)}, device=dev)
+        state = init_train_state(model)
+        init_sd = state_copy(state)
+        batches = train_batches(TASKS, NCS, batch, imgsz, n_labels, TRAIN_REAL, seed=0)
+        ref_items, ref_states = [], []  # one process run freely over the steps
+        loss_mod.task_aligned_assign = assign
+        try:
+            for i in range(steps):
+                _, it = trainer.raw_step(state, batches, *warmup_lrs(i, 100, 0.0, 0.01, 1.0))
+                ref_items.append({t: [float(v) for v in x] for t, x in it.items()})
+                ref_states.append(state_copy(state))
+        finally:
+            loss_mod.task_aligned_assign = real_assign
+        del trainer, state, model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    except BaseException:
+        for p in (refusal[1] if on_card else ()):  # stop what was started
+            p.kill()
+        raise
+    if on_card:
+        wait_ranks(refusal, timeout=180)
+        refusals = []
+        for path in said:
+            with open(path, "rb") as f:
+                refusals.append(pickle.load(f))
+        if any(r is None for r in refusals):
+            raise AssertionError("NCCL took two ranks on one card")
+        log(f"[two ranks] NCCL refuses two ranks on one card: {refusals[0][:300]}")
+
+    # two Gloo ranks on cuda:0
+    job = dict(cfg=cfg, imgsz=imgsz, batch=batch, n_labels=n_labels, steps=steps,
+               val_argv=val_argv, state_path=os.path.join(root, "rank0_state.pt"),
+               device="cuda:0" if on_card else "cpu")
+    job_path = os.path.join(root, "job.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump(job, f)
+    outs = [os.path.join(root, f"rank{r}.pkl") for r in range(2)]
+    t = time.perf_counter()
+    wait_ranks(start_ranks("dp_rank", lambda r: (r, 2, os.path.join(root, "gloo.init"),
+                                                 job_path, outs[r]), 2), timeout=600)
+    ranks_s = time.perf_counter() - t
+    ranks = []
+    for path in outs:
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+    r0, r1 = ranks
+    if r0["hashes"] != r1["hashes"] or r0["items"] != r1["items"]:
+        raise AssertionError("the two Gloo ranks' states differ")
+    # each rank step against one process's step from the state the ranks held
+    # before it (the initial state, then rank 0's), and, as the rounding's
+    # measure, one process's step over the same rows in reverse order (the
+    # same sums in another order)
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    trainer = MultiTaskTrainer(model, {t: DetectionLoss(nc=nc, strides=model.strides)
+                                       for t, nc in zip(TASKS, NCS)}, device=dev)
+    state = init_train_state(model)
+    reversed_rows = {t: {k: v[::-1].copy() for k, v in b.items()} for t, b in batches.items()}
+    def loss_gap(a, b):  # the largest relative difference of two steps' loss items
+        return max(abs(x / y - 1) for t in TASKS for x, y in zip(a[t], b[t]) if y)
+
+    before, before_n, worst, noise, gaps = init_sd, 0, [], [], []
+    for i in range(steps):
+        after, after_n = torch.load(f"{job['state_path']}.{i + 1}")
+        runs = []
+        for rows in (batches, reversed_rows):
+            with torch.no_grad():
+                for n, t in state_tensors(state):
+                    t.copy_(before[n])
+            state.n_updates = before_n
+            _, it = trainer.raw_step(state, rows, *warmup_lrs(i, 100, 0.0, 0.01, 1.0))
+            runs.append((state_copy(state), {t: [float(v) for v in x] for t, x in it.items()}))
+        (ref, ref_it), (rev, rev_it) = runs
+        gaps.append((loss_gap(r0["items"][i], ref_it), loss_gap(rev_it, ref_it)))
+        noise.append(close_states(rev, ref, before, DP_STATE_FRAC))
+        worst.append(close_states(after, ref, before, DP_STATE_FRAC,
+                                  f"two Gloo ranks' step {i + 1} against one process's",
+                                  rounding=rev))
+        before, before_n = after, after_n
+    # what a batch of 4 rounds otherwise than a batch of 8 (the kernels a shape
+    # picks): the eval forward of the 8 rows at once against 4 + 4, and against
+    # the 8 rows reversed
+    with torch.no_grad():
+        model.eval()
+        img = torch.as_tensor(batches[TASKS[0]]["img"]).to(dev).permute(0, 3, 1, 2)
+        x = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
+
+        def preds(v):
+            return model(v, tasks=[TASKS[0]])[TASKS[0]][0].float()
+
+        whole = preds(x)
+        top = float(whole.abs().max())
+        halves = torch.cat([preds(x[:batch // 2]), preds(x[batch // 2:])])
+        split_gap = float((halves - whole).abs().max()) / top
+        order_gap = float((preds(x.flip(0)).flip(0) - whole).abs().max()) / top
+    del trainer, state, model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    drift = close_states(before, ref_states[-1], init_sd, DP_STATE_FRAC)
+    want_tal = [len(TASKS) * steps] * 3
+    for r in ranks:
+        if on_card and r["tal"] != want_tal:
+            raise AssertionError(f"a rank launched the TAL kernels {r['tal']} times, not once "
+                                 "per task and step")
+        if on_card and "CUDA graph cannot capture" not in r.get("refusal", ""):
+            raise AssertionError(f"the captured step did not refuse a Gloo group: "
+                                 f"{r.get('refusal')}")
+    log(f"[two ranks] 2 Gloo ranks on one card, {os.path.basename(cfg)} float32 (TF32 off), "
+        f"global per-task batch {batch} ({batch // 2} a rank), {steps} eager steps: the ranks' "
+        f"states identical (sha1 of {len(r0['hashes'])} tensors) and their losses too; against "
+        f"one process's step over the {batch} rows from the same state (and, the rounding's "
+        f"measure, one process's step over the rows reversed), step by step: "
+        + "; ".join(f"step {i + 1}: losses within {g:.3g} [{gr:.3g}], state tensors within "
+                    f"{w:.3g} of that step's change ({n}) [{wr:.3g} ({nr})]"
+                    for i, ((g, gr), (w, n), (wr, nr)) in enumerate(zip(gaps, worst, noise)))
+        + f" (limits rtol {DP_LOSS_RTOL}, {DP_STATE_FRAC}); an eval forward of the {batch} rows "
+        f"against {batch // 2} + {batch // 2}: outputs up to {split_gap:.3g} of their largest "
+        f"value apart, against the rows reversed {order_gap:.3g}; run freely over {steps} steps, one "
+        f"process's state up to {drift[0]:.3g} of the change apart ({drift[1]}), losses "
+        f"within {loss_gap(r0['items'][-1], ref_items[-1]):.3g}; a step "
+        f"{1e3 * float(np.median(r0['step_s'])):.0f} "
+        f"ms on a rank (host clock, synchronised; the Gloo collectives go through the host); "
+        f"TAL launches a rank {r0['tal']}; the captured step refused: "
+        f"\"{r0.get('refusal', '')[:120]}...\"; both processes {ranks_s:.1f} s  [{card}]")
+
+    for i, (g, _) in enumerate(gaps):
+        if g > DP_LOSS_RTOL:
+            raise AssertionError(f"two Gloo ranks' step {i + 1}: losses {r0['items'][i]} "
+                                 f"differ from one process's by {g:.3g} (limit {DP_LOSS_RTOL})")
+
+    # (d) the ranks' distributed val against the one process's
+    tie_diff = 0.0
+    for t in TASKS:
+        one, (res0, seen0, nb0), (res1, seen1, nb1) = one_val[t], r0["val"][t], r1["val"][t]
+        if seen0 != one[1] or seen1 != one[1] or nb0 + nb1 != one[2]:
+            raise AssertionError(f"{t}: the ranks saw {seen0} / {seen1} images in {nb0} + {nb1} "
+                                 f"batches, one process {one[1]} in {one[2]}")
+        tie_diff = max(tie_diff, max(abs(a - b) for a, b in zip(res0, one[0])))
+        if res0 != res1 or res0 != in_rank_order[t] or tie_diff > DP_VAL_TIE_TOL:
+            raise AssertionError(f"{t}: distributed val {res0} / {res1}, one process "
+                                 f"{in_rank_order[t]} in the ranks' order, {one[0]} in its own")
+    n_nms = [r["val_nms"] for r in ranks]
+    if on_card and n_nms != [sum(r["val"][t][2] for t in TASKS) for r in ranks]:
+        raise AssertionError(f"the ranks' val launched NMS {n_nms} times, not once per batch "
+                             "and task")
+    log(f"[two ranks] distributed cli.val over the 2 ranks ({one_val[TASKS[0]][1]} images a "
+        f"task, batch {val_batch}, rect, batches {r0['val'][TASKS[0]][2]} / "
+        f"{r1['val'][TASKS[0]][2]} a rank): every rank reports the one-process metrics "
+        f"(P, R, mAP50, mAP) {r0['val']} exactly, taken over the one process's statistics in "
+        f"the ranks' order; in the one process's own order {one_val}, at most {tie_diff:.3g} "
+        f"away (tied confidences, limit {DP_VAL_TIE_TOL}); NMS launches a rank {n_nms} (one a "
+        f"batch and task of its shard); a rank's val {r0['val_s']:.1f} s, one process "
+        f"{one_val_s:.1f} s  [{card}]")
+    args, nc = first["args"]
+    rank_args = [a[: a.shape[0] // 2] if a.dim() and a.shape[0] == batch else a for a in args]
+    return tal_entries(rank_args, nc, {k: r0["tal"][i] for i, k in enumerate(TAL_KERNELS)},
+                       "a Gloo rank's 4 rows, eager float32", card)
+
+
+def data_parallel(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, batch: int = DP_BATCH,
+                  n_labels: int = TRAIN_LABELS, steps: int = DP_STEPS,
+                  val_images: int = DP_VAL_IMAGES, val_batch: int = DP_VAL_BATCH,
+                  requests: int = 3):
+    """Phase 13: data parallelism (parallel/mesh.py and its callers) on the
+    one card. Returns the kernels-line entries of the mesh paths."""
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="cerberus_dp_")
+    entries = []
+    try:
+        t0 = time.perf_counter()
+        torch.set_grad_enabled(False)
+        data_yaml, ckpt, _ = dp_val_set(root, cfg, imgsz, dev, val_images, val_batch)
+        log(f"[data parallel] phase 6's val cell cut to {val_images} JPEGs a task, labelled, "
+            f"and its seeded checkpoint in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries += dp_serving(card, dev, ckpt, imgsz, batch, requests)
+        log(f"[data parallel] (a) mesh serving in {time.perf_counter() - t0:.1f} s")
+        torch.set_grad_enabled(True)
+        t0 = time.perf_counter()
+        entries += dp_nccl_step(card, dev, cfg, imgsz, batch, n_labels, steps)
+        log(f"[data parallel] (b) the NCCL group's captured step in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        entries += dp_ranks(card, dev, cfg, imgsz, batch, n_labels, root, data_yaml, ckpt,
+                            val_batch)
+        log(f"[data parallel] (c, d) two ranks in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5227,6 +6091,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(user_surface(card, dev))
     log(f"[user surface] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. data parallelism: mesh serving, an NCCL group's step, two ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.extend(data_parallel(card, dev))
+    log(f"[data parallel] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -281,12 +281,21 @@ def test_infinite_loader_cycles_epochs(val_set, tmp_path):
 def test_training_side_raises(val_set, tmp_path, what, monkeypatch):
     kw = dict(imgsz=64, batch_size=4, task="t", cache_dir=str(tmp_path))
     if what == "host sharded over processes":
+        # ported (tests/test_torch_parallel.py): in a group of 2 the loader wraps
+        # its sampler in HostShardSampler, and rank 1 takes every other image
         import torch.distributed as dist
 
+        from cerberusdet_tpu_torch.data.samplers import HostShardSampler
+
+        _, one = create_dataloader(val_set, **kw)
+        paths = [m["path"] for b in one for m in b["meta"]]
         monkeypatch.setattr(dist, "is_initialized", lambda: True)
         monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            create_dataloader(val_set, **kw)
+        monkeypatch.setattr(dist, "get_rank", lambda: 1)
+        _, loader = create_dataloader(val_set, **kw)
+        assert isinstance(loader.sampler, HostShardSampler)
+        assert (loader.sampler.num_hosts, loader.sampler.host_id, loader.sampler.block) == (2, 1, 1)
+        assert [m["path"] for b in loader for m in b["meta"]] == paths[1::2]
         return
     # the rest of the training side is ported: each route gives the batches
     # of the plain loader with the same dataset arguments (an eval loader

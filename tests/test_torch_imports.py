@@ -69,7 +69,8 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.evolve.base_evolver",
             "cerberusdet_tpu_torch.evolve.yolov5_evolver",
             "cerberusdet_tpu_torch.evolve.ray_evolver",
-            "cerberusdet_tpu_torch.tools.bench_c2f_split"} <= set(mods)
+            "cerberusdet_tpu_torch.tools.bench_c2f_split",
+            "cerberusdet_tpu_torch.parallel", "cerberusdet_tpu_torch.parallel.mesh"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in"

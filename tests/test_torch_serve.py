@@ -18,8 +18,9 @@ yolov8n_2task, 64 px, after tests/test_serve.py.
     letterboxes agree to float32 rounding (~3e-7), which is what is left.
   * The listen backlog takes a burst of 16 connecting clients (the JAX
     server's default of 5 does not: the port repairs it).
-  * cli/serve.py: build() warms up and serves on port 0; --mesh refuses,
-    naming ROADMAP item 6; its flags and defaults are root serve.py's,
+  * cli/serve.py: build() warms up and serves on port 0; --mesh replicates
+    over the mesh and refuses a --max-batch that its size does not divide,
+    with the JAX message; its flags and defaults are root serve.py's,
     except --device for --platform and --compile-cache.
 """
 
@@ -365,9 +366,23 @@ def test_cli_build_serves(ckpt):
         engine.stop()
 
 
-def test_cli_refusals_and_flags(ckpt):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+def test_cli_refusals_and_flags(ckpt, monkeypatch):
+    # --mesh is ported (tests/test_torch_parallel.py serves over a mesh of two):
+    # the service replicates over the mesh, whose size --max-batch must divide
+    from cerberusdet_tpu_torch.parallel import mesh as port_mesh
+
+    monkeypatch.setattr(port_mesh, "make_mesh", lambda devices=None: [torch.device("cpu")] * 3)
+    with pytest.raises(SystemExit, match="--max-batch 8 must divide by the 3-device mesh"):
         cli.build(cli.parse_opt(["--weights", ckpt, "--mesh", "--device", "cpu"]))
+    inference, engine, server = cli.build(cli.parse_opt(
+        ["--weights", ckpt, "--mesh", "--device", "cpu", "--imgsz", "64", "--max-batch", "6",
+         "--port", "0", "--host", "127.0.0.1"]))
+    try:
+        assert len(inference.replicas) == 3 and inference.mesh == [torch.device("cpu")] * 3
+        assert engine.stats["requests"] == 1 and engine.max_batch == 6
+    finally:
+        server.server_close()
+        engine.stop()
     if not torch.cuda.is_available():  # without --device the service asks for the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.build(cli.parse_opt(["--weights", ckpt]))

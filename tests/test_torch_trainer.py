@@ -303,10 +303,24 @@ def test_intersect_and_pretrained_load(case):
     _same_tree(export_jax_params(model), merged)
 
 
-def test_refusals(case):
+def test_refusals(case, monkeypatch):
     root, data, _, _ = case
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+
+    class Stop(Exception):
+        pass
+
+    # use_mesh is ported (tests/test_torch_parallel.py trains over 2 ranks):
+    # the loop joins the process group on its device before anything else
+    joined = []
+
+    def join(device=None):
+        joined.append(device)
+        raise Stop
+
+    monkeypatch.setattr(port_trainer, "init_distributed", join)
+    with pytest.raises(Stop):
         _port_loop(_options(port_trainer, root, "mesh", use_mesh=True), data)
+    assert joined == ["cpu"] and not (root / "runs" / "mesh").exists()
     # --mlflow-url is ported: without mlflow installed the run gets a no-op logger
     man = RunManager(HYP, data, CFG, root / "runs" / "mlflow", mlflow_url="http://localhost:1",
                      device="cpu")
@@ -421,6 +435,19 @@ def test_cli_refuses_what_is_not_ported(case, tmp_path, flag, item, monkeypatch)
             assert seen == {"experiment": "cerberusdet", "run": "exp",
                             "uri": "http://localhost:1"}
         return
+    if item == "item 6":
+        # ported (tests/test_torch_parallel.py): --mesh reaches TrainLoop's
+        # options and the loop joins the process group on --device
+
+        def join(device=None):
+            seen.update(device=device)
+            raise Stop
+
+        monkeypatch.setattr(port_trainer, "init_distributed", join)
+        with pytest.raises(Stop):
+            cli.main(_cli_args(case, tmp_path, *flag))
+        assert seen == {"device": torch.device("cpu")} and not (tmp_path / "exp").exists()
+        return
     if item in ("item 2", "item 8"):
         # ported (tests/test_torch_loaders.py trains with them): the flags
         # reach TrainLoop's options as the JAX CLI passes them
@@ -436,7 +463,3 @@ def test_cli_refuses_what_is_not_ported(case, tmp_path, flag, item, monkeypatch)
         want = {"--augment-device": ("", 0, True), "--proc-workers": ("", 2, False),
                 "--cache-images": ("disk", 0, False)}[flag[0]]
         assert (seen["cache"], seen["procs"], seen["device_aug"]) == want
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        cli.main(_cli_args(case, tmp_path, *flag))
-    assert not (tmp_path / "exp").exists()

@@ -284,8 +284,22 @@ def test_run_task_returns_native_dets_and_keeps_train_mode(tmp_path, val_sets, t
         h, w = cv2.imread(path).shape[:2]
         assert det.shape[1] == 6 and (det[:, 4] > 0.01).all()
         assert (det[:, [0, 2]] <= w).all() and (det[:, [1, 3]] <= h).all() and (det >= 0).all()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_task(model, "a", loader, 3, distributed=True)
+    # distributed=True is ported (tests/test_torch_parallel.py merges 2 ranks): in a
+    # group of one the merge is the identity
+    import torch.distributed as dist
+
+    from cerberusdet_tpu_torch.parallel import init_distributed
+
+    joined = dist.is_initialized()
+    group = init_distributed(device="cpu") if not joined else dist.group.WORLD
+    try:
+        if dist.get_world_size(group) == 1:
+            again = run_task(model, "a", loader, 3, return_dets=True, conf_thres=0.01,
+                             distributed=True)
+            assert again["results"] == out["results"] and again["seen"] == 8
+    finally:
+        if not joined:
+            dist.destroy_process_group()
 
 
 class OracleModel(nn.Module):
