@@ -10,7 +10,13 @@ the same nesting (nn/layers.py keeps the JAX names), so the mapping is by key:
   <uid>/.../bn/bias    -> ... .bn.bias
   <uid>/.../bn/mean    -> ... .bn.running_mean (buffer)
   <uid>/.../bn/var     -> ... .bn.running_var  (buffer)
-A fused tree ({w, b} convs, no `bn` anywhere) fuses the model first.
+  <uid>/.../implicit   -> ... .implicit (ImplicitA / ImplicitM: (1, 1, 1, C)
+                                         NHWC -> (1, C, 1, 1))
+A Linear's `w` is (c1, c2) in both, MultiheadAttention's in_w / out_w
+(out, in) in both, and a BareConv's `w` is a 4-D `w` without `b`.
+A fused tree ({w, b} convs, no Conv with `bn`; the standalone BN of
+BottleneckCSP and MixConv2d stays, as the JAX package's fuse leaves it)
+fuses the model first.
 A quantized tree (quant/ptq.py) holds {w_q, s_w, s_x, b} for an int8 Conv:
   <uid>/.../w_q        -> ... .w_q  (HWIO int8 -> the kernel's packed layout,
                                      ops/conv_int8_cuda.py:pack_weight)
@@ -73,6 +79,8 @@ def _torch_arrays(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         a = np.asarray(v)
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path[-1] == "implicit":
+            a = a.transpose(0, 3, 1, 2)  # NHWC -> NCHW
         elif path[-1] == "w_q":
             a = pack_weight(torch.from_numpy(np.array(a, np.int8))).numpy()
         src[_torch_key(path)] = a
@@ -80,7 +88,11 @@ def _torch_arrays(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 
 
 def _has_bn(tree: Mapping[str, Any]) -> bool:
-    return any("bn" in path for path, _ in _leaves(tree))
+    """Whether a Conv of the tree holds its BatchNorm (a {w, bn} node, the
+    nodes the JAX package's fuse folds)."""
+    if not isinstance(tree, Mapping):
+        return False
+    return set(tree) == {"w", "bn"} or any(_has_bn(v) for v in tree.values())
 
 
 @torch.no_grad()
@@ -145,6 +157,8 @@ def export_jax_tree(module: torch.nn.Module,
         a = t.detach().cpu().numpy()
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "implicit":
+            a = a.transpose(0, 2, 3, 1)  # NCHW -> NHWC
         elif path[-1] == "w_q":
             conv = module.get_submodule(".".join(path[:-1]))
             a = unpack_weight(t.detach().cpu(), conv.c1 // conv.g).numpy()

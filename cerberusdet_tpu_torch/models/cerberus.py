@@ -19,8 +19,9 @@ import torch.nn as nn
 
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.models.config import ParsedModel, parse_model_cfg
-from cerberusdet_tpu_torch.nn.layers import Conv, Detect, PlainConv
+from cerberusdet_tpu_torch.nn.layers import SEEDED, Conv, Detect
 from cerberusdet_tpu_torch.nn.module import BatchNorm
+from cerberusdet_tpu_torch.parallel.spatial import sharded
 
 Label = Tuple[Tuple[int, int], ...]  # ((split_layer, group_idx), ...)
 
@@ -173,10 +174,11 @@ class CerberusModel(nn.Module):
     def init(self, seed: int = 0) -> "CerberusModel":
         """Random init from `seed`: kaiming-uniform convs, unit BatchNorm and
         the Detect prior biases, the JAX package's scheme (its numbers differ:
-        weights move between the two through manager/weights.py)."""
+        weights move between the two through manager/weights.py); the other
+        layers of nn/layers.py:SEEDED as the JAX package inits them."""
         gen = torch.Generator().manual_seed(int(seed))
         for m in self.modules():
-            if isinstance(m, (Conv, PlainConv)):
+            if isinstance(m, SEEDED):
                 m.reset(gen)
         for t in self.task_ids:
             self.block(self.head_uid(t)).bias_init()
@@ -214,7 +216,7 @@ class CerberusModel(nn.Module):
 
     # --------------------------------------------------------------- forward
     def forward(self, x, tasks: Optional[Sequence[str]] = None, img_mask=None,
-                freeze_bn_uids: Sequence[str] = (), group=None):
+                freeze_bn_uids: Sequence[str] = (), group=None, spatial=None):
         """x: (B, 3, H, W) in the compute dtype. Returns {task: (preds, feats)}
         in eval mode, {task: feats} in training mode. In training, the
         BatchNorms of blocks in `freeze_bn_uids` use their running
@@ -223,7 +225,14 @@ class CerberusModel(nn.Module):
         parallelism, nn/module.py:BatchNorm). A block annotated with `q_out`
         (quant/ptq.py:propagate_act_quant) hands its output on quantized to
         int8 with that scale, as the JAX package's forward does: the block
-        quantizes it itself (nn/layers.py), in its last Conv."""
+        quantizes it itself (nn/layers.py), in its last Conv. With `spatial`
+        (parallel/spatial.py: a SpatialMesh, eval only) x is this rank's rows
+        of the image and the layers exchange halo rows with the other ranks;
+        the Detect heads return the whole maps and predictions."""
+        with sharded(spatial):
+            return self._forward(x, tasks, img_mask, freeze_bn_uids, group)
+
+    def _forward(self, x, tasks, img_mask, freeze_bn_uids, group):
         frozen = frozenset(freeze_bn_uids)
         outputs = {"__input__": x}
         results = {}

@@ -3,8 +3,14 @@
 Copy of cerberusdet_tpu/models/config.py for the port: the same channel
 propagation, depth/width multiples and make_divisible rounding, so that the
 port's modules line up one to one with the JAX parameter tree. Layers are
-built from the port's registry (nn/layers.py); a layer name that the port
-does not have yet raises.
+built from the port's registry (nn/layers.py). The JAX parser's rules are
+kept as they are: the blocks it builds from yaml are those of _CH_MODULES
+beside Concat and Upsample (MixConv2d, Contract, Expand, TransformerLayer,
+TransformerBlock, ImplicitA and ImplicitM are modules for Python only and
+raise here); the repeat count goes in at argument 2, which is C3SPP's `k`,
+so a C3SPP row raises TypeError as it does there; and a stride counts only
+for Conv, DWConv, GhostConv and Focus (a CrossConv or GhostBottleneck at
+s=2 keeps its input's log2_stride).
 """
 
 from __future__ import annotations
@@ -63,13 +69,6 @@ def load_cfg(cfg: Union[str, Path, dict]) -> dict:
     return dict(cfg)
 
 
-def _build(name: str, *args):
-    if name not in LAYERS:
-        raise ValueError(f"layer {name!r} is not ported to PyTorch yet "
-                         f"(ported: {sorted(LAYERS)})")
-    return LAYERS[name](*args)
-
-
 def parse_model_cfg(cfg: Union[str, Path, dict], ch_in: int = 3) -> ParsedModel:
     """Interpret a model yaml into NodeSpecs with resolved channels, routing
     and strides (strides computed analytically)."""
@@ -113,7 +112,7 @@ def parse_model_cfg(cfg: Union[str, Path, dict], ch_in: int = 3) -> ParsedModel:
                 if name in _REPEAT_MODULES:
                     largs.insert(2, n_)
                     n_ = 1
-                layer = _build(name, *largs)
+                layer = LAYERS[name](*largs)
                 out_c = c2
                 ds = 0
                 # stride from ctor: Conv-like args (c1, c2, k, s, ...)

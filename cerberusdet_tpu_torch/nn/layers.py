@@ -1,13 +1,17 @@
-"""The layer zoo of the JAX package's main registry, as NCHW nn.Modules.
+"""The layer zoo of the JAX package, as NCHW nn.Modules.
 
-Counterpart of cerberusdet_tpu/nn/layers.py:1-464: Conv, DWConv, PlainConv,
-Seq, Bottleneck, C2, C2f, C3, SPP, SPPF, Focus, GhostConv, Concat, Upsample
-and Detect. Parameter names follow the JAX tree (Conv: `w` + `bn`, `w` +
-`b` once fused, or `w_q`, `s_w`, `s_x`, `b` once quantized; Detect:
-`box{i}`/`cls{i}`, each a Seq with children 0/1/2), so a JAX tree maps onto
-`state_dict` key by key (manager/weights.py). The blocks of its second
-registry (nn/layers.py:811-823, BottleneckCSP to ImplicitM) are a later
-slice.
+Counterpart of cerberusdet_tpu/nn/layers.py: Conv, DWConv, PlainConv, Seq,
+Bottleneck, C2, C2f, C3, SPP, SPPF, Focus, GhostConv, Concat, Upsample and
+Detect (its main registry), then the blocks of its second registry
+(BottleneckCSP, TransformerLayer, TransformerBlock, C3TR, C3SPP, CrossConv,
+GhostBottleneck, MixConv2d, Contract, Expand, ImplicitA, ImplicitM) with
+their helpers (Identity, BareConv, BN, Linear, MultiheadAttention).
+Parameter names follow the JAX tree (Conv: `w` + `bn`, `w` + `b` once
+fused, or `w_q`, `s_w`, `s_x`, `b` once quantized; Detect: `box{i}`/
+`cls{i}`, each a Seq with children 0/1/2; Linear: `w` (c1, c2), JAX's
+layout), so a JAX tree maps onto `state_dict` key by key
+(manager/weights.py). The layers whose `reset(gen)` draws their
+parameters from a seed are listed in SEEDED.
 
 int8 serving (quant/ptq.py) annotates blocks with float32 scalar buffers:
 `q_out` (the JAX tree's `__q_out__`) on a block whose output every consumer
@@ -25,13 +29,16 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from cerberusdet_tpu_torch.nn.module import (
     BatchNorm,
+    _pair,
     autopad,
+    conv2d,
     conv2d_int8,
     fuse_conv_bn,
     kaiming_uniform_,
@@ -46,13 +53,10 @@ from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     quant_cat_s8,
     s8_kernel_takes,
 )
+from cerberusdet_tpu_torch.parallel import spatial
 
 # the int8 placement annotations: buffer name -> the JAX tree's leaf name
 ACT_QUANT = {"q_out": "__q_out__", "q_in": "q_in"}
-
-
-def _pair(v):
-    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class Block(nn.Module):
@@ -149,9 +153,9 @@ class Conv(Block):
                                dilation=self.d, q_out=q_out)
         bn = getattr(self, "bn", None)
         if bn is None:
-            y = F.conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
+            y = conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
         else:
-            y = bn(F.conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g))
+            y = bn(conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g))
         y = (silu(y) if self.act else y).to(x.dtype)
         return y if q_out is None else quantize_act(y, q_out)
 
@@ -329,11 +333,15 @@ def max_pool(x: torch.Tensor, k: int, s: int = 1, p: Optional[int] = None) -> to
     float x, the dtype's minimum for an int8 one in the JAX package: every
     window holds an input). An int8 x on the card pools in bfloat16, which
     holds every int8 value exactly, and is cast back: torch's CUDA max pool
-    has no int8 form. The CPU pools int8 as it is."""
+    has no int8 form. The CPU pools int8 as it is. Under a spatial mesh
+    (parallel/spatial.py) x is this rank's rows: it takes its halo rows (an
+    int8 x as int8), with the padding value beyond the image."""
     p = k // 2 if p is None else p
+    fill = torch.iinfo(x.dtype).min if x.dtype == torch.int8 else -math.inf
+    x, pad, _ = spatial.frame(x, k, s, p, fill)
     if x.dtype == torch.int8 and x.device.type == "cuda":
-        return F.max_pool2d(x.to(torch.bfloat16), k, s, p).to(torch.int8)
-    return F.max_pool2d(x, k, s, p)
+        return F.max_pool2d(x.to(torch.bfloat16), k, s, pad).to(torch.int8)
+    return F.max_pool2d(x, k, s, pad)
 
 
 class SPP(Block):
@@ -477,6 +485,7 @@ class Detect(nn.Module):
                  for i, x in enumerate(xs)]
         if self.training:
             return feats
+        feats = [spatial.gather_rows(f) for f in feats]  # the whole map under a spatial mesh
         return self.decode(feats), feats
 
     def decode(self, feats: List[torch.Tensor]):
@@ -491,9 +500,329 @@ class Detect(nn.Module):
         return torch.cat([boxes, torch.sigmoid(cls.float())], dim=-1)
 
 
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class BareConv(nn.Module):
+    """Conv2d without bias, BatchNorm or activation (BottleneckCSP's cv2 /
+    cv3, MixConv2d's members). It stays float in an int8 model, as the JAX
+    package's PTQ quantizes only Conv."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1):
+        super().__init__()
+        self.c2, self.g = c2, g
+        self.s, self.p = _pair(s), _pair(autopad(k, p))
+        self.w = nn.Parameter(torch.empty(c2, c1 // g, *_pair(k)))
+
+    def reset(self, gen: torch.Generator) -> None:
+        kaiming_uniform_(self.w, self.w[0].numel(), gen)
+
+    def forward(self, x):
+        return conv2d(x, self.w.to(x.dtype), None, self.s, self.p, 1, self.g).to(x.dtype)
+
+
+class BN(nn.Module):
+    """Standalone BatchNorm + LeakyReLU(0.1), in float32 whatever the
+    compute dtype (float64 included, as the JAX layer casts), cast back."""
+
+    def __init__(self, c, leaky: float = 0.1):
+        super().__init__()
+        self.c2, self.leaky = c, leaky
+        self.bn = BatchNorm(c)
+
+    def reset(self, gen: torch.Generator) -> None:
+        self.bn.reset()
+
+    def forward(self, x):
+        return F.leaky_relu(self.bn(x.float()), self.leaky).to(x.dtype)
+
+
+class BottleneckCSP(Block):
+    """CSP bottleneck (common.py:120-136 of the reference): cv1 -> m -> cv3
+    beside cv2, BatchNorm + LeakyReLU on the concat, cv4."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = BareConv(c1, c_, 1, 1)
+        self.cv3 = BareConv(c_, c_, 1, 1)
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+        self.bn = BN(2 * c_)
+        self.m = Seq(*[Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)])
+        self.c2 = c2
+
+    def forward(self, x):
+        y1 = self.cv3(self.m(self.cv1(x)))
+        return self.cv4(self.bn(torch.cat([y1, self.cv2(x)], dim=1)))
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w on the compute dtype's values (x's), summed in float32 or
+    wider: the JAX package's dot with preferred_element_type float32 (a
+    product of two bfloat16 values is exact in float32)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.matmul(x.to(acc), w.to(x.dtype).to(acc))
+
+
+class Linear(nn.Module):
+    """x @ w (+ b) on the last axis, w (c1, c2) as the JAX package keeps it
+    (the transpose of nn.Linear's), the sum cast to the compute dtype."""
+
+    def __init__(self, c1, c2, bias: bool = True):
+        super().__init__()
+        self.c1, self.c2 = c1, c2
+        self.w = nn.Parameter(torch.empty(c1, c2))
+        self.b = nn.Parameter(torch.empty(c2)) if bias else None
+
+    def reset(self, gen: torch.Generator) -> None:
+        kaiming_uniform_(self.w, self.c1, gen)
+        if self.b is not None:
+            bound = 1.0 / math.sqrt(self.c1)
+            uniform_(self.b, -bound, bound, gen)
+
+    def forward(self, x):
+        y = _mm(x, self.w)
+        return (y if self.b is None else y + self.b).to(x.dtype)
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's self / cross attention on (B, N, C), in
+    the JAX layer's order: the in-projections summed in float32 (or wider),
+    scaled dot products, softmax, the weighted values, the out-projection,
+    cast to the compute dtype. in_w (3C, C) and out_w (C, C) are (out, in)."""
+
+    def __init__(self, c, num_heads):
+        super().__init__()
+        assert c % num_heads == 0
+        self.c2, self.h = c, num_heads
+        self.in_w = nn.Parameter(torch.empty(3 * c, c))
+        self.in_b = nn.Parameter(torch.empty(3 * c))
+        self.out_w = nn.Parameter(torch.empty(c, c))
+        self.out_b = nn.Parameter(torch.empty(c))
+
+    def reset(self, gen: torch.Generator) -> None:
+        kaiming_uniform_(self.in_w, self.c2, gen)
+        kaiming_uniform_(self.out_w, self.c2, gen)
+        with torch.no_grad():
+            self.in_b.zero_()
+            self.out_b.zero_()
+
+    def forward(self, qkv):
+        q, k, v = qkv
+        c, h = self.c2, self.h
+        d = c // h
+        dtype = q.dtype
+        q, k, v = (_mm(t, self.in_w[i * c:(i + 1) * c].T) + self.in_b[i * c:(i + 1) * c]
+                   for i, t in enumerate((q, k, v)))
+        b, n, _ = q.shape
+
+        def heads(t):  # (B, h, N, d)
+            return t.reshape(b, n, h, d).transpose(1, 2)
+
+        scores = torch.matmul(heads(q), heads(k).transpose(-1, -2)) / math.sqrt(d)
+        out = torch.matmul(torch.softmax(scores, dim=-1), heads(v))
+        out = out.transpose(1, 2).reshape(b, n, c)
+        return (_mm(out, self.out_w.T) + self.out_b).to(dtype)
+
+
+class TransformerLayer(nn.Module):
+    """LayerNorm-free transformer layer (common.py:71-86 of the reference),
+    on (B, N, C)."""
+
+    def __init__(self, c, num_heads):
+        super().__init__()
+        self.c2 = c
+        self.q = Linear(c, c, bias=False)
+        self.k = Linear(c, c, bias=False)
+        self.v = Linear(c, c, bias=False)
+        self.ma = MultiheadAttention(c, num_heads)
+        self.fc1 = Linear(c, c, bias=False)
+        self.fc2 = Linear(c, c, bias=False)
+
+    def forward(self, x):
+        x = self.ma((self.q(x), self.k(x), self.v(x))) + x
+        return self.fc2(self.fc1(x)) + x
+
+
+class TransformerBlock(Block):
+    """ViT-style block over the flattened positions, row-major (common.py:
+    89-104 of the reference). It attends over every position: under a
+    spatial mesh (parallel/spatial.py) it gathers the whole map, runs on it
+    and keeps this rank's rows, as GSPMD computes it."""
+
+    def __init__(self, c1, c2, num_heads, num_layers):
+        super().__init__()
+        self.conv = Conv(c1, c2) if c1 != c2 else None
+        self.linear = Linear(c2, c2)  # learnable position embedding
+        self.tr = nn.ModuleList(TransformerLayer(c2, num_heads) for _ in range(num_layers))
+        self.c2 = c2
+
+    def forward(self, x):
+        if self.conv is not None:
+            x = self.conv(x)
+        x = spatial.gather_rows(x)
+        b, c, h, w = x.shape
+        seq = x.flatten(2).transpose(1, 2)
+        seq = seq + self.linear(seq)
+        for t in self.tr:
+            seq = t(seq)
+        return spatial.own_rows(seq.transpose(1, 2).reshape(b, c, h, w))
+
+
+class C3TR(C3):
+    """C3 with a TransformerBlock inner (common.py:200-205 of the reference);
+    a C3 to propagate_act_quant and last_conv, as in the JAX package."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = TransformerBlock(c_, c_, 4, n)
+
+
+class C3SPP(C3):
+    """C3 with an SPP inner (common.py:208-213 of the reference); a C3 to
+    propagate_act_quant and last_conv, as in the JAX package."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13), n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = SPP(c_, c_, k)
+
+
+class CrossConv(Block):
+    """Cross-convolution downsample (experimental.py:15-27 of the
+    reference): a (1, k) conv, then a (k, 1) one. In int8 both sum on the
+    exact integer route (not conv_s8's shapes)."""
+
+    def __init__(self, c1, c2, k=3, s=1, g=1, e=1.0, shortcut=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, (1, k), (1, s))
+        self.cv2 = Conv(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+        self.c2 = c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class GhostBottleneck(Block):
+    """Ghost bottleneck (experimental.py:42-57 of the reference)."""
+
+    def __init__(self, c1, c2, k=3, s=1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = Seq(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else Identity(),
+            GhostConv(c_, c2, 1, 1, act=False),
+        )
+        self.shortcut = (Seq(DWConv(c1, c1, k, s, act=False), Conv(c1, c2, 1, 1, act=False))
+                         if s == 2 else Identity())
+        self.c2 = c2
+
+    def forward(self, x):
+        return self.conv(x) + self.shortcut(x)
+
+
+class MixConv2d(Block):
+    """Mixed depthwise conv, equal-channel split (experimental.py:60-81 of
+    the reference): a BareConv per kernel size over all of x's channels,
+    each to its share of c2, concatenated, BatchNorm + LeakyReLU, plus x."""
+
+    def __init__(self, c1, c2, k=(1, 3), s=1, equal_ch=True):
+        super().__init__()
+        groups = len(k)
+        if not equal_ch:
+            raise NotImplementedError("equal-weight split not supported")
+        i = np.floor(np.linspace(0, groups - 1e-6, c2))
+        c_ = [int((i == g).sum()) for g in range(groups)]
+        self.m = nn.ModuleList(BareConv(c1, c_[g], k[g], s, k[g] // 2) for g in range(groups))
+        self.bn = BN(c2)
+        self.c2 = c2
+
+    def forward(self, x):
+        return x + self.bn(torch.cat([m(x) for m in self.m], dim=1))
+
+
+class Contract(Block):
+    """Space to channels: (B, C, H, W) -> (B, C*s*s, H/s, W/s) in the
+    reference's order (common.py:260-270)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+        self.c2 = 0
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, c * s * s, h // s, w // s)
+
+
+class Expand(Block):
+    """Channels to space, the inverse of Contract (common.py:273-285 of the
+    reference)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+        self.c2 = 0
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, s, s, c // s ** 2, h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(b, c // s ** 2, h * s, w * s)
+
+
+class ImplicitA(Block):
+    """Additive implicit knowledge (yoloR, common.py:17-28 of the
+    reference): x + implicit, implicit (1, C, 1, 1)."""
+
+    def __init__(self, channel):
+        super().__init__()
+        self.c2 = channel
+        self.implicit = nn.Parameter(torch.empty(1, channel, 1, 1))
+
+    def reset(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.implicit.copy_(0.02 * torch.randn(self.implicit.shape, generator=gen))
+
+    def forward(self, x):
+        return x + self.implicit.to(x.dtype)
+
+
+class ImplicitM(Block):
+    """Multiplicative implicit knowledge (yoloR, common.py:31-39 of the
+    reference): x * implicit, implicit (1, C, 1, 1)."""
+
+    def __init__(self, channel):
+        super().__init__()
+        self.c2 = channel
+        self.implicit = nn.Parameter(torch.empty(1, channel, 1, 1))
+
+    def reset(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.implicit.copy_(1.0 + 0.02 * torch.randn(self.implicit.shape, generator=gen))
+
+    def forward(self, x):
+        return x * self.implicit.to(x.dtype)
+
+
+# the layers whose reset(gen) draws their parameters (CerberusModel.init)
+SEEDED = (Conv, PlainConv, BareConv, BN, Linear, MultiheadAttention, ImplicitA, ImplicitM)
+
+
 def last_conv(block: nn.Module) -> Optional[Conv]:
     """The Conv whose output is a block's output (a Conv or DWConv block
-    itself; cv2 of C2, C2f, SPP and SPPF; cv3 of C3); None for the others."""
+    itself; cv2 of C2, C2f, SPP and SPPF; cv3 of C3, C3TR and C3SPP); None
+    for the others."""
     if isinstance(block, Conv):
         return block
     if isinstance(block, (C2, C2f, SPP, SPPF)):
@@ -521,3 +850,19 @@ LAYERS = {
     "Upsample": Upsample,
     "Detect": Detect,
 }
+
+# its second registry (cerberusdet_tpu/nn/layers.py:811-824)
+LAYERS.update({
+    "BottleneckCSP": BottleneckCSP,
+    "C3TR": C3TR,
+    "C3SPP": C3SPP,
+    "CrossConv": CrossConv,
+    "GhostBottleneck": GhostBottleneck,
+    "MixConv2d": MixConv2d,
+    "Contract": Contract,
+    "Expand": Expand,
+    "TransformerLayer": TransformerLayer,
+    "TransformerBlock": TransformerBlock,
+    "ImplicitA": ImplicitA,
+    "ImplicitM": ImplicitM,
+})

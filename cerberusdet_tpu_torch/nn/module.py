@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     conv_epilogue,
@@ -25,6 +26,7 @@ from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     quant_s8_plain,
     s8_kernel_takes,
 )
+from cerberusdet_tpu_torch.parallel import spatial
 from cerberusdet_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 
 BN_EPS = 1e-3
@@ -157,6 +159,20 @@ def fuse_conv_bn(w: torch.Tensor, bn: BatchNorm):
     return w * inv[:, None, None, None], shift
 
 
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, stride=1,
+           padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
+    """F.conv2d. Under a spatial mesh (parallel/spatial.py) x is this rank's
+    rows: a conv taller than one row takes its halo rows (zeros beyond the
+    image) and no padding on H."""
+    (sh, _), (dh, _) = _pair(stride), _pair(dilation)
+    x, padding, _ = spatial.frame(x, dh * (w.shape[2] - 1) + 1, sh, _pair(padding), 0)
+    return F.conv2d(x, w, b, stride, padding, dilation, groups)
+
+
 def quantize_act(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """Per-tensor symmetric int8 activation quantization:
     clip(round(x * (1 / s_x)), -127, 127), with the reciprocal in float32
@@ -191,7 +207,12 @@ def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
     go through quant_pack_s8 and conv_s8, two CUDA kernels for a tensor on
     the card and their plain versions on the CPU; use_kernel=False forces
     the plain versions (a test hook). Other shapes (groups, other kernel
-    sizes, dilation) sum exactly in conv_sums_s8 on either device."""
+    sizes, dilation) sum exactly in conv_sums_s8 on either device.
+
+    Under a spatial mesh (parallel/spatial.py) x is this rank's rows,
+    framed by their halo rows (an int8 x exchanged as int8). conv_s8 pads
+    both axes by k // 2 itself: it runs on a frame whose own padding rows
+    feed only output rows that are cut away (spatial.frame's own_padding)."""
     w_q = p["w_q"]
     kh, kw = w_q.shape[1], w_q.shape[2]
     pad = autopad((kh, kw), padding, dilation)
@@ -203,7 +224,10 @@ def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
         if x.dtype not in (torch.float32, torch.bfloat16, torch.int8):
             raise TypeError(f"conv2d_int8 takes float32, bfloat16 or int8 activations, "
                             f"not {x.dtype}")
-        acc = conv_sums_s8(quantize_act(x, p["s_x"]), w_q, stride, pad, dilation, groups)
+        xq = quantize_act(x, p["s_x"])
+        (sh, _), (dh, _) = _pair(stride), _pair(dilation)
+        xq, pad, _ = spatial.frame(xq, dh * (kh - 1) + 1, sh, _pair(pad), 0)
+        acc = conv_sums_s8(xq, w_q, stride, pad, dilation, groups)
         y = conv_epilogue(acc, p["s_x"], p["s_w"], p["b"], act, kernel_out, q_out, q_dtype)
         return y if q_out is not None else y.to(out_dtype)
     s, pad = (_single(stride, "stride"), _single(pad, "padding"))
@@ -211,12 +235,14 @@ def conv2d_int8(x: torch.Tensor, p, stride=1, padding=None, act: bool = False,
         pack, conv = quant_pack_s8_plain, conv_s8_plain
     else:  # the kernels on the card, the plain versions on the CPU
         pack, conv = quant_pack_s8, conv_s8
+    x, pad, keep = spatial.frame(x, kh, s, pad, 0, own_padding=True)
     xq = pack(x, p["s_x"], w_q.shape[3])
     if q_out is not None:
-        return conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, torch.int8, q_out,
-                    q_dtype=q_dtype)
-    y = conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, kernel_out)
-    return y.to(out_dtype)
+        y = conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, torch.int8, q_out,
+                 q_dtype=q_dtype)
+    else:
+        y = conv(xq, w_q, p["s_x"], p["s_w"], p["b"], s, pad, act, kernel_out).to(out_dtype)
+    return y[:, :, keep]
 
 
 def _single(v, what: str) -> int:

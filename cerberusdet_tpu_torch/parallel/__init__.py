@@ -13,3 +13,11 @@ from cerberusdet_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
     shard_task_batches,
 )
+from cerberusdet_tpu_torch.parallel.spatial import (  # noqa: F401
+    SPATIAL_AXIS,
+    SpatialMesh,
+    check_spatial_shape,
+    make_data_spatial_mesh,
+    make_spatial_forward,
+    make_spatial_mesh,
+)

@@ -349,3 +349,39 @@ ZOO_CFG = {
     "cerber": [[2, [[13], [14]]]],
 }
 
+# A 2-task model config that uses the four blocks of the second registry
+# that the JAX parser builds from yaml (BottleneckCSP, C3TR, CrossConv,
+# GhostBottleneck; the other eight are modules for Python only), the heads
+# at strides 8 / 16 / 32, the neck split after its second layer; yolov8n's
+# multiples. Write it with yaml.safe_dump.
+BLOCKS_CFG = {
+    "depth_multiple": 0.33,
+    "width_multiple": 0.25,
+    "backbone": [
+        [-1, 1, "Conv", [64, 3, 2]],                       # 0  P1/2
+        [-1, 1, "Conv", [128, 3, 2]],                      # 1  P2/4
+        [-1, 3, "BottleneckCSP", [128]],                   # 2
+        [-1, 1, "Conv", [256, 3, 2]],                      # 3  P3/8
+        [-1, 1, "GhostBottleneck", [256, 3, 1]],           # 4
+        [-1, 1, "Conv", [512, 3, 2]],                      # 5  P4/16
+        [-1, 1, "CrossConv", [512, 3, 1, 1, 1.0, True]],   # 6
+        [-1, 1, "Conv", [512, 3, 2]],                      # 7  P5/32
+        [-1, 1, "C3TR", [512]],                            # 8
+    ],
+    "neck": [
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],      # 9
+        [[-1, 6], 1, "Concat", [1]],                       # 10
+        [-1, 1, "BottleneckCSP", [256, False]],            # 11
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],      # 12
+        [[-1, 4], 1, "Concat", [1]],                       # 13
+        [-1, 1, "CrossConv", [256, 3, 1]],                 # 14  P3 out
+        [-1, 1, "Conv", [256, 3, 2]],                      # 15
+        [[-1, 11], 1, "Concat", [1]],                      # 16
+        [-1, 1, "GhostBottleneck", [512, 3, 1]],           # 17  P4 out
+        [-1, 1, "Conv", [512, 3, 2]],                      # 18
+        [[-1, 8], 1, "Concat", [1]],                       # 19
+        [-1, 1, "C3TR", [512, False]],                     # 20  P5 out
+    ],
+    "head": [[[14, 17, 20], 1, "Detect", []]],
+    "cerber": [[2, [[13], [14]]]],
+}

@@ -176,12 +176,12 @@ def print_unmatched_once(nodes: Dict[str, Any], width: int = 160) -> None:
 
 def model_convs(model) -> Tuple[int, int]:
     """(convolutions, int8 Convs on conv_s8) of a CerberusModel's all-heads
-    forward, which runs every block once: its Conv and PlainConv modules
-    except the int8 Convs of shapes conv_s8 does not take, which sum in a
-    float64 F.conv2d (ops/conv_int8_cuda.py:conv_sums_s8)."""
-    from cerberusdet_tpu_torch.nn.layers import Conv, PlainConv
+    forward, which runs every block once: its Conv, PlainConv and BareConv
+    modules except the int8 Convs of shapes conv_s8 does not take, which
+    sum in a float64 F.conv2d (ops/conv_int8_cuda.py:conv_sums_s8)."""
+    from cerberusdet_tpu_torch.nn.layers import BareConv, Conv, PlainConv
 
-    convs = [m for m in model.modules() if isinstance(m, (Conv, PlainConv))
+    convs = [m for m in model.modules() if isinstance(m, (Conv, PlainConv, BareConv))
              and not (isinstance(m, Conv) and m.int8 and not m.s8_kernel)]
     return len(convs), sum(isinstance(m, Conv) and m.int8 for m in convs)
 

@@ -239,7 +239,29 @@ Phases, each of which fails the run on anything wrong:
      a task (batch 8, rect: whole batches a rank): every rank reports the
      one-process val's metrics over the same statistics in rank order
      exactly, and over its own order within DP_VAL_TIE_TOL (tied
-     confidences); NMS once per batch and task of a rank's shard.
+     confidences); NMS once per batch and task of a rank's shard;
+ 14. spatial (image-height) sharding (parallel/spatial.py) and the twelve
+     blocks of the second registry: the seeded flagship (BatchNorm
+     statistics from 4 seeded 640 px frames) served through
+     make_spatial_forward over two Gloo ranks on the one card, 320 rows a
+     shard, at batch 1 and 2, in bf16, float32 (TF32 off) and int8 "all"
+     propagated, each against the one-process forward of the same model in
+     the rank's own process: int8 identical; float32 within phase 13's mesh
+     serving limits after NMS (>= 99% matched, scores 1e-3, boxes 1 px) and within
+     SP_F32_SCORE / SP_F32_BOX decoded; bf16 teacher-forced, each block
+     over the ranks on the one-process forward's input to it within
+     SP_BF16_BLOCK of its largest output (end to end a reading only: a
+     random v8x carries a one-ulp change of its stem conv's output, which
+     cuDNN rounds otherwise at half the height, to ~30% at the neck); every
+     rank returns the same result; conv_s8, quant_pack_s8 and quant_s8
+     launched as often a shard as in one process, each launch of a shard's
+     batch-1 forward held against its plain version on its input, and
+     timed at each distinct input; a shard's
+     forward against one process's (no speed-up: the ranks share the card).
+     Beside the ranks: testing.BLOCKS_CFG (BottleneckCSP, C3TR, CrossConv,
+     GhostBottleneck) at 64 px in float32 against the CPU's float64, bf16,
+     and int8 "all" (propagated == unannotated == the plain int8 path), and
+     the eight others (C3SPP and the seven modules for Python only) alone.
 Progress and timings go to earlier lines; the line before the last JSON
 object lists the kernels, the next the card's name and power limit, and the
 last line is {"ok": true, "device": {...}}. Without a CUDA device the script
@@ -5691,6 +5713,625 @@ def data_parallel(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, batch: 
     return entries
 
 
+# ---------------------------------------------------------------- phase 14
+SP_BATCHES = (1, 2)
+SP_RANKS = 2
+SP_MAP_FRAC = 0.1        # bf16 maps of the blocks' model against float64 (CPU: <= 0.046)
+SP_MODULE_FRAC = 0.02    # bf16 output of a lone block against float64 (CPU: <= 0.0065)
+SP_F32_RTOL = 1e-4       # float32 on the card against float64 (test_forward_matches_jax)
+# the forwards each rank runs, sharded and in one process: the bf16 serving
+# model, the same weights in float32 (TF32 off; the yardstick of bf16's own
+# rounding, and a gate of its own), int8 "all" propagated over bf16
+SP_LABELS = (("bf16", "bfloat16"), ("f32", "float32"), ("int8", "bfloat16"))
+# float32: a shard's decoded predictions against one process's, largest score and
+# box coordinate (px) differences: phase 13's mesh serving limits (measured on an
+# H100 80GB HBM3 at 700 W: up to 6.0e-4 / 0.273 px, on the second frame of the
+# batch of 2)
+SP_F32_SCORE, SP_F32_BOX = DP_SERVE_SCORE, DP_SERVE_BOX
+# bf16, teacher-forced (sp_blockwise): each block run over the ranks on its rows of
+# the one-process forward's input to it, against its rows of that forward's
+# output; the largest |sharded - one| over max |one| of any block (boxes and scores
+# of a head apart). A shard's convs see maps of another height, so cuDNN may sum
+# in another order: a bf16 output an ulp (2^-8 of itself) apart, a few such steps
+# through a block's chained convs; a halo row that is wrong or missing moves a
+# block's border rows by their own size. The end-to-end bf16 gap is a reading
+# only: the seeded random flagship carries bf16's own rounding to scores ~1 apart
+# at batch 2 (one process's bf16 against its float32).
+SP_BF16_BLOCK = 2.0 ** -4
+# the eight blocks the JAX parser does not build from yaml (C3SPP raises
+# there; the seven others are modules for Python only), each alone:
+# (name, constructor arguments, input shape)
+SP_LONE_BLOCKS = [("C3SPP", (32, 48), (2, 32, 16, 16)),
+                  ("MixConv2d", (24, 24, (1, 3, 5)), (2, 24, 16, 16)),
+                  ("Contract", (2,), (2, 8, 16, 16)), ("Expand", (2,), (2, 16, 8, 8)),
+                  ("TransformerLayer", (32, 4), (2, 64, 32)),
+                  ("TransformerBlock", (16, 32, 4, 2), (2, 16, 8, 8)),
+                  ("ImplicitA", (16,), (2, 16, 8, 8)), ("ImplicitM", (16,), (2, 16, 8, 8))]
+
+
+def dets_of(preds, conf: float):
+    """{task: (B, N, 4 + nc)} decoded predictions -> per image lists of
+    {task, label, box (x1, y1, x2, y2 px), score} after each task's NMS
+    (the kernel on the card), for matched_detections / det_diffs."""
+    from cerberusdet_tpu_torch.ops.nms import non_max_suppression
+
+    out = None
+    for t, pred in preds.items():
+        det, _ = non_max_suppression(pred.float(), nc=pred.shape[-1] - 4, conf_thres=conf,
+                                     iou_thres=0.45, max_det=300)
+        det = det.cpu().numpy()
+        out = out or [[] for _ in range(len(det))]
+        for i, rows in enumerate(det):
+            out[i] += [{"task": t, "label": int(r[5]), "box": [float(v) for v in r[:4]],
+                        "score": float(r[4])} for r in rows if r[4] > 0]
+    return out
+
+
+def sp_gap(a, b, dev):
+    """How far decoded predictions {task: (B, N, 4 + nc)} `a` lie from `b`:
+    identical or not, the largest score and box coordinate (px)
+    differences, and after each task's NMS the detections of `a` matched to
+    `b`'s (matched_detections), of `b`'s n_ref, and the matched ones' largest
+    score and box differences (det_diffs)."""
+    import torch
+
+    d_a = dets_of({t: v.to(dev) for t, v in a.items()}, CONF)
+    d_b = dets_of({t: v.to(dev) for t, v in b.items()}, CONF)
+    det_score, det_box = det_diffs(d_a, d_b)
+    return {"identical": all(torch.equal(a[t], b[t]) for t in b),
+            "score": max(float((a[t][..., 4:] - b[t][..., 4:]).abs().max()) for t in b),
+            "box": max(float((a[t][..., :4] - b[t][..., :4]).abs().max()) for t in b),
+            "matched": matched_detections(d_a, d_b), "n_ref": sum(len(r) for r in d_b),
+            "det_score": det_score, "det_box": det_box}
+
+
+def sp_said(gap) -> str:
+    return (f"decoded predictions {gap['score']:.3g} (scores) and {gap['box']:.3g} px (boxes) "
+            f"apart; after NMS {gap['matched']} of {gap['n_ref']} detections matched, scores "
+            f"{gap['det_score']:.3g} and boxes {gap['det_box']:.3g} px apart")
+
+
+def sp_blockwise(model, mesh, x):
+    """Teacher-forced spatial check: every block of the model's plan run
+    over `mesh` on this rank's rows of the input the one-process forward of
+    x gave it, against this rank's rows of that forward's output (a head's
+    decoded predictions whole, boxes and scores apart). Returns
+    (largest max |sharded - one| / max |one|, the block's uid)."""
+    from cerberusdet_tpu_torch.parallel import spatial as sp
+
+    uid_of = {}
+    for step in model.plan(None):
+        uid_of.setdefault(id(model.block(step.uid)), step.uid)
+    seen = []
+
+    def keep(mod, args, out):
+        seen.append((uid_of[id(mod)], mod, args[0], out))
+
+    hooks = [model.block(uid).register_forward_hook(keep) for uid in uid_of.values()]
+    try:
+        model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def rows(t):
+        h = t.shape[2] // mesh.size
+        return t[:, :, mesh.index * h:(mesh.index + 1) * h]
+
+    def rel(a, b):
+        b = b.float()
+        return float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    worst = (0.0, None)
+    with sp.sharded(mesh):
+        for uid, mod, inp, out in seen:
+            got = mod([rows(t) for t in inp] if isinstance(inp, (list, tuple)) else rows(inp))
+            if isinstance(out, tuple):  # a head: (decoded predictions, whole maps)
+                gap = max(rel(got[0][..., :4], out[0][..., :4]),
+                          rel(got[0][..., 4:], out[0][..., 4:]))
+            else:
+                gap = rel(got, rows(out))
+            worst = max(worst, (gap, uid), key=lambda g: g[0])
+    return worst
+
+
+def sp_rank(rank: int, world: int, init: str, job_path: str, out_path: str) -> None:
+    """One of the Gloo ranks of phase 14, in a process of its own on the
+    card: the flagship's eval forward through make_spatial_forward over the
+    ranks (bf16, float32, then int8 "all" propagated: SP_LABELS), each
+    request beside the one-process forward of the same model in the same
+    process, with each int8 kernel's launches counted around each; then one
+    more sharded int8 forward recording every input the int8 kernels got,
+    which rank 0 holds against their plain versions and times. Pickles what
+    the parent checks."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.infer import CerberusDetInference
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn import layers as L
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.parallel import (
+        init_distributed,
+        make_spatial_forward,
+        make_spatial_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dev = torch.device(job["device"])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    init_distributed(backend="gloo", device=dev, init_method=f"file://{init}", rank=rank,
+                     world_size=world)
+    mesh = make_spatial_mesh()
+    wrappers = (ci.conv_s8, ci.quant_pack_s8, ci.quant_s8)
+    out = {"mesh": (mesh.index, mesh.size)}
+    for label, dtype_name in SP_LABELS:
+        dtype = getattr(torch, dtype_name)
+        with open(job["int8_tree" if label == "int8" else "float_tree"], "rb") as f:
+            tree = pickle.load(f)
+        inf = CerberusDetInference(model=CerberusModel(job["cfg"], TASKS, NCS, device=dev),
+                                   params=tree, names=job["names"], dtype=dtype,
+                                   device=dev, img_size=job["imgsz"])
+        model = inf.model
+        run = make_spatial_forward(model, mesh, dtype=dtype)
+        towers = [m for m in model.modules() if isinstance(m, L.PlainConv)]
+        res = {}
+        for b in job["batches"]:
+            img = torch.from_numpy(job["frames"][:b]).to(dev).permute(0, 3, 1, 2).float() / 255
+            x = img.to(dtype)
+            seen = {"one": [], "sharded": []}
+            key = ["one"]
+
+            def tower_in(mod, args, key=key, seen=seen):
+                seen[key[0]].append(args[0])
+
+            hooks = [m.register_forward_pre_hook(tower_in) for m in towers]
+            for w in wrappers:
+                w.launches = 0
+            ref = {t: p for t, (p, _) in model(x).items()}
+            one_launches = [w.launches for w in wrappers]
+            for w in wrappers:
+                w.launches = 0
+            key[0] = "sharded"
+            got = run(img)
+            sync()
+            launches = [w.launches for w in wrappers]
+            for h in hooks:
+                h.remove()
+            # the towers' PlainConv inputs: this rank's rows against the same rows of
+            # the one-process maps (the int8 Convs' outputs where the model is int8)
+            tower_diff = 0.0
+            for a, s in zip(seen["one"], seen["sharded"]):
+                h = s.shape[2]
+                rows = a[:, :, mesh.index * h:(mesh.index + 1) * h]
+                tower_diff = max(tower_diff, float((rows.float() - s.float()).abs().max()))
+            times = {"sharded": [], "one": []}
+            for _ in range(3):
+                for what, fn in (("sharded", lambda: run(img)), ("one", lambda: model(x))):
+                    sync()
+                    t = time.perf_counter()
+                    fn()
+                    sync()
+                    times[what].append(1e3 * (time.perf_counter() - t))
+            res[b] = {"got": {t: p.cpu() for t, p in got.items()},
+                      "ref": {t: p.cpu() for t, p in ref.items()},
+                      "launches": launches, "one_launches": one_launches,
+                      "tower_diff": tower_diff,
+                      "blockwise": (sp_blockwise(model, mesh, x) if label != "int8"
+                                    else None),
+                      "ms": float(np.median(times["sharded"])),
+                      "one_ms": float(np.median(times["one"]))}
+        out[label] = res
+        if label == "int8":
+            out["kernels"] = sp_kernel_inputs(run, job, dev, rank == 0)
+        del inf, model, run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def sp_kernel_inputs(run, job, dev, check: bool):
+    """One sharded int8 forward of batch 1 recording the inputs and the
+    output of each int8 kernel launch (every rank runs it: its exchanges are
+    collectives); with `check`, each launch's output against its plain
+    version on the same input (raising on any difference), conv_s8 also in
+    each of its five modes at each distinct input, and each kernel timed at
+    each distinct input by CUDA events: the kernel as a launch's mean in a
+    CUDA graph of 10 (graph_ms), the plain version around eager calls.
+    Returns {kernel: (launches, max |kernel - plain|, kernel ms, plain ms,
+    bound ms, distinct inputs)} summed over the forward's launches, the
+    bound from the operations (conv_s8, at the int8 tensor-core rate, over
+    the output rows the shard keeps: not those that only its frame's own
+    padding feeds) or the bytes (the quantizes, at HBM's rate)."""
+    import torch
+
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.parallel import spatial as sp
+
+    mod = sys.modules["cerberusdet_tpu_torch.nn.module"]
+    real = {"conv": mod.conv_s8, "pack": mod.quant_pack_s8, "quant": ci.quant_s8,
+            "frame": sp.frame}
+    calls = {"conv": [], "pack": [], "quant": [], "keep": []}
+
+    def rec_frame(*args, **kw):
+        out = real["frame"](*args, **kw)
+        if kw.get("own_padding"):  # conv2d_int8's conv_s8 route: the rows it keeps
+            calls["keep"].append(out[2])
+        return out
+
+    def rec_pack(x, s_x, ci16):
+        y = real["pack"](x, s_x, ci16)
+        calls["pack"].append(((x, s_x, ci16), y.clone()))
+        return y
+
+    def rec_conv(*args, **kw):
+        y = real["conv"](*args, **kw)
+        kept = len(range(y.shape[2])[calls["keep"][-1]])
+        calls["conv"].append((args, kw, calls["pack"][-1][0][0].shape[1], kept, y.clone()))
+        return y
+
+    def rec_quant(x, s_x, out=None):
+        y = real["quant"](x, s_x, out)
+        calls["quant"].append(((x, s_x), y.clone()))
+        return y
+
+    rec_quant.launches = 0  # the kernel counts its launches under its module's name
+    saved = [w.launches for w in (ci.conv_s8, ci.quant_pack_s8, ci.quant_s8)]
+    mod.conv_s8, mod.quant_pack_s8, sp.frame = rec_conv, rec_pack, rec_frame
+    ci.quant_s8 = mod.quant_s8 = rec_quant
+    img = torch.from_numpy(job["frames"][:1]).to(dev).permute(0, 3, 1, 2).float() / 255
+    try:
+        run(img)
+    finally:
+        mod.conv_s8, mod.quant_pack_s8, sp.frame = real["conv"], real["pack"], real["frame"]
+        ci.quant_s8 = mod.quant_s8 = real["quant"]
+    if not check:
+        return None
+    on_card = dev.type == "cuda"
+
+    def timed(fn, iters, warmup=2):  # a rehearsal on the CPU times nothing
+        return cuda_ms(fn, iters=iters, warmup=warmup) if on_card else 0.0
+
+    def kernel_timed(fn):  # in a CUDA graph: a launch's host cost would dwarf these kernels
+        return graph_ms(fn, 10) if on_card else 0.0
+
+    def same(name, got, want, key):
+        if not torch.equal(got, want):
+            raise AssertionError(f"spatial: {name} differs from its plain version at {key}")
+        return float((got.double() - want.double()).abs().max())
+
+    res = {}
+    # conv_s8: every launch in its own mode; each distinct (input, weights, stride, mode)
+    # also in every mode, and timed
+    conv_err, k_ms, p_ms, ops, seen = 0.0, 0.0, 0.0, 0, {}
+    for args, kw, c_in, kept, y in calls["conv"]:
+        xq, w_q, s_x, s_w, bias, stride, pad, act, out_dtype = args[:9]
+        key = (tuple(xq.shape), tuple(w_q.shape), stride, out_dtype, kw.get("q_dtype"))
+        conv_err = max(conv_err, same("conv_s8", y, ci.conv_s8_plain(*args, **kw), key))
+        if key not in seen:
+            if on_card:
+                conv_err = max(conv_err, conv_s8_compare(xq, w_q, s_x, s_w, bias, stride, act))
+            seen[key] = (kernel_timed(lambda: real["conv"](*args, **kw)),
+                         timed(lambda: ci.conv_s8_plain(*args, **kw), 1, warmup=1))
+        k_ms += seen[key][0]
+        p_ms += seen[key][1]
+        ops += 2 * xq.shape[0] * kept * y.shape[3] * w_q.shape[0] * w_q.shape[1] ** 2 * c_in
+    res["conv_s8"] = (len(calls["conv"]), conv_err, k_ms, p_ms, ops / INT8_OPS_PER_S * 1e3,
+                      len(seen))
+    # quant_pack_s8 and quant_s8: every launch's codes identical, each distinct input timed
+    for name, kernel, plain, rows in (
+            ("quant_pack_s8", real["pack"], ci.quant_pack_s8_plain, calls["pack"]),
+            ("quant_s8", real["quant"], ci.quant_s8_plain, calls["quant"])):
+        err, k_ms, p_ms, nbytes, seen = 0, 0.0, 0.0, 0, {}
+        for args, y in rows:
+            x = args[0]
+            key = (tuple(x.shape), x.dtype, x.stride())
+            err = max(err, int(same(name, y, plain(*args), key)))
+            if key not in seen:
+                seen[key] = (kernel_timed(lambda: kernel(*args)),
+                             timed(lambda: plain(*args), 2, warmup=1))
+            k_ms += seen[key][0]
+            p_ms += seen[key][1]
+            out_bytes = args[2] if name == "quant_pack_s8" else x.shape[1]
+            nbytes += x.numel() * x.element_size() + x.numel() // x.shape[1] * out_bytes
+        res[name] = (len(rows), err, k_ms, p_ms, nbytes / HBM_BYTES_PER_S * 1e3, len(seen))
+    for w, n in zip((ci.conv_s8, ci.quant_pack_s8, ci.quant_s8), saved):
+        w.launches = n
+    return res
+
+
+def sp_models(root: str, cfg: str, imgsz: int, dev, batches):
+    """The seeded flagship (BatchNorm statistics from 4 seeded frames) as
+    two JAX-layout trees pickled under root: float (the bf16 and float32
+    models), and int8 "all" propagated (quantized in float32 from the noise
+    calibration CerberusDetInference takes). Returns the job's fields."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from cerberusdet_tpu_torch.infer import CerberusDetInference
+    from cerberusdet_tpu_torch.manager.weights import export_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.testing import calibrate_bn
+
+    names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+    rng = np.random.default_rng(41)
+    frames = rng.integers(0, 256, (max(batches) + 4, imgsz, imgsz, 3), dtype=np.uint8)
+    model = CerberusModel(cfg, TASKS, NCS, device=dev).init(seed=0)
+    distinct_heads(model, seed=1)
+    calibrate_bn(model, torch.from_numpy(frames[-4:]).to(dev).permute(0, 3, 1, 2).float() / 255)
+    job = {"cfg": cfg, "imgsz": imgsz, "batches": list(batches), "names": names,
+           "frames": frames[:max(batches)], "device": str(dev)}
+    job["float_tree"] = os.path.join(root, "float.pkl")
+    with open(job["float_tree"], "wb") as f:
+        pickle.dump(export_jax_params(model), f)
+    inf = CerberusDetInference(model=model, names=names, dtype=torch.float32, device=dev,
+                               img_size=imgsz, int8="all")
+    job["int8_tree"] = os.path.join(root, "int8.pkl")
+    with open(job["int8_tree"], "wb") as f:
+        pickle.dump(export_jax_params(inf.model), f)
+    job["n_int8"] = len(inf.int8_convs)
+    return job
+
+
+def sp_blocks(card: str, dev, imgsz: int = 64) -> int:
+    """The twelve blocks of the second registry on the card. testing.
+    BLOCKS_CFG (BottleneckCSP, C3TR, CrossConv, GhostBottleneck), seeded,
+    BatchNorm statistics from a seeded batch: float32 (TF32 off) against the
+    CPU's float64 forward within SP_F32_RTOL; bf16 maps within SP_MAP_FRAC
+    of their largest value; int8 "all" propagated equal to the unannotated
+    model and to the plain int8 path bit for bit, conv_s8 once per int8
+    Conv on its shapes. Each of SP_LONE_BLOCKS alone: float32 within
+    SP_F32_RTOL, bf16 within SP_MODULE_FRAC. Returns the conv_s8 launches of
+    the int8 forward."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from cerberusdet_tpu_torch.infer import CerberusDetInference
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.nn import layers as L
+    from cerberusdet_tpu_torch.ops import conv_int8_cuda as ci
+    from cerberusdet_tpu_torch.quant import clear_act_quant
+    from cerberusdet_tpu_torch.testing import BLOCKS_CFG, calibrate_bn
+    from cerberusdet_tpu_torch.utils.profiling import model_convs
+
+    def rel(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max()
+                     / b.double().abs().max().clamp(min=1e-30))
+
+    with tempfile.TemporaryDirectory() as d:
+        cfg = os.path.join(d, "blocks.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(BLOCKS_CFG, f)
+        gen = torch.Generator().manual_seed(3)
+        x = torch.rand((2, 3, imgsz, imgsz), generator=gen)
+        cpu = CerberusModel(cfg, TASKS, NCS, device="cpu").init(seed=3)
+        distinct_heads(cpu, seed=4)
+        calibrate_bn(cpu, torch.rand((4, 3, imgsz, imgsz), generator=gen))
+        cpu.eval()
+        ref = cpu.double()(x.double())
+        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for dtype in worst:
+            card_model = copy.deepcopy(cpu).to(device=dev, dtype=dtype)
+            got = card_model(x.to(dev, dtype))
+            for t in TASKS:
+                if dtype == torch.float32:
+                    r, g = ref[t][0], got[t][0].double().cpu()
+                    err = float((g - r).abs().max() / r.abs().max())
+                    limit = SP_F32_RTOL
+                else:
+                    err = max(rel(g, r) for g, r in zip(got[t][1], ref[t][1]))
+                    limit = SP_MAP_FRAC
+                worst[dtype] = max(worst[dtype], err)
+                if err > limit:
+                    raise AssertionError(f"blocks model {dtype} {t}: {err:.3g} of the largest "
+                                         f"value from float64 (limit {limit})")
+        names = {t: [f"{t}_{i}" for i in range(n)] for t, n in zip(TASKS, NCS)}
+        inf = CerberusDetInference(model=copy.deepcopy(cpu).float().to(dev), names=names,
+                                   dtype=torch.bfloat16, device=dev, img_size=imgsz, int8="all")
+        plain = copy.deepcopy(inf.model)
+        clear_act_quant(plain)
+        xb = x.to(dev, torch.bfloat16)
+        ci.conv_s8.launches = 0
+        a = inf.model(xb)
+        launches = ci.conv_s8.launches
+        _, n_s8 = model_convs(inf.model)
+        b = plain(xb)
+        for m in inf.model.modules():
+            if isinstance(m, L.Conv):
+                m.use_kernel = False
+        c = inf.model(xb)
+        for m in inf.model.modules():
+            if isinstance(m, L.Conv):
+                m.use_kernel = None
+        for t in TASKS:
+            if not (torch.equal(a[t][0], b[t][0]) and torch.equal(a[t][0], c[t][0])):
+                raise AssertionError(f"blocks model int8 {t}: the propagated forward differs "
+                                     "from the unannotated one or from the plain int8 path")
+        if dev.type == "cuda" and launches != n_s8:
+            raise AssertionError(f"blocks model int8: conv_s8 launched {launches} times for "
+                                 f"{n_s8} int8 Convs on its shapes")
+        log(f"[spatial: blocks] testing.BLOCKS_CFG (BottleneckCSP, C3TR, CrossConv, "
+            f"GhostBottleneck) at {imgsz} px, batch 2: float32 on the card within "
+            f"{worst[torch.float32]:.3g} of the largest prediction from the CPU's float64 "
+            f"(limit {SP_F32_RTOL}), bf16 maps within {worst[torch.bfloat16]:.3g} (limit "
+            f"{SP_MAP_FRAC}); int8 all ({len(inf.int8_convs)} int8 Convs, {n_s8} on conv_s8, "
+            f"conv_s8 launched {launches}): propagated == unannotated == plain int8 path, "
+            f"bit for bit  [{card}]")
+        lone = []
+        for name, args, shape in SP_LONE_BLOCKS:
+            block = L.LAYERS[name](*args)
+            gen = torch.Generator().manual_seed(len(name))
+            for m in block.modules():
+                if isinstance(m, L.SEEDED):
+                    m.reset(gen)
+            block.eval()
+            xin = torch.randn(shape, generator=gen)
+            want = copy.deepcopy(block).double()(xin.double())
+            e32 = rel(copy.deepcopy(block).to(dev)(xin.to(dev)), want)
+            e16 = rel(copy.deepcopy(block).to(dev, torch.bfloat16)(
+                xin.to(dev, torch.bfloat16)), want)
+            if e32 > SP_F32_RTOL or e16 > SP_MODULE_FRAC:
+                raise AssertionError(f"{name} on the card: float32 {e32:.3g}, bf16 {e16:.3g} "
+                                     f"of the largest value from float64 (limits "
+                                     f"{SP_F32_RTOL}, {SP_MODULE_FRAC})")
+            lone.append(f"{name} {e32:.2g}/{e16:.2g}")
+        log(f"[spatial: blocks] the eight blocks the JAX parser does not build, each alone "
+            f"(float32 / bf16 on the card, share of the largest value off float64): "
+            f"{', '.join(lone)}  [{card}]")
+    return launches
+
+
+def spatial(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, batches=SP_BATCHES,
+            ranks: int = SP_RANKS, block_imgsz: int = 64):
+    """Phase 14: spatial (image-height) sharding (parallel/spatial.py) over
+    `ranks` Gloo ranks on the one card (sp_rank; the gates in the module's
+    docstring), and the twelve blocks of the second registry (sp_blocks, run
+    while the ranks work). Returns the kernels-line entries of a shard's int8
+    kernels."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    on_card = dev.type == "cuda"
+    root = tempfile.mkdtemp(prefix="cerberus_sp_")
+    try:
+        t0 = time.perf_counter()
+        job = sp_models(root, cfg, imgsz, dev, batches)
+        job_path, init = os.path.join(root, "job.pkl"), os.path.join(root, "init")
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[spatial] the seeded {os.path.basename(cfg)} in bf16 and int8 all "
+            f"({job['n_int8']} int8 Convs) for {ranks} ranks in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        outs = [os.path.join(root, f"out{r}.pkl") for r in range(ranks)]
+        started = start_ranks("sp_rank", lambda r: (r, ranks, init, job_path, outs[r]), ranks)
+        try:
+            block_launches = sp_blocks(card, dev, block_imgsz)
+        finally:
+            wait_ranks(started, timeout=600)
+        res = []
+        for o in outs:
+            with open(o, "rb") as f:
+                res.append(pickle.load(f))
+        log(f"[spatial] {ranks} Gloo ranks on {dev} (the blocks beside them) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if [r["mesh"] for r in res] != [(i, ranks) for i in range(ranks)]:
+            raise AssertionError(f"spatial: meshes {[r['mesh'] for r in res]}")
+        for b in batches:
+            ref_f32 = res[0]["f32"][b]["ref"]
+            for label, _ in SP_LABELS:
+                rows = [r[label][b] for r in res]
+                got, ref = rows[0]["got"], rows[0]["ref"]
+                for other in rows[1:]:  # replicated: every rank the same result
+                    if any(not torch.equal(other["got"][t], got[t]) for t in TASKS):
+                        raise AssertionError(f"spatial {label} batch {b}: the ranks' results "
+                                             "differ")
+                gap = sp_gap(got, ref, dev)
+                if not gap["n_ref"]:
+                    raise AssertionError(f"spatial {label} batch {b}: no detections")
+                towers = max(r["tower_diff"] for r in rows)
+                if gap["identical"]:
+                    verdict = "identical with one process"
+                elif label == "int8":
+                    raise AssertionError(f"spatial int8 batch {b}: not identical with one "
+                                         f"process ({gap}); the int8 Convs' outputs (the "
+                                         f"towers' PlainConv inputs) differ by {towers}")
+                elif label == "f32":
+                    if (gap["matched"] < DP_SERVE_MATCH * gap["n_ref"]
+                            or gap["det_score"] > DP_SERVE_SCORE or gap["det_box"] > DP_SERVE_BOX
+                            or gap["score"] > SP_F32_SCORE or gap["box"] > SP_F32_BOX):
+                        raise AssertionError(f"spatial float32 batch {b}: {gap} against one "
+                                             f"process (limits {DP_SERVE_MATCH} matched, "
+                                             f"{DP_SERVE_SCORE} / {DP_SERVE_BOX} px after NMS, "
+                                             f"{SP_F32_SCORE} / {SP_F32_BOX} px decoded)")
+                    verdict = (f"{sp_said(gap)} (limits: {DP_SERVE_MATCH} matched, "
+                               f"{DP_SERVE_SCORE} / {DP_SERVE_BOX} px after NMS, {SP_F32_SCORE} "
+                               f"/ {SP_F32_BOX} px decoded)")
+                else:  # bf16: teacher-forced block by block; end to end a reading
+                    blk, uid = max((r["blockwise"] for r in rows), key=lambda g: g[0])
+                    blk32 = max((r["f32"][b]["blockwise"] for r in res), key=lambda g: g[0])
+                    yard = sp_gap(ref, ref_f32, dev)
+                    if blk > SP_BF16_BLOCK:
+                        raise AssertionError(f"spatial bf16 batch {b}: block {uid} over the "
+                                             f"ranks {blk:.3g} of its largest output from one "
+                                             f"process on the same input (limit "
+                                             f"{SP_BF16_BLOCK:.3g})")
+                    verdict = (f"teacher-forced, the farthest block ({uid}) {blk:.3g} of its "
+                               f"largest output from one process on the same input (limit "
+                               f"{SP_BF16_BLOCK:.3g}; float32's farthest, {blk32[1]}, "
+                               f"{blk32[0]:.3g}); end to end (a reading) {sp_said(gap)}; one "
+                               f"process's bf16 against its float32 (bf16's own rounding): "
+                               f"{sp_said(yard)}")
+                launches = [r["launches"] for r in rows]
+                one = rows[0]["one_launches"]
+                if on_card and label == "int8" and (
+                        any(n[:2] != [job["n_int8"]] * 2 for n in launches)
+                        or any(n != one for n in launches)):
+                    raise AssertionError(f"spatial int8 batch {b}: launches (conv_s8, "
+                                         f"quant_pack_s8, quant_s8) per shard {launches}, one "
+                                         f"process {one}, {job['n_int8']} int8 Convs")
+                if label != "int8" and any(any(n) for n in launches):
+                    raise AssertionError(f"spatial {label}: int8 kernels launched {launches}")
+                log(f"[spatial {label}] batch {b}, {imgsz}x{imgsz} over {ranks} ranks "
+                    f"({imgsz // ranks} rows a shard): {verdict}; every rank returns the same "
+                    f"result; launches (conv_s8, quant_pack_s8, quant_s8) a shard "
+                    f"{launches} against one process's {one}; a shard's forward "
+                    f"{np.median([r['ms'] for r in rows]):.1f} ms (halo exchanges through "
+                    f"Gloo on the host included) against {rows[0]['one_ms']:.1f} ms for one "
+                    f"process's whole forward (host clock, median of 3; no speed-up can show "
+                    f"on one card: the ranks share it)  [{card}]")
+        k = res[0]["kernels"]
+        n_conv = sum(r["int8"][b]["launches"][0] for r in res[:1] for b in batches)
+        entries = []
+        common = {"route": "cuda", "source": "cerberusdet_tpu_torch/csrc/conv_int8.cu",
+                  "library_ms": None}
+        for name, replaces, bound_by, launches in (
+                ("conv_s8", "cerberusdet_tpu/ops/conv_int8_pallas.py:65", "operations",
+                 n_conv),
+                ("quant_pack_s8", "cerberusdet_tpu/nn/module.py:162 (quantize_act, no Pallas "
+                 "kernel; part of conv_s8's redesign)", "bytes",
+                 sum(res[0]["int8"][b]["launches"][1] for b in batches)),
+                ("quant_s8", "cerberusdet_tpu/nn/module.py:162 (quantize_act where the "
+                 "propagated graph quantizes outside a conv; XLA fuses it, no Pallas kernel)",
+                 "bytes", sum(res[0]["int8"][b]["launches"][2] for b in batches))):
+            n_calls, err, k_ms, p_ms, bound, n_shapes = k[name]
+            log(f"[spatial kernels] {name} on rank 0's rows of a batch-1 int8 forward: "
+                f"{n_calls} launches, each one's output identical with its plain version on "
+                f"its input, timed at its {n_shapes} distinct inputs; summed {k_ms:.3f} ms "
+                f"(plain {p_ms:.3f}, bound {bound:.4f}, {100 * bound / max(k_ms, 1e-9):.1f}% "
+                f"of it)  [{card}]")
+            entries.append({"name": f"{name} (spatial: a shard's rows of a batch-1 forward at "
+                                    f"{imgsz} px over {ranks} ranks, all {n_calls} launches "
+                                    f"summed)", **common, "replaces": replaces,
+                            "launches": launches, "max_abs_err": err, "ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by})
+        log(f"[spatial] the blocks' int8 forward launched conv_s8 {block_launches} times")
+        return entries
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6098,6 +6739,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.extend(data_parallel(card, dev))
     log(f"[data parallel] phase in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. spatial sharding over two ranks; the twelve blocks of the second registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(False)
+    t0 = time.perf_counter()
+    kernels.extend(spatial(card, dev))
+    log(f"[spatial] phase in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -70,7 +70,9 @@ def test_importing_every_port_module_loads_no_jax():
             "cerberusdet_tpu_torch.evolve.yolov5_evolver",
             "cerberusdet_tpu_torch.evolve.ray_evolver",
             "cerberusdet_tpu_torch.tools.bench_c2f_split",
-            "cerberusdet_tpu_torch.parallel", "cerberusdet_tpu_torch.parallel.mesh"} <= set(mods)
+            "cerberusdet_tpu_torch.parallel", "cerberusdet_tpu_torch.parallel.mesh",
+            "cerberusdet_tpu_torch.parallel.spatial", "cerberusdet_tpu_torch.nn.layers",
+            "cerberusdet_tpu_torch.testing"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in"

@@ -145,6 +145,10 @@ def test_parsed_table_matches_jax(name):
 
 
 def test_unported_layer_raises():
-    cfg = {"backbone": [[-1, 1, "BottleneckCSP", [64]]], "head": [[[0], 1, "Detect", []]]}
-    with pytest.raises(ValueError, match="not ported"):
+    """A layer name that neither package's registry knows raises the JAX
+    parser's ValueError."""
+    cfg = {"backbone": [[-1, 1, "NoSuchBlock", [64]]], "head": [[[0], 1, "Detect", []]]}
+    with pytest.raises(ValueError, match="unsupported module in yaml: NoSuchBlock"):
+        jax_parse(cfg)
+    with pytest.raises(ValueError, match="unsupported module in yaml: NoSuchBlock"):
         parse_model_cfg(cfg)

@@ -14,7 +14,12 @@ Modes:
              ones), the others the rest, padded to n0 by pad_batch_to;
   val        distributed run_task of each task's val set (host-sharded rect
              loaders), from the job's parameter tree;
-  trainloop  a TrainLoop with use_mesh on the job's data.
+  trainloop  a TrainLoop with use_mesh on the job's data;
+  spatial    the job's spatial scenarios (tests/test_torch_spatial.py): each
+             an eval forward through make_spatial_forward over a spatial or a
+             (data, spatial) mesh of the ranks, beside the one-process
+             forward of the same model on the same image; then the refusals
+             of shapes the meshes do not take.
 """
 
 import os
@@ -110,6 +115,78 @@ def run_trainloop(job, rank, world, group):
                        for k, v in loop.state.model.state_dict().items()}}
 
 
+def run_spatial(job, rank, world, group):
+    import yaml
+
+    from cerberusdet_tpu_torch.manager.weights import load_jax_params
+    from cerberusdet_tpu_torch.models.cerberus import CerberusModel
+    from cerberusdet_tpu_torch.parallel import (
+        make_data_spatial_mesh,
+        make_spatial_forward,
+        make_spatial_mesh,
+    )
+    from cerberusdet_tpu_torch.quant import calibrate_amax, quantize_params, select_all
+
+    pair = None
+    for ranks in ([0, 1], [2, 3])[:world // 2]:  # every rank makes both groups
+        g = torch.distributed.new_group(ranks)
+        if rank in ranks:
+            pair = g
+    cfgs = {}
+    for name, cfg in job["cfgs"].items():
+        cfgs[name] = os.path.join(job["tmp"], f"{name}.yaml")
+        if rank == 0 and not isinstance(cfg, str):
+            with open(cfgs[name], "w") as f:
+                yaml.safe_dump(cfg, f)
+        if isinstance(cfg, str):
+            cfgs[name] = cfg
+    torch.distributed.barrier()
+
+    def model_of(sc):
+        m = CerberusModel(cfgs[sc["cfg"]], job["tasks"], job["ncs"], device="cpu")
+        load_jax_params(m, job["trees"][sc["cfg"]])
+        m.eval().to(sc.get("dtype", torch.float64))
+        if sc.get("int8"):
+            m.fuse()
+            amax = calibrate_amax(m, [sc["img"].permute(0, 2, 3, 1).numpy()])
+            quantize_params(m, amax, select=select_all, propagate=True)
+        return m
+
+    def mesh_of(kind):
+        if kind == "all":
+            return make_spatial_mesh()
+        if kind == "pair":
+            return make_spatial_mesh(pair)
+        return make_data_spatial_mesh(2)
+
+    out = {}
+    for name, sc in job["scenarios"].items():
+        model = model_of(sc)
+        mesh = mesh_of(sc["mesh"])
+        dtype = sc.get("dtype", torch.float64)
+        run = make_spatial_forward(model, mesh, tasks=sc.get("tasks"), dtype=dtype)
+        got = run(sc["img"])
+        with torch.no_grad():
+            ref = model(sc["img"].to(dtype), tasks=sc.get("tasks"))
+        out[name] = {"got": {t: p.numpy() for t, p in got.items()},
+                     "ref": {t: p.numpy() for t, (p, _) in ref.items()},
+                     "mesh": (mesh.index, mesh.size, mesh.data_index, mesh.data_size)}
+    model = model_of({"cfg": "v8n"})
+    errors = {}
+    for label, kind, shape in (("h320", "all", (1, 3, 320, 256)),
+                               ("batch3", "data", (3, 3, 256, 256))):
+        try:
+            make_spatial_forward(model, mesh_of(kind), dtype=torch.float32)(torch.zeros(shape))
+        except ValueError as err:
+            errors[label] = str(err)
+    try:
+        make_data_spatial_mesh(3)
+    except ValueError as err:
+        errors["n_spatial3"] = str(err)
+    out["errors"] = errors
+    return out
+
+
 def main():
     mode, rank, world, init, job_path, out_path = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -120,7 +197,8 @@ def main():
                              rank=rank, world_size=world)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
-    run = {"step": run_steps, "val": run_val, "trainloop": run_trainloop}[mode]
+    run = {"step": run_steps, "val": run_val, "trainloop": run_trainloop,
+           "spatial": run_spatial}[mode]
     out = run(job, rank, world, group)
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
