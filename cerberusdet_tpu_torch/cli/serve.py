@@ -6,6 +6,12 @@ request batching over the captured inference program.
         --port 8000 --max-batch 8 --int8 all
 
     curl -X POST --data-binary @image.jpg localhost:8000/predict
+    curl localhost:8000/stats
+
+/stats returns the engine's cumulative counters (serve/server.py): requests,
+batches, errors, rows, padded_rows, queue_ms_sum and latency_ms_sum, which
+only grow; a window's rate, batch fill or mean wait is the difference of two
+reads (mean latency = change in latency_ms_sum / change in requests).
 
 Counterpart of the JAX package's serve.py, with its flags and defaults,
 except that --platform gives way to --device (the card, "cuda", by default;

@@ -16,6 +16,13 @@ replaced; a caller that names the tensors its graph reads has each replay
 check them. A capture that fails raises; nothing falls back to eager
 launches. The captured cudaGraph_t is kept beside its instantiation, so
 that what a replay runs can be listed node by node (`graph.raw_cuda_graph()`).
+
+Each capture, copy in and replay is a span (utils/tracing.py), and the
+stage marks that the function records (tracing.mark) are captured with it:
+every replay re-times them, and the host reads those of at most one
+replay a tracing.READ_GAP_S into the ring once they are complete: before
+the next replay, or at `marks.collect()` (once the host has waited for the
+outputs).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from cerberusdet_tpu_torch.utils import tracing
 
 NamedTensors = Sequence[Tuple[str, torch.Tensor]]
 
@@ -54,6 +63,10 @@ class CapturedProgram:
 
     def __init__(self, fn: Callable[[Any], Any], example, device: torch.device, pool,
                  counted: Sequence = (), watched: Optional[NamedTensors] = None):
+        with tracing.span("capture"):
+            self._build(fn, example, device, pool, counted, watched)
+
+    def _build(self, fn, example, device, pool, counted, watched) -> None:
         leaves, self._spec = pytree.tree_flatten(example)
         # with the example's strides: a convolution's kernels follow its input's layout
         self._inputs: List[torch.Tensor] = [torch.empty_like(t, device=device) for t in leaves]
@@ -71,8 +84,9 @@ class CapturedProgram:
         self.counted = tuple(counted)
         before = [w.launches for w in self.counted]
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.marks = tracing.StageMarks()
         with torch.cuda.device(device):
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool), self.marks.capturing():
                 self.output = fn(self.input)
             self.graph.instantiate()
         self.launches = [w.launches - n for w, n in zip(self.counted, before)]
@@ -100,7 +114,8 @@ class CapturedProgram:
             raise ValueError(f"a captured program takes inputs structured as {self._spec}, "
                              f"got {spec}")
         self.check(watched)
-        self._copy_in(leaves)
+        with tracing.span("copy_in"):
+            self._copy_in(leaves)
         self.replay()
         return self.output
 
@@ -110,9 +125,13 @@ class CapturedProgram:
             check_addresses(self._addresses, watched)
 
     def replay(self, n: int = 1) -> None:
-        """Replay the graph n times on the static inputs as they stand."""
-        for _ in range(n):
-            self.graph.replay()
+        """Replay the graph n times on the static inputs as they stand; the
+        previous replay's stage marks are read first, where complete."""
+        self.marks.collect()
+        with tracing.span("replay") as s:
+            for _ in range(n):
+                self.graph.replay()
+            s.value = self.marks.launched(s.seq)
         self.first = None
         for w, k in zip(self.counted, self.launches):
             w.launches += k * n

@@ -37,6 +37,7 @@ from cerberusdet_tpu_torch.quant import (
     select_all,
     select_deep,
 )
+from cerberusdet_tpu_torch.utils import tracing
 
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 # the kernel wrappers that predict_device reaches on the card
@@ -218,6 +219,7 @@ class CerberusDetInference:
         finally:
             for m in int8_convs:
                 m.use_kernel = None
+        tracing.mark("forward")
         dets_all, task_idx_all = [], []
         for ti, task in enumerate(self.task_order):
             pred, _ = out[task]
@@ -230,11 +232,13 @@ class CerberusDetInference:
             dets_all.append(torch.cat([dets[..., :5], cls_global], dim=-1))
             task_idx_all.append(torch.full(dets.shape[:2], ti, dtype=torch.int32,
                                            device=dets.device))
+        tracing.mark("nms")
         merged = torch.cat(dets_all, dim=1)
         task_idx = torch.cat(task_idx_all, dim=1)
         # task-major with max_det rows per task: the last task's rows never act
         scan_rows = (len(self.task_order) - 1) * max_det
         keep = cross_task_suppress(merged, task_idx, float(iou_bt), scan_rows=scan_rows)
+        tracing.mark("cross_task")
         return merged, task_idx, keep
 
     def predict(self, batch,
@@ -257,8 +261,13 @@ class CerberusDetInference:
                   else iou_thres_between_tasks)
         max_det = self.max_det if max_det is None else max_det
         batch = torch.as_tensor(batch)
-        args = (float(conf_thres), float(iou_thres), float(iou_bt), bool(agnostic_nms),
-                int(max_det))
+        with tracing.span("predict", batch.shape[0]):
+            return self._predict(batch, original_shape, (
+                float(conf_thres), float(iou_thres), float(iou_bt), bool(agnostic_nms),
+                int(max_det)), use_kernel)
+
+    def _predict(self, batch: torch.Tensor, original_shape, args: tuple,
+                 use_kernel: Optional[bool]) -> List[List[Dict]]:
         n = len(self.replicas)
         if batch.shape[0] % n:
             raise ValueError(f"a batch of {batch.shape[0]} does not divide over the "
@@ -267,40 +276,45 @@ class CerberusDetInference:
         devices = self.mesh or [self.device]
         if self.device.type == "cuda" and use_kernel is not False:
             with self._lock:
-                outs = [self._program(i, part, args).run(part) for i, part in enumerate(parts)]
-                hosts = [o.cpu() for o in outs]  # every replica's replay queued first
+                progs = [self._program(i, part, args) for i, part in enumerate(parts)]
+                outs = [p.run(part) for p, part in zip(progs, parts)]
+                with tracing.span("copy_out"):
+                    hosts = [o.cpu() for o in outs]  # every replica's replay queued first
+                for p in progs:
+                    p.marks.collect()  # complete: the copy out waited for the replays
         else:
             hosts = [pack_outputs(*self.predict_device(part.to(devices[i]), *args, use_kernel,
                                                        replica=i)).cpu()
                      for i, part in enumerate(parts)]
-        m = len(self.task_order) * int(max_det)
-        merged, task_idx, keep = (np.concatenate(x) for x in zip(*[
-            unpack_outputs(h.numpy(), part.shape[0], m) for h, part in zip(hosts, parts)]))
+        m = len(self.task_order) * args[-1]
+        with tracing.span("unpack"):
+            merged, task_idx, keep = (np.concatenate(x) for x in zip(*[
+                unpack_outputs(h.numpy(), part.shape[0], m) for h, part in zip(hosts, parts)]))
 
         net_shape = tuple(batch.shape[1:3])
         results: List[List[Dict]] = []
-        for i in range(len(merged)):
-            det = merged[i][keep[i]]
-            tidx = task_idx[i][keep[i]]
-            order = np.argsort(-det[:, 4])
-            det, tidx = det[order], tidx[order]
-            if len(det) and original_shape is not None:
-                shape = (original_shape[i] if isinstance(original_shape, list)
-                         else original_shape)
-                det[:, :4] = scale_boxes_np(net_shape, det[:, :4], shape).round()
-            image_results = []
-            for row, ti in zip(det, tidx):
-                c = int(row[5])
-                image_results.append({
-                    "box": [int(v) for v in row[:4]],
-                    "score": float(row[4]),
-                    "label": c,
-                    "label_name": self.all_class_names[c],
-                    "task": self.task_order[int(ti)],
-                })
-            results.append(image_results)
+        with tracing.span("format"):
+            for i in range(len(merged)):
+                det = merged[i][keep[i]]
+                tidx = task_idx[i][keep[i]]
+                order = np.argsort(-det[:, 4])
+                det, tidx = det[order], tidx[order]
+                if len(det) and original_shape is not None:
+                    shape = (original_shape[i] if isinstance(original_shape, list)
+                             else original_shape)
+                    det[:, :4] = scale_boxes_np(net_shape, det[:, :4], shape).round()
+                image_results = []
+                for row, ti in zip(det, tidx):
+                    c = int(row[5])
+                    image_results.append({
+                        "box": [int(v) for v in row[:4]],
+                        "score": float(row[4]),
+                        "label": c,
+                        "label_name": self.all_class_names[c],
+                        "task": self.task_order[int(ti)],
+                    })
+                results.append(image_results)
         return results
-
 
     def _program(self, replica: int, part: torch.Tensor, args: tuple) -> CapturedProgram:
         """The captured program of `replica` for rows `part` and the static
@@ -311,9 +325,13 @@ class CerberusDetInference:
             dev = (self.mesh or [self.device])[replica]
             if dev not in self._pools:
                 self._pools[dev] = torch.cuda.graph_pool_handle()
-            prog = CapturedProgram(
-                lambda x: pack_outputs(*self.predict_device(x, *args, replica=replica)), part,
-                dev, self._pools[dev], SERVING_KERNELS)
+
+            def device_fn(x):
+                out = pack_outputs(*self.predict_device(x, *args, replica=replica))
+                tracing.mark("pack")
+                return out
+
+            prog = CapturedProgram(device_fn, part, dev, self._pools[dev], SERVING_KERNELS)
             self.programs[key] = prog
         return prog
 

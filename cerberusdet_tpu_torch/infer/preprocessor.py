@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
 from cerberusdet_tpu_torch.ops.letterbox import PAD_VALUE, letterbox_host, letterbox_params
+from cerberusdet_tpu_torch.utils import tracing
 
 # a device letterbox for at most this many distinct source shapes; beyond
 # that (a folder of arbitrary photos) the host path is cheaper than a new
@@ -49,12 +50,15 @@ class CerberusPreprocessor:
         device for uniform shapes while at most MAX_DEVICE_SHAPES source
         shapes have a device letterbox (and prefer_device, without auto), a
         numpy array from the host path otherwise."""
-        shapes = [im.shape[:2] for im in images]
-        if (self.prefer_device and not self.auto and len(set(shapes)) == 1
-                and (shapes[0] in self._device_fns
-                     or len(self._device_fns) < MAX_DEVICE_SHAPES)):
-            return self.preprocess_device(np.stack(images))
-        return self.preprocess_host(images)
+        with tracing.span("preprocess", len(images)):
+            shapes = [im.shape[:2] for im in images]
+            if (self.prefer_device and not self.auto and len(set(shapes)) == 1
+                    and (shapes[0] in self._device_fns
+                         or len(self._device_fns) < MAX_DEVICE_SHAPES)):
+                with tracing.span("stack"):
+                    stacked = np.stack(images)
+                return self.preprocess_device(stacked)
+            return self.preprocess_host(images)
 
     def preprocess_host(self, images: Sequence[np.ndarray]):
         """Per-image cv2 letterbox (the reference's exact arithmetic)."""

@@ -18,6 +18,11 @@ serving half:
     mode, which fails if another thread makes a CUDA call meanwhile, so no
     handler touches a tensor and `stats` holds plain Python numbers.
   * `max_wait_ms` trades tail latency for batch fill.
+  * `stats` holds cumulative counters and sums, which only grow: a
+    window's rate or mean is the difference of two reads. Each batch is a
+    span (utils/tracing.py) with its rows as its value, and its waits, pad,
+    preprocess, predict and resolve as its children; each request's wait in
+    the queue is a span too, parented to its batch.
   * The listening socket's backlog is the kernel's maximum, not socketserver's
     default of 5 that the JAX server keeps: with 5, a burst of more than ~6
     concurrent clients has its connections dropped until a 1 s SYN
@@ -28,8 +33,12 @@ Endpoints (JSON; see cli/serve.py for the CLI):
                    reference's detection-dict contract (box, score, label,
                    label_name, task).
   GET  /healthz    {"status": "ok", "tasks": [...]}
-  GET  /stats      request, batch and error counts, latency and batch-fill
-                   EWMAs.
+  GET  /stats      cumulative counters since the engine started: requests
+                   (answered), batches, errors (requests failed), rows (run
+                   through predict, padding included), padded_rows, and
+                   queue_ms_sum / latency_ms_sum, the answered requests'
+                   waits from submit to their batch's preprocess and to
+                   their answer, summed in ms.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from cerberusdet_tpu_torch.utils import tracing
 
 # request-body ceiling: generously above any real camera frame (a 100MP jpg
 # is ~30 MB) while bounding per-connection RAM under hostile Content-Length
@@ -63,8 +74,8 @@ class BatchingEngine:
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
-        self.stats = {"requests": 0, "batches": 0, "errors": 0,
-                      "latency_ms": 0.0, "batch_fill": 0.0}
+        self.stats = {"requests": 0, "batches": 0, "errors": 0, "rows": 0, "padded_rows": 0,
+                      "queue_ms_sum": 0.0, "latency_ms_sum": 0.0}
         self._runner = threading.Thread(target=self._run, daemon=True)
         self._runner.start()
 
@@ -72,7 +83,7 @@ class BatchingEngine:
         """img_bgr: HWC uint8 (cv2 layout). Returns a Future resolving to
         the image's detections list."""
         fut: Future = Future()
-        self._q.put((img_bgr, fut, time.perf_counter()))
+        self._q.put((img_bgr, fut, time.perf_counter_ns()))
         return fut
 
     def stop(self):
@@ -85,55 +96,66 @@ class BatchingEngine:
         """Collect up to max_batch requests; after the first arrives, wait
         at most max_wait for the batch to fill."""
         items = []
-        first = self._q.get()
+        with tracing.span("wait_first"):
+            first = self._q.get()
         if first is None:
             return items
         items.append(first)
         deadline = time.perf_counter() + self.max_wait
-        while len(items) < self.max_batch:
-            timeout = deadline - time.perf_counter()
-            if timeout <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=timeout)
-            except queue.Empty:
-                break
-            if nxt is None:
-                break
-            items.append(nxt)
+        with tracing.span("fill"):
+            while len(items) < self.max_batch:
+                timeout = deadline - time.perf_counter()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    break
+                items.append(nxt)
         return items
 
     def _run(self):
         while not self._stop.is_set():
-            items = self._drain()
-            if not items:
-                continue
-            try:
-                imgs = [it[0] for it in items]
-                batch, shapes = self.pre.preprocess(imgs)
+            with tracing.span("batch") as span:
+                items = self._drain()
+                if items:
+                    span.value = len(items)
+                    self._serve(items, span.seq)
+
+    def _serve(self, items, batch_seq: int):
+        """Preprocess, pad, predict and resolve one batch of requests."""
+        n = len(items)
+        start = time.perf_counter_ns()
+        for _, _, t0 in items:
+            tracing.record("queue", t0, start, batch_seq)
+        try:
+            batch, shapes = self.pre.preprocess([it[0] for it in items])
+            with tracing.span("pad"):
                 batch = torch.as_tensor(batch)  # a device tensor, or the host path's array
-                n = len(imgs)
                 if n < self.max_batch:
                     # pad to the one served batch shape, where the batch lies
                     pad = batch.new_zeros((self.max_batch - n,) + tuple(batch.shape[1:]))
                     batch = torch.cat([batch, pad], 0)
                     shapes = list(shapes) + [shapes[-1]] * (self.max_batch - n)
-                out = self.inference.predict(batch, original_shape=shapes)
-                now = time.perf_counter()
-                for (_, fut, t0), dets in zip(items, out[:n]):
+            out = self.inference.predict(batch, original_shape=shapes)
+            with tracing.span("resolve"):
+                now = time.perf_counter_ns()
+                for (_, fut, _), dets in zip(items, out[:n]):
                     fut.set_result(dets)
-                    lat = (now - t0) * 1000.0
-                    s = self.stats
-                    s["latency_ms"] = 0.9 * s["latency_ms"] + 0.1 * lat
                 s = self.stats
                 s["requests"] += n
                 s["batches"] += 1
-                s["batch_fill"] = 0.9 * s["batch_fill"] + 0.1 * (n / self.max_batch)
-            except Exception as e:  # surface the failure to every waiter
-                self.stats["errors"] += len(items)
-                for _, fut, _ in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+                s["rows"] += len(batch)
+                s["padded_rows"] += len(batch) - n
+                s["queue_ms_sum"] += sum(start - t0 for _, _, t0 in items) / 1e6
+                s["latency_ms_sum"] += sum(now - t0 for _, _, t0 in items) / 1e6
+        except Exception as e:  # surface the failure to every waiter
+            self.stats["errors"] += n
+            for _, fut, _ in items:
+                if not fut.done():
+                    fut.set_exception(e)
 
 
 def _to_jsonable(dets: List[dict]) -> List[dict]:
@@ -174,7 +196,7 @@ def make_server(engine: BatchingEngine, tasks: List[str], host: str = "0.0.0.0",
             if self.path.startswith("/healthz"):
                 self._json(200, {"status": "ok", "tasks": tasks})
             elif self.path.startswith("/stats"):
-                self._json(200, engine.stats)
+                self._json(200, dict(engine.stats))
             else:
                 self._json(404, {"error": "unknown path"})
 

@@ -30,7 +30,10 @@ then captures it; later calls copy the batches and the per-step scalars
 static buffers and replay, and return while the card runs the step. The graph updates the state's
 tensors at the addresses it captured: a parameter, BN buffer, optimizer
 buffer or EMA tensor replaced since (not updated in place) makes the next
-replay raise with its name.
+replay raise with its name. The graph holds raw_step's stage marks as
+device marks (utils/tracing.py): every replay times forward+loss and
+backward per task, then clip, optimizer and EMA, and the host reads them
+into the ring.
 
 With a process group (`group`, data parallelism: parallel/mesh.py) each
 rank steps its replica of the state on its own rows, and the step is the
@@ -71,6 +74,7 @@ from cerberusdet_tpu_torch.train.optim import (
     sgd_init,
     update_scalars,
 )
+from cerberusdet_tpu_torch.utils import tracing
 
 TAL_KERNELS = (tal_cuda.select_kernel, tal_cuda.assign_kernel, tal_cuda.norm_kernel)
 
@@ -203,18 +207,19 @@ class MultiTaskTrainer:
                                "group to capture the step")
         if state.model is not self.model:
             raise ValueError("the state belongs to another model")
-        tasks = sorted(batches, key=self.model.task_ids.index)
-        inputs = {t: {k: torch.as_tensor(batches[t][k]) for k in sorted(batches[t])}
-                  for t in tasks}
-        key = self.step_key(inputs, freeze_shared)
-        inputs = {"batches": inputs, "scalars": self._scalars(state, lrs, momentum)}
-        watched = state_tensors(state)
-        prog = self.programs.get(key)
-        if prog is None:
-            self.programs[key] = prog = self._capture(state, inputs, freeze_shared, watched)
-            items = prog.first
-        else:
-            items = prog.run(inputs, watched)
+        with tracing.span("train.step"):
+            tasks = sorted(batches, key=self.model.task_ids.index)
+            inputs = {t: {k: torch.as_tensor(batches[t][k]) for k in sorted(batches[t])}
+                      for t in tasks}
+            key = self.step_key(inputs, freeze_shared)
+            inputs = {"batches": inputs, "scalars": self._scalars(state, lrs, momentum)}
+            watched = state_tensors(state)
+            prog = self.programs.get(key)
+            if prog is None:
+                self.programs[key] = prog = self._capture(state, inputs, freeze_shared, watched)
+                items = prog.first
+            else:
+                items = prog.run(inputs, watched)
         self._advance(state)
         return state, items
 
@@ -227,8 +232,9 @@ class MultiTaskTrainer:
         ran = [0]
 
         def fn(x):
-            if ran[0]:  # the capture, which records without running
-                return self._run(state, x["batches"], x["scalars"], freeze_shared)
+            if ran[0]:  # the capture, which records without running, and marks the stages
+                return self._run(state, x["batches"], x["scalars"], freeze_shared,
+                                 tracing.mark)
             with no_host_sync():
                 out = self._run(state, x["batches"], x["scalars"], freeze_shared)
             ran[0] = 1
@@ -269,7 +275,9 @@ class MultiTaskTrainer:
         lrs: (3,) per-group learning rates; momentum: a scalar. Returns
         (state, {task: LossItems}); the state is the same object, updated.
         `mark`, when given, is called with each stage's name as it ends:
-        "forward_loss" and "backward" per task, then "update"."""
+        "forward_loss" and "backward" per task, then "clip" (the scaling by
+        serving count, the sum over ranks and the clipping), "optimizer" and
+        "ema"."""
         if state.model is not self.model:
             raise ValueError("the state belongs to another model")
         batches = {t: _to_device(b, self.device) for t, b in batches.items()}
@@ -338,9 +346,13 @@ class MultiTaskTrainer:
                 if s != 1.0:
                     torch._foreach_mul_(gs, s)
             clip_by_global_norm(list(grads.values()), self.max_grad_norm)
+            if mark:
+                mark("clip")
             sgd_apply(self.sgd, params, grads, state.opt_state, scalars[:N_UPDATE_SCALARS])
+            if mark:
+                mark("optimizer")
             ema_apply(state.ema.state_dict().values(), model.state_dict().values(),
                       scalars[N_UPDATE_SCALARS:])
         if mark:
-            mark("update")
+            mark("ema")
         return items

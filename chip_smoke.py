@@ -3443,7 +3443,7 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     items_log = run["items"]
     log(f"[train] losses (box, cls, dfl, total) first step {items_log[0]}, last step "
         f"{items_log[-1]}")
-    stage = {"forward_loss": 0.0, "backward": 0.0, "update": 0.0}
+    stage = {"forward_loss": 0.0, "backward": 0.0, "clip": 0.0, "optimizer": 0.0, "ema": 0.0}
     for (_, a), (name, b) in zip(marks, marks[1:]):
         if name in stage:
             stage[name] += a.elapsed_time(b) / TIMED_STEPS
@@ -3566,9 +3566,9 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
             f"call {call_ms:.4f} ms (events), plain stage {p_ms:.3f} ms  [{card}]")
     log(f"[train stages] per eager step: forwards + loss {stage['forward_loss']:.2f} ms (of "
         f"which the assigner {len(TASKS) * assign_ms:.3f} ms: {len(TASKS)} x {assign_ms:.4f} "
-        f"ms, kernels and their glue), backward {stage['backward']:.2f} ms, clip + optimizer + "
-        f"EMA {stage['update']:.2f} ms; the plain assigner would take {plain_assign_ms:.3f} "
-        f"ms a task  [{card}]")
+        f"ms, kernels and their glue), backward {stage['backward']:.2f} ms, clip "
+        f"{stage['clip']:.2f} + optimizer {stage['optimizer']:.2f} + EMA {stage['ema']:.2f} ms; "
+        f"the plain assigner would take {plain_assign_ms:.3f} ms a task  [{card}]")
 
     # one step from the same state with the plain assigner: a key of its own,
     # no TAL launch, the same losses

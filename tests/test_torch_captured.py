@@ -12,6 +12,7 @@ deterministic algorithms, and skips without a card.
 
 import copy
 import os
+import time
 
 import numpy as np
 import pytest
@@ -291,3 +292,53 @@ def test_replays_equal_raw_steps_on_card():
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
+
+
+STAGES = ["forward_loss", "backward", "forward_loss", "backward", "clip", "optimizer", "ema"]
+
+
+def test_raw_step_marks_each_stage_as_it_ends():
+    trainer, model = _trainer()
+    state = init_train_state(model)
+    names = []
+    trainer.raw_step(state, _batches(0), *warmup_lrs(0, 8, 0.0, 0.01, 1.0), mark=names.append)
+    assert names == STAGES
+
+
+@pytest.mark.cuda
+def test_replays_time_the_raw_step_stages_on_card(monkeypatch):
+    """On the card: the captured step holds raw_step's stage marks; a
+    replay's stages are read at the next step once complete (each step is
+    waited for here, and every replay read), and they sum to at most the replay's time between
+    CUDA events around it."""
+    _needs_card()
+    from cerberusdet_tpu_torch.utils import tracing
+
+    ring = tracing.Ring()
+    monkeypatch.setattr(tracing, "RING", ring)
+    monkeypatch.setattr(tracing, "READ_GAP_S", 0.0)  # every replay read
+    trainer, model = _trainer(device="cuda")
+    state = init_train_state(model)
+    batches = _batches(0)
+    for ni in range(4):  # the capture, then 3 replays
+        trainer.step(state, batches, *warmup_lrs(ni, 8, 0.0, 0.01, 1.0))
+        torch.cuda.synchronize()
+    (prog,) = trainer.programs.values()
+    assert [n for n, _ in prog.marks.stages] == STAGES
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    prog.replay()  # reads the last step's replay first
+    b.record()
+    torch.cuda.synchronize()
+    prog.marks.collect()
+    w = tracing.window(0.0, time.perf_counter() + 1)
+    replays = w.spans(("replay",))
+    assert len(w.spans(("replay",), ("train.step",))) == 3 and len(replays) == 4
+    stage = w.col["kind"] == tracing.STAGE
+    for seq in w.col["seq"][replays]:
+        mine = stage & (w.col["parent"] == seq)
+        assert list(w.names[mine]) == STAGES
+        assert list(w.col["value"][mine]) == [0, 0, 1, 1, 0, 0, 0]
+    last = stage & (w.col["parent"] == w.col["seq"][replays[-1]])
+    total = float((w.col["t1"] - w.col["t0"])[last].sum()) / 1e6
+    assert 0.5 * a.elapsed_time(b) <= total <= a.elapsed_time(b)

@@ -196,7 +196,8 @@ def test_http_predict_health_stats(server):
         assert json.loads(r.read()) == {"status": "ok", "tasks": TASKS}
     with urllib.request.urlopen(server + "/stats", timeout=30) as r:
         stats = json.loads(r.read())
-    assert set(stats) == {"requests", "batches", "errors", "latency_ms", "batch_fill"}
+    assert set(stats) == {"requests", "batches", "errors", "rows", "padded_rows", "queue_ms_sum",
+                          "latency_ms_sum"}
     assert stats["requests"] >= 1
 
 
