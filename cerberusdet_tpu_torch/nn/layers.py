@@ -154,9 +154,10 @@ class Conv(Block):
         bn = getattr(self, "bn", None)
         if bn is None:
             y = conv2d(x, self.w, self.b, self.s, self.p, self.d, self.g)
+            y = silu(y) if self.act else y
         else:
-            y = bn(conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g))
-        y = (silu(y) if self.act else y).to(x.dtype)
+            y = bn(conv2d(x, self.w.to(x.dtype), None, self.s, self.p, self.d, self.g), self.act)
+        y = y.to(x.dtype)
         return y if q_out is None else quantize_act(y, q_out)
 
     @torch.no_grad()

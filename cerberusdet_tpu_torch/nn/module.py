@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cerberusdet_tpu_torch.ops import bn_cuda
 from cerberusdet_tpu_torch.ops.conv_int8_cuda import (
     conv_epilogue,
     conv_s8,
@@ -139,8 +140,31 @@ class BatchNorm(nn.Module):
         var = total((xf - mean[:, None, None]).square()) / n
         return mean, var, var * bessel
 
-    def forward(self, x):
+    def forward(self, x, act: bool = False):
+        """BatchNorm of x, then SiLU when `act` (a Conv's).
+
+        A training forward on the card without `img_mask`, and without a
+        `group` or with a group of one rank (whose all-reduces change
+        nothing), takes the fused kernels (ops/bn_cuda.py:bn_silu); one with
+        a mask or a group of several ranks (the data-parallel mesh) and a
+        float64 one take this code; other dtypes raise (bn_cuda.takes).
+        ops/bn_cuda.FUSED and PLAIN count the training forwards on the card
+        by route. The two routes round differently in float32: the kernels
+        merge per-chunk centred moments by Chan's formula where this code
+        sums x, then the centred squares, over each channel at once; their
+        backward forms its sums and dx in float32 from x where autograd runs
+        this code's chain in the activation's dtype. y rounds as this code
+        rounds it, given the same statistics.
+        tests/test_torch_bn_silu.py::test_mesh_route_against_the_kernels_route
+        bounds the gap in bfloat16."""
         if self.training and not self.frozen:
+            if bn_cuda.on_card(x):
+                if self.img_mask is None and group_size(self.group) == 1 and bn_cuda.takes(
+                        x, self.weight, self.bias, self.running_mean, self.running_var):
+                    bn_cuda.FUSED.launches += 1
+                    return bn_cuda.bn_silu(x, self.weight, self.bias, self.running_mean,
+                                           self.running_var, self.eps, BN_MOMENTUM, act)
+                bn_cuda.PLAIN.launches += 1
             mean, var, unbiased = self.batch_stats(x)
             with torch.no_grad():
                 self.running_mean.copy_((1 - BN_MOMENTUM) * self.running_mean
@@ -150,7 +174,8 @@ class BatchNorm(nn.Module):
             inv, shift = self.scale_shift(mean, var)
         else:
             inv, shift = self.scale_shift()
-        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        y = x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return silu(y) if act else y
 
 
 def fuse_conv_bn(w: torch.Tensor, bn: BatchNorm):

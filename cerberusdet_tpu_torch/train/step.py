@@ -60,7 +60,7 @@ import torch.distributed as dist
 from cerberusdet_tpu_torch import resolve_device
 from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
 from cerberusdet_tpu_torch.models.cerberus import CerberusModel, module_key
-from cerberusdet_tpu_torch.ops import tal_cuda
+from cerberusdet_tpu_torch.ops import bn_cuda, tal_cuda
 from cerberusdet_tpu_torch.train.loss import DetectionLoss, LossItems
 from cerberusdet_tpu_torch.train.optim import (
     N_UPDATE_SCALARS,
@@ -77,6 +77,7 @@ from cerberusdet_tpu_torch.train.optim import (
 from cerberusdet_tpu_torch.utils import tracing
 
 TAL_KERNELS = (tal_cuda.select_kernel, tal_cuda.assign_kernel, tal_cuda.norm_kernel)
+COUNTED = TAL_KERNELS + bn_cuda.COUNTED  # what a replay of the step counts again
 
 
 @dataclasses.dataclass
@@ -243,7 +244,7 @@ class MultiTaskTrainer:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         try:
-            return CapturedProgram(fn, inputs, self.device, self.pool, TAL_KERNELS, watched)
+            return CapturedProgram(fn, inputs, self.device, self.pool, COUNTED, watched)
         except Exception as err:
             if not ran[0]:
                 raise

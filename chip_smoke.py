@@ -60,7 +60,16 @@ Phases, each of which fails the run on anything wrong:
      BN buffers, momentum buffers, EMA); a replaced momentum buffer makes the
      replay raise; one step from the same state with the plain assigner,
      under a key of its own, launching no TAL kernel and giving the same
-     losses;
+     losses. Every training BatchNorm forward of the steps takes the
+     BatchNorm + SiLU kernels (ops/bn_cuda.FUSED counts each one, PLAIN
+     none; bn_stats 2, bn_apply 1, bn_grad_reduce 2, bn_dx 1 launches a
+     BatchNorm, a replay's counts too); on the first eager step each pass
+     is held against its plain pass on the card at every distinct input
+     (channels-last rows, NCHW planes, dy in NCHW planes against channels
+     last), with the gates of tests/test_torch_bn_silu.py (y bit for bit
+     the PyTorch arithmetic given the kernels' statistics); a step's time
+     of each pass in the profiled replays, beside its bytes bound, the
+     plain passes and F.batch_norm + F.silu, goes to the kernels line;
   5. check against a reference on a small input: yolov8n_2task at 64 px in
      float64 on the card against the port's CPU path, for predict and for
      one train step; the float64 replay equals an eager run, also after an
@@ -219,9 +228,10 @@ Phases, each of which fails the run on anything wrong:
      conv shapes; a request's ms against one replica's; then cli.serve
      --mesh (the visible cards) answering 8 requests as cli.serve does;
      (b) phase 4's captured step in an NCCL group of one: the all-reduces
-     recorded into the capture counted (4 a BatchNorm the task forwards
-     run, 2 a task's loss, 1 the gradients; NCCL reduces a group of one in
-     place, with no kernel), 3 replays == 3 raw_steps bit for bit under
+     recorded into the capture counted (2 a task's loss, 1 the gradients;
+     the BatchNorms of a group of one take the group-less kernels, with no
+     all-reduce: FUSED counts every one, PLAIN none; NCCL reduces a group
+     of one in place, with no kernel), 3 replays == 3 raw_steps bit for bit under
      deterministic algorithms, the first step and every state tensor after
      4 steps == the group-less step's bit for bit, TAL once per task and
      step, a replay's ms against the group-less replay's; (c) NCCL's
@@ -3286,6 +3296,238 @@ def headline(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640,
             f.launches = saved[k]
 
 
+# the BatchNorm + SiLU kernels (ops/bn_cuda.py): each wrapper's kernels by
+# name, and the bytes a pass moves over the activation's values (each value
+# read or written once: stats reads x; apply reads x, writes y; grad_reduce
+# reads x and dy; dx reads x and dy, writes dx)
+BN_KERNELS = {"bn_stats": ("bn_silu_stats_kernel", "bn_silu_finalize_kernel"),
+              "bn_apply": ("bn_silu_apply_kernel",),
+              "bn_grad_reduce": ("bn_silu_grad_reduce_kernel", "bn_silu_grad_finalize_kernel"),
+              "bn_dx": ("bn_silu_dx_kernel",)}
+BN_PASS_BYTES = {"bn_stats": 1, "bn_apply": 2, "bn_grad_reduce": 2, "bn_dx": 3}
+
+
+def bn_forwards(model, tasks, freeze: bool) -> int:
+    """The training BatchNorm forwards a step over `tasks` runs: every
+    BatchNorm of each task's plan, less the shared blocks' when they are
+    frozen (train/step.py:_run)."""
+    shared = set(model.shared_uids()) if freeze else set()
+    return sum(len(model._batch_norms(s.uid)) for t in tasks for s in model.plan([t])
+               if s.uid not in shared)
+
+
+def bn_counts() -> dict:
+    """The BatchNorm wrappers' launches and the two route counters."""
+    from cerberusdet_tpu_torch.ops import bn_cuda
+
+    return {**{k: getattr(bn_cuda, k).launches for k in BN_KERNELS},
+            "fused": bn_cuda.FUSED.launches, "plain": bn_cuda.PLAIN.launches}
+
+
+def set_bn_counts(counts) -> None:
+    from cerberusdet_tpu_torch.ops import bn_cuda
+
+    for k in BN_KERNELS:
+        getattr(bn_cuda, k).launches = counts[k]
+    bn_cuda.FUSED.launches, bn_cuda.PLAIN.launches = counts["fused"], counts["plain"]
+
+
+class _Hooked:
+    """A kernel wrapper's stand-in in its module: calls `hook`, and keeps
+    `launches` on the real wrapper (which counts through its module name)."""
+
+    def __init__(self, real, hook):
+        self.real, self.hook = real, hook
+
+    def __call__(self, *args):
+        return self.hook(*args)
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+
+class BnProbe:
+    """Inside `with BnProbe():`, the first call of each BatchNorm pass at each
+    (shape, dtype, strides, plan, act) of what runs is held against its
+    plain pass on the card, on the step's own activations and gradients,
+    with the gates of tests/test_torch_bn_silu.py:_check_against_plain: the
+    chunks' means and the statistics within 1e-5 of their largest, M2
+    within 1e-4; the running statistics within 1e-5; y bit for bit the
+    PyTorch arithmetic (nn/module.py:BatchNorm, then silu) given the
+    kernels' statistics; from the same statistics, dweight and dbias within
+    1e-4 of their largest, dx within one rounding of the activation dtype
+    plus 1e-5 of its largest. With `time_them`, that call's plain pass and
+    F.batch_norm + F.silu (forward; forward and backward) are timed there
+    (CUDA events). Every call's bytes are counted (BN_PASS_BYTES). The probe
+    launches no kernel of its own."""
+
+    def __init__(self, time_them: bool = True):
+        self.time_them = time_them
+        self.calls = {k: {} for k in BN_KERNELS}        # pass -> {key: calls}
+        self.err = {k: 0.0 for k in BN_KERNELS}         # pass -> largest |kernel - plain|
+        self.plain_ms = {k: {} for k in BN_KERNELS}     # pass -> {key: ms a call}
+        self.library_ms = {"forward": {}, "backward": {}}  # {(shape, dtype, strides, act): ms}
+        self.nbytes = {k: 0 for k in BN_KERNELS}
+
+    def __enter__(self):
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        self.real = {k: getattr(bn_cuda, k) for k in BN_KERNELS}
+        for k in BN_KERNELS:
+            setattr(bn_cuda, k, _Hooked(self.real[k], getattr(self, k)))
+        return self
+
+    def __exit__(self, *exc):
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        for k, f in self.real.items():
+            setattr(bn_cuda, k, f)
+
+    def _first(self, name, key, x) -> bool:
+        self.nbytes[name] += BN_PASS_BYTES[name] * x.numel() * x.element_size()
+        calls = self.calls[name]
+        calls[key] = calls.get(key, 0) + 1
+        return calls[key] == 1
+
+    def _close(self, name, a, b, rtol, what):
+        a, b = a.detach().double(), b.detach().double()
+        err = float((a - b).abs().max())
+        self.err[name] = max(self.err[name], err)
+        scale = float(b.abs().max())
+        if not err <= rtol * scale:
+            raise AssertionError(f"BatchNorm kernels, {what}: max error {err} against scale "
+                                 f"{scale} (rtol {rtol})")
+
+    def _time(self, table, key, fn, iters: int = 1, warmup: int = 0):
+        if self.time_them and key not in table:  # (a plain pass has just run: warm)
+            table[key] = cuda_ms(fn, iters=iters, warmup=warmup)
+
+    def bn_stats(self, x, weight, bias, rm, rv, eps, momentum, p):
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        key = (tuple(x.shape), str(x.dtype), x.stride(), p)
+        first = self._first("bn_stats", key, x)
+        if first:
+            rp, vp = rm.clone(), rv.clone()
+        stat, part = out = self.real["bn_stats"](x, weight, bias, rm, rv, eps, momentum, p)
+        if first:
+            stat_p, part_p = bn_cuda.bn_stats_plain(x, weight, bias, rp, vp, eps, momentum,
+                                                    p.length, p.chunks)
+            what = f"bn_stats {key}"
+            self._close("bn_stats", part[..., 0], part_p[..., 0], 1e-5, what + " chunk means")
+            self._close("bn_stats", part[..., 1], part_p[..., 1], 1e-4, what + " chunk M2")
+            for i, nm in enumerate(("mean", "rstd", "inv", "shift")):
+                self._close("bn_stats", stat[i], stat_p[i], 1e-5, f"{what} {nm}")
+            self._close("bn_stats", rm, rp, 1e-5, what + " running_mean")
+            self._close("bn_stats", rv, vp, 1e-5, what + " running_var")
+            self._time(self.plain_ms["bn_stats"], key, lambda: bn_cuda.bn_stats_plain(
+                x, weight, bias, rp.clone(), vp.clone(), eps, momentum, p.length, p.chunks))
+        return out
+
+    def bn_apply(self, x, stat, act, p):
+        import torch
+        import torch.nn.functional as F
+
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        key = (tuple(x.shape), str(x.dtype), x.stride(), p, bool(act))
+        first = self._first("bn_apply", key, x)
+        y = self.real["bn_apply"](x, stat, act, p)
+        if first:
+            want = bn_cuda.bn_apply_plain(x, stat, act)  # nn/module.py's arithmetic, then silu
+            self.err["bn_apply"] = max(self.err["bn_apply"],
+                                       float((y.double() - want.double()).abs().max()))
+            if not torch.equal(y, want):
+                raise AssertionError(f"BatchNorm kernels, bn_apply {key}: y is not the PyTorch "
+                                     "arithmetic's bit for bit")
+            self._time(self.plain_ms["bn_apply"], key,
+                       lambda: bn_cuda.bn_apply_plain(x, stat, act))
+            c = x.shape[1]
+            w, b = torch.ones(c, device=x.device), torch.zeros(c, device=x.device)
+            rm, rv = torch.zeros(c, device=x.device), torch.ones(c, device=x.device)
+
+            def library():
+                z = F.batch_norm(x, rm, rv, w, b, True, 0.03, 1e-3)
+                return F.silu(z) if act else z
+
+            self._time(self.library_ms["forward"], key[:3] + (bool(act),), library, 2, 1)
+        return y
+
+    def bn_grad_reduce(self, dy, x, stat, act, p):
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        key = (tuple(x.shape), str(x.dtype), x.stride(), dy.stride(), p, bool(act))
+        first = self._first("bn_grad_reduce", key, x)
+        coef, dw, db, part = out = self.real["bn_grad_reduce"](dy, x, stat, act, p)
+        if first:
+            coef_p, dw_p, db_p, _ = bn_cuda.bn_grad_reduce_plain(dy, x, stat, act, p.length,
+                                                                 p.chunks)
+            what = f"bn_grad_reduce {key}"
+            self._close("bn_grad_reduce", dw, dw_p, 1e-4, what + " dweight")
+            self._close("bn_grad_reduce", db, db_p, 1e-4, what + " dbias")
+            self._time(self.plain_ms["bn_grad_reduce"], key,
+                       lambda: bn_cuda.bn_grad_reduce_plain(dy, x, stat, act, p.length,
+                                                            p.chunks))
+        return out
+
+    def bn_dx(self, dy, x, stat, coef, act, p):
+        import torch
+        import torch.nn.functional as F
+
+        from cerberusdet_tpu_torch.ops import bn_cuda
+
+        key = (tuple(x.shape), str(x.dtype), x.stride(), dy.stride(), p, bool(act))
+        first = self._first("bn_dx", key, x)
+        dx = self.real["bn_dx"](dy, x, stat, coef, act, p)
+        if first:
+            coef_p = bn_cuda.bn_grad_reduce_plain(dy, x, stat, act, p.length, p.chunks)[0]
+            want = bn_cuda.bn_dx_plain(dy, x, stat, coef_p, act).double()
+            err = (dx.double() - want).abs()
+            self.err["bn_dx"] = max(self.err["bn_dx"], float(err.max()))
+            ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -20
+            if not bool((err <= ulp * want.abs() + 1e-5 * float(want.abs().max())).all()):
+                raise AssertionError(f"BatchNorm kernels, bn_dx {key}: dx off the plain pass "
+                                     f"by {float(err.max())}")
+            self._time(self.plain_ms["bn_dx"], key,
+                       lambda: bn_cuda.bn_dx_plain(dy, x, stat, coef_p, act))
+            c = x.shape[1]
+            w = torch.ones(c, device=x.device, requires_grad=True)
+            b = torch.zeros(c, device=x.device, requires_grad=True)
+            rm, rv = torch.zeros(c, device=x.device), torch.ones(c, device=x.device)
+            xg = x.detach().requires_grad_()
+
+            def library():
+                with torch.enable_grad():
+                    z = F.batch_norm(xg, rm, rv, w, b, True, 0.03, 1e-3)
+                    z = F.silu(z) if act else z
+                    return torch.autograd.grad(z, (xg, w, b), dy)
+
+            lkey = key[:3] + (bool(act),)
+            if self.time_them and lkey not in self.library_ms["backward"]:
+                both = cuda_ms(library, iters=2, warmup=1)
+                fwd = self.library_ms["forward"].get(lkey)
+                self.library_ms["backward"][lkey] = both - fwd if fwd is not None else both
+        return dx
+
+    def per_step(self, table, steps: int) -> float:
+        """A table's ms a call summed over the calls counted, over `steps`."""
+        return sum(ms * self.calls[name].get(key, 0)
+                   for name, t in table.items() for key, ms in t.items()) / steps
+
+    def library_step(self, which: str, steps: int) -> float:
+        """F.batch_norm + F.silu's `which` ms over the calls counted, a step."""
+        calls = {}
+        for key, n in self.calls["bn_apply"].items():
+            k = key[:3] + (key[4],)
+            calls[k] = calls.get(k, 0) + n
+        return sum(ms * calls.get(k, 0) for k, ms in self.library_ms[which].items()) / steps
+
+
 def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
                batch: int = TRAIN_BATCH, n_labels: int = TRAIN_LABELS):
     """The train step at full width (phase 4): MultiTaskTrainer.raw_step
@@ -3297,12 +3539,20 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     raises; the plain assigner under its own key launches no TAL kernel and
     gives the same losses (rtol 1e-5). The TAL kernels against their plain
     versions on the flagship's predictions, updating `tal_err`, and timed
-    alone. Returns the kernels-line entries of the TAL kernels."""
+    alone. The BatchNorm + SiLU kernels: every training BatchNorm forward
+    takes them (ops/bn_cuda.FUSED counts every one the steps run, PLAIN
+    none), each wrapper launched as often as its kernels a forward or
+    backward, in the captured step's counts a replay too; each pass held
+    against its plain pass on the card at every distinct input of the first
+    eager step (BnProbe: both layouts, dy in NCHW planes against channels
+    last), with its time a step in the profiled replays beside its bytes
+    bound, the plain pass and F.batch_norm + F.silu. Returns the
+    kernels-line entries of the TAL and BatchNorm kernels."""
     import numpy as np
     import torch
 
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
-    from cerberusdet_tpu_torch.ops import tal_cuda
+    from cerberusdet_tpu_torch.ops import bn_cuda, tal_cuda
     from cerberusdet_tpu_torch.testing import train_batches
     from cerberusdet_tpu_torch.train.loss import DetectionLoss
     from cerberusdet_tpu_torch.train.schedules import warmup_lrs
@@ -3356,13 +3606,14 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     def sched(i):  # warmup lrs and momentum: new values at every step
         return warmup_lrs(i, 100, 0.0, 0.01, 1.0)
 
-    run = {"ni": 0, "tal": 0, "items": []}
+    run = {"ni": 0, "tal": 0, "bn": 0, "items": []}
 
     def stepped(fn, bt=None, freeze=False, **kw):
         """One step by fn (trainer.step or raw_step) with the next schedule
         values, synchronised: its host seconds. Holds its losses finite and
-        counts the TAL launches it should make."""
+        counts the TAL launches and BatchNorm forwards it should make."""
         bt = batches if bt is None else bt
+        run["bn"] += bn_forwards(model, list(bt), freeze)
         torch.cuda.synchronize()
         t = time.perf_counter()
         _, items = fn(state, bt, *sched(run["ni"]), freeze_shared=freeze, **kw)
@@ -3377,27 +3628,38 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
         return dt
 
     def profiled(fn, n=3):
-        """(the profiler's device ms, host ms) a step over n synchronised steps."""
+        """(the profiler's device ms, host ms) a step over n synchronised
+        steps, and {BatchNorm wrapper: (its kernels' device ms, launches
+        recorded) a step}."""
         from torch.profiler import ProfilerActivity, profile
 
         # (the CPU's activity only where the phase is rehearsed without a card)
         with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
                                  else ProfilerActivity.CPU]) as prof:
             host = sum(stepped(fn) for _ in range(n))
-        return (sum(e.device_time_total for e in prof.key_averages()) / 1e3 / n,
-                1e3 * host / n)
+        events = prof.key_averages()
+        bn = {k: (sum(e.device_time_total for e in events if any(f in e.key for f in frags))
+                  / 1e3 / n, sum(e.count for e in events if any(f in e.key for f in frags)) / n)
+              for k, frags in BN_KERNELS.items()}
+        return (sum(e.device_time_total for e in events) / 1e3 / n, 1e3 * host / n, bn)
 
     for f in tal_kernels.values():
         f.launches = 0
+    set_bn_counts(dict.fromkeys(bn_counts(), 0))
     torch.cuda.reset_peak_memory_stats()
     held_gb = torch.cuda.memory_allocated() / 2**30  # before the first step, earlier phases' too
     # eager: raw_step, each stage marked on the timed steps
     eager_s = []
+    bn_probe = BnProbe()
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         timed = i >= WARMUP_STEPS
         if timed:
             mark("start")
-        dt = stepped(trainer.raw_step, mark=mark if timed else None)
+        if i == 0:  # the BatchNorm passes against their plain passes, on the step's values
+            with bn_probe:
+                dt = stepped(trainer.raw_step)
+        else:
+            dt = stepped(trainer.raw_step, mark=mark if timed else None)
         if timed:
             eager_s.append(dt)
     eager_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3415,10 +3677,16 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
         t = time.perf_counter()
         prog.check(state_tensors(state))
         check_s.append(time.perf_counter() - t)
+    n_bn = bn_forwards(model, TASKS, False)
+    # a replay counts the TAL kernels once a task and, for each BatchNorm
+    # forward, bn_stats 2, bn_apply 1, bn_grad_reduce 2, bn_dx 1 launches and FUSED once
+    want_launches = [len(TASKS)] * 3 + [2 * n_bn, n_bn, 2 * n_bn, n_bn, n_bn, 0]
     if len(trainer.programs) != 1 or prog.replays != WARMUP_STEPS + TIMED_STEPS + 3 \
-            or prog.launches != [len(TASKS)] * 3:
+            or prog.launches != want_launches:
         raise AssertionError(f"the train step: {len(trainer.programs)} captures, "
-                             f"{prog.replays} replays, {prog.launches} TAL launches a replay")
+                             f"{prog.replays} replays, {prog.launches} launches a replay "
+                             f"(TAL, BatchNorm wrappers, FUSED, PLAIN; expected "
+                             f"{want_launches})")
     # one capture per key, each key used twice: {a, b}, {a} alone, {a, b} frozen
     a_only = {TASKS[0]: batches[TASKS[0]]}
     for bt, freeze in ((batches, False), (a_only, False), (batches, True)):
@@ -3430,7 +3698,21 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
         raise AssertionError(f"{len(trainer.programs)} captured steps for {len(keys)} keys, "
                              f"replays {[p.replays for p in trainer.programs.values()]}")
     tal_launches = tal_counts()
+    bn_launches = bn_counts()
+    bn_per_replay = dict(zip(BN_KERNELS, prog.launches[3:7]))
     n_steps = run["ni"]
+    want_bn = {"bn_stats": 2 * run["bn"], "bn_apply": run["bn"], "bn_grad_reduce": 2 * run["bn"],
+               "bn_dx": run["bn"], "fused": run["bn"], "plain": 0}
+    if bn_launches != want_bn:
+        raise AssertionError(f"BatchNorm routes and launches {bn_launches} over {n_steps} steps, "
+                             f"expected {want_bn}: every training BatchNorm forward on the card "
+                             "takes the kernels")
+    log(f"[train] BatchNorm + SiLU: {run['bn']} training BatchNorm forwards in {n_steps} steps "
+        f"({n_bn} a step of both tasks), every one on the kernels (FUSED {bn_launches['fused']}, "
+        f"PLAIN {bn_launches['plain']}); launches bn_stats {bn_launches['bn_stats']}, bn_apply "
+        f"{bn_launches['bn_apply']}, bn_grad_reduce {bn_launches['bn_grad_reduce']}, bn_dx "
+        f"{bn_launches['bn_dx']} (2, 1, 2, 1 a BatchNorm); a replay counts "
+        f"{prog.launches[3:]}")
     log(f"[train] {n_steps} steps ({WARMUP_STEPS + TIMED_STEPS + 3} eager, then captured: "
         f"3 keys, {sum(p.replays for p in trainer.programs.values())} replays), TAL kernel "
         f"launches {tal_launches} (expected {run['tal']} each: tasks x steps; a replay "
@@ -3513,7 +3795,7 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
     name = next(iter(state.opt_state.momentum_buf))
     kept = state.opt_state.momentum_buf[name]
     state.opt_state.momentum_buf[name] = kept.clone()
-    before = (tal_counts(), state.n_updates, state.opt_state.step)
+    before = (tal_counts(), bn_counts(), state.n_updates, state.opt_state.step)
     try:
         det.step(state, batches, *sched(base))
     except RuntimeError as e:
@@ -3524,7 +3806,7 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
         raise AssertionError("a step over a replaced momentum buffer did not raise")
     finally:
         state.opt_state.momentum_buf[name] = kept
-    if (tal_counts(), state.n_updates, state.opt_state.step) != before:
+    if (tal_counts(), bn_counts(), state.n_updates, state.opt_state.step) != before:
         raise AssertionError("the refused step launched kernels or advanced the state")
     del det, prog_det, forms, snap
     torch.cuda.empty_cache()
@@ -3607,6 +3889,7 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
         f"kernels' (limit 1e-5)")
     for name, f in tal_kernels.items():  # the comparison and timing launches do not count
         f.launches = tal_launches[name]
+    set_bn_counts(bn_launches)  # nor the later steps'
     tal_work_flag = tal_work(flag_inp, flag_pos, NCS[0])
     del state, trainer, model, batches, snap, planes, prog
     torch.cuda.empty_cache()
@@ -3629,7 +3912,48 @@ def train_step(card: str, dev, tal_err, cfg: str = FLAGSHIP, imgsz: int = 640,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,  # no PyTorch call computes a task-aligned assignment
         })
+    entries.extend(bn_entries(bn_probe, replay_busy[2], bn_launches, bn_per_replay, card))
     return entries
+
+
+def bn_entries(probe: BnProbe, replayed, launches, per_replay, card: str):
+    """The kernels-line entries of the four BatchNorm wrappers from phase 4:
+    a step's device ms of each pass in the profiled replays (`replayed`),
+    its bytes bound, the plain pass's ms and F.batch_norm + F.silu's (on
+    bn_apply the library's forward, on bn_dx its backward) over the calls of
+    the probed step, and the largest |kernel - plain pass| held by the
+    probe."""
+    bound = {k: n / HBM_BYTES_PER_S * 1e3 for k, n in probe.nbytes.items()}
+    library = {"bn_apply": probe.library_step("forward", 1),
+               "bn_dx": probe.library_step("backward", 1)}
+    plain = {k: probe.per_step({k: probe.plain_ms[k]}, 1) for k in BN_KERNELS}
+    for k in BN_KERNELS:
+        ms, seen = replayed[k]
+        log(f"[bn kernels] {k} ({' + '.join(BN_KERNELS[k])}): a step {ms:.3f} ms in the "
+            f"profiled replays ({seen:.0f} of its {per_replay[k]} launches a step recorded), "
+            f"bytes bound {bound[k]:.3f} ms ({100 * bound[k] / ms if ms else 0:.1f}%); the plain "
+            f"pass {plain[k]:.2f} ms a step; held against it at {len(probe.calls[k])} distinct "
+            f"inputs, largest |diff| {probe.err[k]:.3g}  [{card}]")
+    fwd = replayed["bn_stats"][0] + replayed["bn_apply"][0]
+    bwd = replayed["bn_grad_reduce"][0] + replayed["bn_dx"][0]
+    log(f"[bn kernels] a step: the kernels forward {fwd:.2f} + backward {bwd:.2f} ms (bound "
+        f"{sum(bound.values()):.2f} ms); F.batch_norm + F.silu (the library, which the port "
+        f"does not call) forward {library['bn_apply']:.2f} + backward {library['bn_dx']:.2f} "
+        f"ms; the plain passes {sum(plain.values()):.2f} ms  [{card}]")
+    return [{
+        "name": k,
+        "route": "cuda",
+        "source": "cerberusdet_tpu_torch/csrc/bn_silu.cu",
+        "replaces": None,  # no Pallas kernel: XLA fuses BatchNorm + SiLU on the TPU
+        "launches": launches[k],
+        "max_abs_err": probe.err[k],
+        "ms": replayed[k][0],
+        "plain_ms": plain[k],
+        "bound_ms": bound[k],
+        "bound_by": "bytes",
+        "library_ms": library.get(k),
+        "per": "a step of phase 4's 2-task step, 8 images a task",
+    } for k in BN_KERNELS]
 
 
 # the data phase: bench_train_e2e's set cut to 32 seeded noise JPEGs of 640 px
@@ -4893,8 +5217,8 @@ def user_surface(card: str, dev, cfg: str = FLAGSHIP, imgsz: int = 640, evolve_k
 # each)
 DP_BATCH, DP_STEPS, DP_VAL_IMAGES, DP_VAL_BATCH = 8, 3, 32, 8
 # an NCCL group of one computes the group-less step's arithmetic (its
-# all-reduces of one rank copy), so its steps equal the group-less steps bit for
-# bit. Two Gloo ranks (float32) take their BatchNorm and weight-gradient sums
+# all-reduces of one rank copy, and its BatchNorms take the group-less kernels:
+# nn/module.py:BatchNorm), so its steps equal the group-less steps bit for bit. Two Gloo ranks (float32) take their BatchNorm and weight-gradient sums
 # over 4 rows and then over the ranks, where one process sums the 8 rows. Each
 # of their steps, from the same state, is held against one process's step: the
 # losses within DP_LOSS_RTOL (about 10x the largest gap measured on an H100,
@@ -5178,7 +5502,8 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
     """(b) The captured train step in an NCCL group of one (phase 4's cell):
     the graph's NCCL nodes, `steps` replays == raw_steps bit for bit, the
     first step and the state after all steps == the group-less step's bit
-    for bit, the replay's time against the group-less replay's. Returns the
+    for bit, every BatchNorm forward of both on the kernels (FUSED, no
+    PLAIN), the replay's time against the group-less replay's. Returns the
     TAL kernels' kernels-line entries."""
     import torch
     import torch.distributed as dist
@@ -5200,6 +5525,7 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
     tal = {"tal_select": tal_cuda.select_kernel, "tal_assign": tal_cuda.assign_kernel,
            "tal_norm": tal_cuda.norm_kernel}
     saved = {k: f.launches for k, f in tal.items()}
+    saved_bn = bn_counts()
     first = {}
     real_assign = loss_mod.task_aligned_assign
     real_all_reduce = dist.all_reduce
@@ -5232,6 +5558,7 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
                 state = init_train_state(model)
                 for f in tal.values():
                     f.launches = 0
+                routes = bn_counts()
                 loss_mod.task_aligned_assign = assign
                 dist.all_reduce, captured[0] = all_reduce, 0
                 try:
@@ -5248,6 +5575,12 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
                     items.append({t: [float(v) for v in x] for t, x in it.items()})
                 torch.cuda.synchronize()
                 counts = {k: f.launches for k, f in tal.items()}
+                n_fwd = bn_forwards(model, TASKS, False)
+                routed = {k: bn_counts()[k] - routes[k] for k in ("fused", "plain")}
+                if routed != {"fused": n_fwd * (steps + 1), "plain": 0}:
+                    raise AssertionError(f"{label} group: BatchNorm routes {routed} over "
+                                         f"{steps + 1} steps of {n_fwd} forwards: a group of "
+                                         "one takes the kernels")
                 replayed = state_copy(state)
                 prog = trainer.programs[trainer.step_key(batches)]
                 replay_ms = [cuda_ms(prog.graph.replay, iters=3, warmup=1) for _ in range(3)]
@@ -5280,10 +5613,10 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
         items_g, state_g, counts, ms_g, nodes_g, first_g, traced, n_bn, n_coll = runs["nccl"]
         items_p, state_p, _, ms_p, nodes_p, first_p = runs["none"]
         nccl_nodes = [n for n in nodes_g if "nccl" in n.lower()]
-        # 4 a BatchNorm a task forward runs (its sums and its centred squares,
-        # forward and backward), 2 a task's loss (its normalisers, its items), 1
-        # the gradients
-        want_collectives = 4 * n_bn + 2 * len(TASKS) + 1
+        # 2 a task's loss (its normalisers, its items), 1 the gradients; the
+        # BatchNorms of a group of one take the kernels, which reduce nothing
+        # over the ranks
+        want_collectives = 2 * len(TASKS) + 1
         if n_coll != want_collectives:
             raise AssertionError(f"the capture recorded {n_coll} NCCL all-reduces, not "
                                  f"{want_collectives}")
@@ -5301,9 +5634,9 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
                                      f"tensors differ from the group-less step's: {differ[:3]}")
         log(f"[nccl step] an NCCL group of one ({dist.Backend.NCCL} "
             f"{'.'.join(map(str, torch.cuda.nccl.version()))}), {os.path.basename(cfg)} bf16, "
-            f"per-task batch {batch}: the capture recorded {n_coll} NCCL all-reduces (4 a "
-            f"BatchNorm of the {n_bn} that the task forwards run, 2 a task's loss, 1 the "
-            f"gradients); NCCL kernel nodes in the graph {len(nccl_nodes)} of {len(nodes_g)} "
+            f"per-task batch {batch}: the capture recorded {n_coll} NCCL all-reduces (2 a "
+            f"task's loss, 1 the gradients; the {n_bn} BatchNorm forwards of a step on the "
+            f"kernels in both steps, as without a group); NCCL kernel nodes in the graph {len(nccl_nodes)} of {len(nodes_g)} "
             f"kernel nodes, {traced} in the profiler's trace of a replay (a group of one "
             f"reduces in place: no kernel); {steps} replays == "
             f"{steps} raw_steps bit for bit; TAL launches {counts}; the first step and the "
@@ -5319,6 +5652,7 @@ def dp_nccl_step(card: str, dev, cfg: str, imgsz: int, batch: int, n_labels: int
         loss_mod.task_aligned_assign = real_assign
         for k, f in tal.items():
             f.launches = saved[k]
+        set_bn_counts(saved_bn)
         dist.destroy_process_group()
 
 
@@ -6343,7 +6677,7 @@ def main() -> int:
     from cerberusdet_tpu_torch.infer import CerberusDetInference, CerberusPreprocessor
     from cerberusdet_tpu_torch.infer.graphs import CapturedProgram
     from cerberusdet_tpu_torch.models.cerberus import CerberusModel
-    from cerberusdet_tpu_torch.ops import conv_int8_cuda, nms_cuda, tal_cuda
+    from cerberusdet_tpu_torch.ops import bn_cuda, conv_int8_cuda, nms_cuda, tal_cuda
     from cerberusdet_tpu_torch.ops.nms import (
         cross_task_suppress,
         non_max_suppression,
@@ -6379,9 +6713,9 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda m: m.build(verbose=True),
-                             (nms_cuda, tal_cuda, conv_int8_cuda)))
+                             (nms_cuda, tal_cuda, conv_int8_cuda, bn_cuda)))
     log(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
