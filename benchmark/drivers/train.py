@@ -8,7 +8,8 @@ momentum, new every step; the EMA.
 Set-up builds the trainer and its state once, and steps it through its first
 `checked_steps` steps (the first captures the step; rows that all differ);
 the window goes on stepping the same object. The reference follows those
-first steps from the same weights and batches."""
+first steps from the same weights and batches: the model family's
+TrainReference (families/)."""
 
 from __future__ import annotations
 
@@ -20,9 +21,10 @@ import numpy as np
 import torch
 
 from benchmark.reference.detect import letterbox
-from benchmark.reference.train import TrainReference, fp8_cast
+from benchmark.readers import BN_SILU_KERNELS
+from benchmark.reference.train import fp8_cast
 from benchmark.serving import no_tf32, program_peak
-from benchmark.weights import frames, make_weights
+from benchmark.weights import frames
 
 CASTS = {"fp8": fp8_cast}
 
@@ -64,7 +66,8 @@ class Session:
         gen = torch.Generator(device=device).manual_seed(int(seed))
         calib = letterbox(frames(gen, int(tr["calib_frames"]), s, s, device), s)
         with torch.no_grad(), no_tf32():
-            self.weights = make_weights(cfg["model"], self.tasks, self.ncs, gen, calib)
+            self.weights = cell.family.make_weights(cfg["model"], self.tasks, self.ncs, gen,
+                                                    calib)
         del calib
         rng = np.random.default_rng(int(seed))
         m, n_real = int(tr["max_labels"]), int(tr["real_labels"])
@@ -133,9 +136,13 @@ class Session:
         return len(self.trainer.programs)
 
     def counters(self) -> Dict[str, int]:
-        from cerberusdet_tpu_torch.ops import tal_cuda
-        return {"tal": sum(k.launches for k in (tal_cuda.select_kernel, tal_cuda.assign_kernel,
-                                                tal_cuda.norm_kernel))}
+        """The port's launch counters: the TAL kernels', and each BatchNorm +
+        SiLU wrapper's (readers.BN_SILU_KERNELS)."""
+        from cerberusdet_tpu_torch.ops import bn_cuda, tal_cuda
+        out = {"tal": sum(k.launches for k in (tal_cuda.select_kernel, tal_cuda.assign_kernel,
+                                               tal_cuda.norm_kernel))}
+        out.update((w, getattr(bn_cuda, w).launches) for w in BN_SILU_KERNELS)
+        return out
 
     def window(self, seconds: float) -> None:
         before, captures = self.counters(), self.captures()
@@ -172,7 +179,8 @@ class Session:
         running statistics' change in the first step, the EMA's change of
         each parameter)."""
         w = {k: v.to(self.device) for k, v in self.weights.items()}
-        ref = TrainReference(self.cell.config["model"], self.tasks, self.ncs, w, conv_cast)
+        ref = self.cell.family.TrainReference(self.cell.config["model"], self.tasks, self.ncs,
+                                              w, conv_cast)
         p0 = {k: v.detach().clone() for k, v in ref.params.items()}
         losses = []
         with no_tf32(), torch.enable_grad():

@@ -1,7 +1,7 @@
 """A step's operations, three times each task's forward (counted from shapes:
 the forward, the two products of the backward, no recompute), over the
 window at the bf16 peak, as a share of the window (the untraced one: host
-clock)."""
+clock); the forward's work as the model family counts it."""
 
 from benchmark import work as W
 
@@ -11,6 +11,6 @@ def read(ctx):
     if not r.get("steps") or not r.get("window_s"):
         return None
     b, size = ctx.traffic["batch"], ctx.traffic["img_size"]
-    ops = sum(W.forward_ops(W.convs(cfg["model"], [t], [nc], size, size))
+    ops = sum(W.forward_ops(ctx.family.convs(cfg["model"], [t], [nc], size, size))
               for t, nc in zip(cfg["tasks"], cfg["nc"]))
     return 100.0 * 3.0 * ops * b * r["steps"] / W.PEAK_OPS["bf16"] / r["window_s"]

@@ -15,6 +15,10 @@ dequantized values in float32. 8 bits is the int8 serving configuration, 4
 bits its control. `act_dtype` (bfloat16 for int8 served with bf16 elsewhere)
 rounds each quantized Conv's input and output to that dtype, where the
 serving configuration stores its activations.
+
+`groups` ({Conv prefix: groups}, empty here) lets a family whose blocks hold
+grouped or depthwise Convs run them through `conv`; every other Conv is
+ungrouped, and a weight that does not fit its input raises.
 """
 
 from __future__ import annotations
@@ -173,6 +177,7 @@ class Reference:
         self.training = False  # BatchNorm from each batch's statistics
         self.running = None  # training: {name: running statistic}, updated as each batch passes
         self.conv_cast = None  # (tensor) -> tensor: a control's rounding of conv inputs and weights
+        self.groups: Dict[str, int] = {}  # Conv prefix -> groups (a family's grouped Convs)
         self.w = weights
         self._folded: Dict[Tuple[str, bool], Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -203,7 +208,7 @@ class Reference:
             w = self.w[f"{p}.w"]
             if self.conv_cast is not None:
                 x, w = self.conv_cast(x), self.conv_cast(w)
-            y = F.conv2d(x, w, None, s, k // 2)
+            y = F.conv2d(x, w, None, s, k // 2, 1, self.groups.get(p, 1))
             mean = y.mean((0, 2, 3))
             var = (y - mean[:, None, None]).square().mean((0, 2, 3))
             if self.running is not None:
@@ -217,7 +222,8 @@ class Reference:
                 + self.w[f"{p}.bn.bias"][:, None, None]
             return F.silu(y) if act else y
         if self.bn_hook is not None:  # unfolded: the hook sets the statistics first
-            y = F.conv2d(x, self.w[f"{p}.w"].to(x.dtype), None, s, k // 2)
+            w = self.w[f"{p}.w"]
+            y = F.conv2d(x, w.to(x.dtype), None, s, k // 2, 1, self.groups.get(p, 1))
             self.bn_hook(p, y)
             inv = torch.rsqrt(self.w[f"{p}.bn.running_var"] + BN_EPS) * self.w[f"{p}.bn.weight"]
             y = y * inv[:, None, None] + (self.w[f"{p}.bn.bias"]
@@ -234,7 +240,7 @@ class Reference:
             xq = torch.clamp(torch.round(x.float() * inv_sx), -q, q)
             x = (xq * sx.item()).to(self.dtype)
         w, b = self.folded(p, quant)
-        y = F.conv2d(x, w, b, s, k // 2)
+        y = F.conv2d(x, w, b, s, k // 2, 1, self.groups.get(p, 1))
         y = F.silu(y) if act else y
         return y.to(self.act_dtype).to(self.dtype) if stored else y
 

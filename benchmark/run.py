@@ -69,7 +69,6 @@ def main(argv=None, device=None, root=ROOT) -> int:
     cell = load_cell(args.workload, root)
     import torch
 
-    from benchmark import work
     from benchmark.trace import Tracer
 
     if device is None:
@@ -106,13 +105,11 @@ def main(argv=None, device=None, root=ROOT) -> int:
     session.release()
     compared = session.check()
     correct = judge(compared, cell.limits) and failed == 0
-    cfg = cell.config
+    cfg, size = cell.config, cell.traffic["img_size"]
     ctx = types.SimpleNamespace(
         record=record, traced=traced, trace=tracer.result, traffic=cell.traffic,
-        config=cell.config,
-        precision=cell.traffic["precision"],
-        work=work.convs(cfg["model"], cfg["tasks"], cfg["nc"], cell.traffic["img_size"],
-                        cell.traffic["img_size"]))
+        config=cfg, family=cell.family, precision=cell.traffic["precision"],
+        work=cell.family.convs(cfg["model"], cfg["tasks"], cfg["nc"], size, size))
     wanted = cell.per_layer if args.trace else cell.end_to_end
     metrics = {}
     for m in wanted:

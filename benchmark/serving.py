@@ -1,6 +1,7 @@
 """What the serving cells share: the seeded weights and frames, the port's
 serving objects built from them, and the check of every answer against the
-reference.
+reference. The weights and the reference come from the cell's model family
+(families/).
 
 The program is the port: its model (CerberusModel) takes the benchmark's
 weights by load_state_dict, and CerberusDetInference fuses, casts and (int8)
@@ -19,8 +20,7 @@ import torch
 
 from benchmark.reference.compare import as_arrays, share, tasks_of, unmatched
 from benchmark.reference.detect import detections, letterbox
-from benchmark.reference.model import Reference
-from benchmark.weights import frames, make_weights
+from benchmark.weights import frames
 
 REF_BLOCK = 8  # frames a reference forward
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -70,8 +70,8 @@ class ServingSession:
         served = lambda: (letterbox(self.pool_dev[i:i + REF_BLOCK], self.size)
                           for i in range(0, len(self.pool_dev), REF_BLOCK))
         with no_tf32():
-            self.weights = make_weights(cfg["model"], self.tasks, self.ncs, gen, self.calib,
-                                        served)
+            self.weights = cell.family.make_weights(cfg["model"], self.tasks, self.ncs, gen,
+                                                    self.calib, served)
         self.pool_dev = self.pool_dev.cpu()
         self.pool = list(self.pool_dev.numpy())  # the clients' frames
         self.weights = {k: v.cpu() for k, v in self.weights.items()}
@@ -130,6 +130,7 @@ class ServingSession:
         spec = spec or {}
         tr, cfg = self.cell.traffic, self.cell.config["model"]
         bits = spec.get("quant_bits")
+        Reference = self.cell.family.Reference
         w = {k: v.to(self.device) for k, v in self.weights.items()}
         ref = Reference(cfg, self.tasks, self.ncs, w, torch.float32, quant_bits=bits,
                         act_dtype=DTYPES.get(spec.get("act_dtype")))

@@ -22,9 +22,11 @@ for m in ["benchmark.run", "benchmark.readings", "benchmark.sweep", "benchmark.f
           "benchmark.reference.compare", "benchmark.reference.train"]:
     importlib.import_module(m)
 from benchmark import run
-from benchmark.core import reader
+from benchmark.core import family, reader
 from benchmark.tests.tiny import make_root
 root = make_root(Path(tempfile.mkdtemp()))
+for p in sorted((root / "benchmark" / "families").glob("*.py")):
+    family(p.stem, root)
 for p in sorted((root / "benchmark" / "metrics").glob("*.py")):
     reader(p.stem, root)
 assert run.main(["--workload", "tiny-offline", "--seed", "1", "--seconds", "0", "--trace", "0"],

@@ -1,6 +1,7 @@
 """The metric readers over synthetic windows: a rate and a tail taken over the
 whole window move with a stall in it, the idle share and the idle gaps of a
-synthetic trace, and a dropped trace record that cannot raise a share."""
+synthetic trace, a dropped trace record that cannot raise a share, and work
+of a family's own kind kept out of the conv rooflines."""
 
 import types
 
@@ -9,11 +10,13 @@ import pytest
 
 from benchmark import work as W
 from benchmark.core import reader
+from benchmark.readers import BN_SILU_KERNELS
 from benchmark.trace import Trace
 
 
 def ctx(**kw):
-    base = dict(record={}, traced=None, trace=None, traffic={}, config={}, precision="int8", work=[])
+    base = dict(record={}, traced=None, trace=None, traffic={}, config={}, precision="int8",
+                work=[], family=None)
     base.update(kw)
     return types.SimpleNamespace(**base)
 
@@ -59,3 +62,56 @@ def test_batcher_metrics():
     r = {"batch_rows": [8, 4, 8, 4], "max_batch": 8, "queue_wait_ms": list(range(100))}
     assert reader("batch_fill_pct.online")(ctx(record=r)) == pytest.approx(75.0)
     assert reader("queue_wait_ms_p95.online")(ctx(record=r)) == pytest.approx(94.05)
+
+
+@pytest.mark.parametrize("precision,kernel", [("int8", "conv_s8_kernel<1>"),
+                                              ("bf16", "sm90_xmma_fprop_implicit_gemm")])
+def test_the_conv_roofline_reads_only_conv_work(precision, kernel):
+    conv = W.ConvWork("c", "conv", 10 ** 9, 10 ** 6, 10 ** 4, 10 ** 6)
+    other = W.ConvWork("a", "attention", 10 ** 10, 10 ** 7, 10 ** 5, 10 ** 7)
+    t = Trace(1.0, 0.01, [(kernel, 0.001 * i, 0.001 * i + 0.001) for i in range(10)], [])
+    rec = {"rows": 10, "launches": {"conv_s8_kernel": 10}}
+    read = reader("conv_roofline_pct.serve")
+    assert read(ctx(traced=rec, trace=t, work=[conv, other], precision=precision)) == \
+        read(ctx(traced=rec, trace=t, work=[conv], precision=precision))
+
+
+def test_the_conv_roofline_leaves_out_kernels_of_a_familys_other_kinds():
+    conv = W.ConvWork("c", "conv", 10 ** 9, 10 ** 6, 10 ** 4, 10 ** 6)
+    dw = W.ConvWork("d", "dwconv", 10 ** 7, 10 ** 6, 10 ** 2, 10 ** 6)
+    fam = types.SimpleNamespace(KERNEL_KINDS={"depthwise": "dwconv", "xmma_fprop": "conv"})
+    convs = [("sm90_xmma_fprop_implicit_gemm", 0.001 * i, 0.001 * i + 0.001) for i in range(10)]
+    dws = [("void cudnn::depthwise_fprop_kernel", 0.01 + 0.001 * i, 0.011 + 0.001 * i)
+           for i in range(5)]
+    rec, read = {"rows": 10, "launches": {}}, reader("conv_roofline_pct.serve")
+    alone = read(ctx(traced=rec, trace=Trace(1.0, 0.01, convs, []), work=[conv],
+                     precision="bf16"))
+    both = Trace(1.0, 0.015, convs + dws, [])
+    assert read(ctx(traced=rec, trace=both, work=[conv, dw], family=fam, precision="bf16")) == \
+        pytest.approx(alone)
+    # a family without the table: the depthwise kernels' time counts
+    assert read(ctx(traced=rec, trace=both, work=[conv, dw], precision="bf16")) == \
+        pytest.approx(alone * 10 / 15)
+
+
+def test_the_bn_silu_readers_count_dropped_records_and_read_nothing_without_kernels():
+    work = [W.ConvWork("c", "conv", 0, 0, 0, 1000), W.ConvWork("p", "plain", 0, 0, 0, 10 ** 6)]
+    fam = types.SimpleNamespace(convs=lambda cfg, tasks, ncs, h, w: work)
+    kernels = ["bn_silu_stats_kernel<bf16>", "bn_silu_finalize_kernel", "bn_silu_apply_kernel",
+               "bn_silu_grad_reduce_kernel", "bn_silu_grad_finalize_kernel", "bn_silu_dx_kernel"]
+    launches = {"bn_stats": 8, "bn_apply": 4, "bn_grad_reduce": 8, "bn_dx": 4}
+    full = [(k, 0.0, 0.001) for k in kernels for _ in range(4)]
+    dropped = full[1:]  # one stats launch lost
+    base = dict(config={"model": {}, "tasks": ["a", "b"], "nc": [1, 2]},
+                traffic={"batch": 2, "img_size": 64}, family=fam,
+                traced={"steps": 2, "launches": launches})
+    assert W.BN_SILU_PASS_VALUES.keys() == BN_SILU_KERNELS.keys()
+    ms, pct = reader("bn_silu_ms_per_step.train"), reader("bn_silu_roofline_pct.train")
+    for dev in (full, dropped):
+        c = ctx(trace=Trace(1.0, 0.024, dev, []), **base)
+        assert ms(c) == pytest.approx(1e3 * 24 * 0.001 / 2)
+        # 2 tasks x 2 images x 1000 values x (1 + 2 + 2 + 3) values moved a
+        # value x 2 bytes, 2 steps, over 24 ms
+        assert pct(c) == pytest.approx(100 * 2 * 2 * 1000 * 8 * 2 * 2 / W.PEAK_BYTES / 0.024)
+    c = ctx(trace=Trace(1.0, 0.01, [("elementwise_kernel", 0.0, 0.01)], []), **base)
+    assert ms(c) is None and pct(c) is None

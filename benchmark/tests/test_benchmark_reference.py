@@ -8,15 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.core import load_cell
+from benchmark.core import family, load_cell
 from benchmark.drivers import offline, train
 from benchmark.reference.compare import as_arrays, tasks_of, unmatched
 from benchmark.reference.detect import iou_matrix, letterbox
-from benchmark.reference.model import Reference
 from benchmark.serving import names_of
 from benchmark.tests.tiny import make_root, tiny_config
 from benchmark.trace import Tracer
-from benchmark.weights import frames, make_weights
+from benchmark.weights import frames
 
 CPU = torch.device("cpu")
 
@@ -26,7 +25,8 @@ def seeded():
     cfg = tiny_config()
     gen = torch.Generator().manual_seed(3)
     calib = letterbox(frames(gen, 4, 48, 64, "cpu"), 64)
-    return cfg, calib, make_weights(cfg["model"], cfg["tasks"], cfg["nc"], gen, calib)
+    return cfg, calib, family("yolov8").make_weights(cfg["model"], cfg["tasks"], cfg["nc"], gen,
+                                                     calib)
 
 
 def test_forward_matches_the_port(seeded):
@@ -37,7 +37,8 @@ def test_forward_matches_the_port(seeded):
     model.load_state_dict(w)
     with torch.no_grad():
         port = model.double().eval()(x.double())
-    ref = Reference(cfg["model"], cfg["tasks"], cfg["nc"], w, torch.float64).forward(x)
+    ref = family("yolov8").Reference(cfg["model"], cfg["tasks"], cfg["nc"], w,
+                                     torch.float64).forward(x)
     for t in cfg["tasks"]:
         scale = ref[t].abs().max()
         assert (port[t][0] - ref[t]).abs().max() <= 1e-6 * scale

@@ -1,6 +1,6 @@
 """A tiny benchmark root for CPU tests: BENCHMARK.json with cells of the
 2-task yolov8n at 64 px, and the files they name, in a temporary directory;
-the metric readers are copied from this folder."""
+the metric readers and the model families are copied from this folder."""
 
 from __future__ import annotations
 
@@ -46,7 +46,8 @@ def make_root(tmp: Path, limit=0.5) -> Path:
     b = tmp / "benchmark"
     for d in ("configs", "traffic", "limits"):
         (b / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(HERE / "metrics", b / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "families"):
+        shutil.copytree(HERE / d, b / d, dirs_exist_ok=True)
     (b / "configs" / "tiny.json").write_text(json.dumps(tiny_config()))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench["configs"] = [{"name": "tiny", "source": "test", "file": "benchmark/configs/tiny.json",

@@ -9,9 +9,13 @@ that their logits spread by BOX_STD and CLS_STD on the calibration frames,
 the box bias 0, and each classification bias set so that a fraction
 CANDIDATE_SHARE of the (anchor, class) scores of the frames the cell serves
 lies above SCORE_AT: every seed's weights then give its frames the same
-number of candidates, and about as many detections. The reference model
+number of candidates, and about as many detections. The family's reference
 computes the statistics, in float32 (TF32 off); the program gets the
-finished dict.
+finished dict. The recipe reads the program's parameter names: `<conv>.w`
+and `<conv>.bn.*` of a Conv, `.2.w` a tower's last 1x1 (no SiLU follows),
+`.m.<i>.cv2` a bottleneck's last Conv, `blocks.head_<task>.{box,cls}<level>`
+the Detect towers; a family whose names keep these takes it whole
+(families/yolov8.py).
 
 Frames: BGR uint8 (B, H, W, 3) fields of coarse blobs, finer texture and
 pixel noise, so that the features and the detections vary over the frame.
@@ -20,12 +24,10 @@ pixel noise, so that the features and the detections vary over the frame.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
-
-from benchmark.reference.model import Reference, param_shapes
 
 GAIN = 1.677          # 1 / sqrt(E[silu(z)^2]) for z ~ N(0, 1)
 BN_GAMMA = 0.15       # BatchNorm weight: SiLU near its linear part (perturbations neither grow nor fade)
@@ -47,13 +49,14 @@ def frames(gen: torch.Generator, n: int, h: int, w: int, device) -> torch.Tensor
 
 
 @torch.no_grad()
-def make_weights(cfg: dict, tasks: Sequence[str], ncs: Sequence[int], gen: torch.Generator,
+def make_weights(shapes: Dict[str, tuple], reference: Callable, gen: torch.Generator,
                  calib: torch.Tensor, served=None) -> Dict[str, torch.Tensor]:
-    """{name: float32 tensor} on calib's device. calib: (B, 3, H, W) in [0, 1];
-    served: the frames the cell serves, as a callable that yields such
-    batches (the classification biases are set on them; on calib when None)."""
+    """{name: float32 tensor} on calib's device. shapes: the family's
+    param_shapes; reference(weights): the family's float32 Reference over
+    them; calib: (B, 3, H, W) in [0, 1]; served: the frames the cell serves,
+    as a callable that yields such batches (the classification biases are set
+    on them; on calib when None)."""
     dev = calib.device
-    shapes = param_shapes(cfg, tasks, ncs)
     conv_names = [k for k, s in shapes.items() if k.endswith(".w")]
     sizes = [math.prod(shapes[k]) for k in conv_names]
     draw = (torch.rand(sum(sizes), generator=gen, device=dev) * 2 - 1).mul_(math.sqrt(3)).split(sizes)
@@ -68,7 +71,7 @@ def make_weights(cfg: dict, tasks: Sequence[str], ncs: Sequence[int], gen: torch
             continue
         one = k.endswith("bn.weight") or k.endswith("running_var")
         out[k] = (torch.ones if one else torch.zeros)(shape, device=dev)
-    ref = Reference(cfg, tasks, ncs, out, torch.float32)
+    ref = reference(out)
 
     def take_stats(p, y):
         out[f"{p}.bn.running_var"].copy_(y.square().mean((0, 2, 3)))
@@ -77,13 +80,13 @@ def make_weights(cfg: dict, tasks: Sequence[str], ncs: Sequence[int], gen: torch
     ref.bn_hook = take_stats
     maps = ref.features(calib)
     ref.bn_hook = None
-    for t in tasks:
-        for i, m in enumerate(maps[t]):
+    for t, ms in maps.items():
+        for i, m in enumerate(ms):
             box, cls = m[:, :4 * 16].float(), m[:, 4 * 16:].float()
             out[f"blocks.head_{t}.box{i}.2.w"].mul_(BOX_STD / float(box.std()))
             out[f"blocks.head_{t}.cls{i}.2.w"].mul_(CLS_STD / float(cls.std()))
     del maps
-    ref = Reference(cfg, tasks, ncs, out, torch.float32)  # the scaled towers
+    ref = reference(out)  # the scaled towers
     logits = {}  # (task, level) -> the class logits of every served frame, bias 0
     for x in (served() if served is not None else [calib]):
         for t, ms in ref.features(x).items():

@@ -1,6 +1,7 @@
 """Work counted from shapes: each convolution's operations and bytes, the
 published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), and
-the least time a convolution can take on them.
+the least time a convolution can take on them. `convs` counts the YOLOv8
+family's forward (families/yolov8.py); another family counts its own.
 
 A convolution's operations are 2 x MACs (Ho * Wo * Co * Ci * k * k per
 image); its bytes are its input, weight and output, each counted once, at
@@ -18,11 +19,18 @@ from benchmark.reference.model import REG_MAX, branch_uids, head_widths, parse
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 BYTES = {"int8": 1, "bf16": 2}
+# the values each pass of a training BatchNorm + SiLU reads or writes, for a
+# value of its map, by the wrapper that launches it (readers.BN_SILU_KERNELS):
+# the statistics read x; the affine + SiLU reads x, writes y; the gradient's
+# reduction reads x, dy; dx reads x, dy, writes dx
+BN_SILU_PASS_VALUES = {"bn_stats": 1, "bn_apply": 2, "bn_grad_reduce": 2, "bn_dx": 3}
 
 
 class ConvWork(NamedTuple):
     name: str
-    kind: str          # "conv" (Conv: conv + BN + SiLU) or "plain" (a tower's last 1x1)
+    # "conv" (Conv: conv + BN + SiLU) or "plain" (a tower's last 1x1); a family
+    # may add kinds, each read by readers of its own (conv_roofline reads these two)
+    kind: str
     macs: int          # per image
     in_elems: int      # per image
     w_elems: int
@@ -96,6 +104,15 @@ def least_seconds(c: ConvWork, precision: str, images: int) -> float:
     b_in = BYTES[precision]
     nbytes = images * (c.in_elems * b_in + c.out_elems * 2) + c.w_elems * b_in
     return max(2.0 * c.macs * images / PEAK_OPS[precision], nbytes / PEAK_BYTES)
+
+
+def bn_silu_bytes(work: List[ConvWork], images: int) -> float:
+    """The bytes the training BatchNorm + SiLU passes move over `images`
+    images' forward `work`: a BatchNorm on each Conv's output ("conv"
+    kind), each value read or written once a pass (BN_SILU_PASS_VALUES), in
+    bfloat16."""
+    return sum(BN_SILU_PASS_VALUES.values()) * BYTES["bf16"] * images * sum(
+        c.out_elems for c in work if c.kind == "conv")
 
 
 def peak_seconds(work: List[ConvWork], precision: str, images: int) -> float:
